@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``cooperative_training_and_latent_space_data_augmentation_tpu``.
+
+The JAX package is the reference; this package computes the same functions
+in PyTorch, NCHW inside, with the TPU package's Pallas kernels rewritten by
+hand for NVIDIA Hopper (``csrc/``, built by :mod:`.kernels`).  It imports
+``torch`` and numpy, never JAX or the JAX package.
+
+Ported so far: the eval-mode FTN+STN predictor
+(:class:`.train.predictor.CooperativePredictor`) with kernel K1, the CHW 3x3
+conv (:mod:`.ops.conv_chw`), and the weight converter :mod:`.convert`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by plain ``nvcc`` for ``sm_90a`` into
+a shared library with a C interface, at first use, and loaded with
+``ctypes``.  A library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and a stale one is never loaded.  The build
+directory sits inside the package (``_build/``, ignored by git).
+
+Nothing here runs at import: the CPU tests import every module of the port
+on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+# name -> source file under csrc/
+SOURCES: Dict[str, str] = {
+    "conv3x3_chw": "conv3x3_chw.cu",
+}
+
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then the
+    toolkit directory PyTorch found."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").is_file():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
+    """Compile every named library that is not built yet.  Returns
+    ``{name: {"seconds", "log"}}`` for the ones compiled here (``log`` is
+    nvcc's output, with ptxas's register and shared-memory report).  Raises
+    if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = {}
+    for name in names:
+        target = library_path(name)
+        if target.is_file():
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                               f"{proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+        done[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,52 @@
+"""The port and chip_smoke.py import without JAX, as on the GPU machine,
+which has PyTorch but no jax, flax or optax.
+
+A fresh interpreter refuses every import of jax, flax, optax and the JAX
+package, then imports every module of the port and ``chip_smoke``.  Nothing
+may be built or launched by importing.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax",
+               "cooperative_training_and_latent_space_data_augmentation_tpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"refused import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import cooperative_training_and_latent_space_data_augmentation_tpu_torch as port
+
+    names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    assert not kernels._libs, "a kernel library was loaded at import"
+    assert conv_chw.conv3x3_chw.launches == 0
+    leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+    assert not leaked, leaked
+    print("imported", len(names), "modules")
+""")
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n = int(proc.stdout.split("imported")[1].split()[0])
+    assert n >= 10, proc.stdout
