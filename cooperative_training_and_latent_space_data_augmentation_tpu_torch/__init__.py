@@ -6,8 +6,11 @@ hand for NVIDIA Hopper (``csrc/``, built by :mod:`.kernels`).  It imports
 ``torch`` and numpy, never JAX or the JAX package.
 
 Ported so far: the eval-mode FTN+STN predictor
-(:class:`.train.predictor.CooperativePredictor`) with kernel K1, the CHW 3x3
-conv (:mod:`.ops.conv_chw`), and the weight converter :mod:`.convert`.
+(:class:`.train.predictor.CooperativePredictor`), the cooperative train step
+with latent masking (:class:`.train.cooperative.CooperativeTrainer`), the
+kernels K1 (the CHW 3x3 conv and its input gradient, :mod:`.ops.conv_chw`),
+K2 (its weight gradient) and K3 (the masking threshold,
+:mod:`.ops.percentile_mask`), and the converters in :mod:`.convert`.
 """
 
 __version__ = "0.1.0"

@@ -11,10 +11,17 @@ It maps HWIO conv kernels to OIHW, flax's k2s2 ``ConvTranspose`` kernel to
 cross-correlates the dilated input, PyTorch convolves it), and BN
 scale/bias/mean/var to weight/bias/running_mean/running_var.  It needs
 numpy only (no JAX): arrays are read with ``np.asarray``.
+
+``train_state_from_jax(params, batch_stats, opt_state)`` adds the optax
+Adam state: its first and second moments ``mu`` and ``nu`` have the
+params' tree and go through the same maps, and its ``count`` is the step.
+:meth:`..train.cooperative.CooperativeTrainer.load_train_state` loads the
+result, so a JAX run can be resumed in the port.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Mapping
 
 import numpy as np
@@ -107,3 +114,41 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, StateDict]:
         "shape_decoder": decoder(params["shape_decoder"], batch_stats["shape_decoder"]),
         "image_decoder": decoder(params["image_decoder"], batch_stats["image_decoder"]),
     }
+
+
+@dataclass
+class TrainState:
+    """A JAX train state in the port's terms: ``state_dicts`` as
+    :func:`from_jax` gives them; Adam's moments ``exp_avg`` (optax ``mu``)
+    and ``exp_avg_sq`` (``nu``) as ``{module: {parameter name: tensor}}``;
+    ``step``, the number of Adam steps taken (optax ``count``)."""
+
+    state_dicts: Dict[str, StateDict]
+    exp_avg: Dict[str, StateDict]
+    exp_avg_sq: Dict[str, StateDict]
+    step: int
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) of an optax adam state,
+    found by its fields (the port does not import optax)."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    for part in opt_state:
+        if hasattr(part, "mu"):
+            return part
+    raise ValueError("train_state_from_jax: no Adam state (count, mu, nu) in opt_state")
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state) -> TrainState:
+    """The JAX solver's ``TrainState`` fields -> :class:`TrainState`."""
+    adam = _adam_state(opt_state)
+
+    def moments(tree) -> Dict[str, StateDict]:
+        full = from_jax(tree, batch_stats)
+        return {m: {k: v for k, v in sd.items()
+                    if not k.rsplit(".", 1)[-1].startswith("running_")}
+                for m, sd in full.items()}
+
+    return TrainState(from_jax(params, batch_stats), moments(adam.mu), moments(adam.nu),
+                      int(np.asarray(adam.count)))

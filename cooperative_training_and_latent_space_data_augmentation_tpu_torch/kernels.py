@@ -29,6 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "conv3x3_chw": "conv3x3_chw.cu",
+    "conv3x3_chw_dw": "conv3x3_chw_dw.cu",
+    "percentile_mask": "percentile_mask.cu",
 }
 
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -65,27 +67,44 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
-    """Compile every named library that is not built yet.  Returns
-    ``{name: {"seconds", "log"}}`` for the ones compiled here (``log`` is
-    nvcc's output, with ptxas's register and shared-memory report).  Raises
-    if a compile fails."""
+    """Compile every named library that is not built yet, one ``nvcc``
+    process per source, all started together.  Returns ``{name:
+    {"seconds", "log"}}`` for the ones compiled here (``log`` is nvcc's
+    output, with ptxas's register and shared-memory report).  Raises if a
+    compile fails, after every started compile has ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    done = {}
+    started = {}
     for name in names:
         target = library_path(name)
         if target.is_file():
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, tmp, target, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, target, t0) in started.items():
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                               f"{proc.returncode}\n{proc.stdout}")
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-        done[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+        done[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return done
+
+
+def raise_on_error(name: str, rc: int, what: str) -> None:
+    """Raise if a C launcher of library ``name`` returned a CUDA error
+    (``rc`` != 0), with the error's text from ``<name>_error_string``."""
+    if rc == 0:
+        return
+    msg = getattr(load(name), f"{name}_error_string")
+    msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
+    raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
+                       f"({msg(rc).decode()}) for {what}")
 
 
 def load(name: str) -> ctypes.CDLL:

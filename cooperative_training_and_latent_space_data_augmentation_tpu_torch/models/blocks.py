@@ -1,4 +1,4 @@
-"""Residual conv building blocks, NCHW, eval mode.
+"""Residual conv building blocks, NCHW.
 
 Counterpart of ``cooperative_training_and_latent_space_data_augmentation_tpu/
 models/blocks.py``.  Module and parameter names follow the reference
@@ -13,12 +13,15 @@ In NCHW, (N, C, H*W) is a free view of the activation, so one route serves
 both: each :class:`Conv` sends its eligible 3x3 convs to K1 and the rest to
 ``F.conv2d``, and the kernel launches are the same as the JAX fused route's.
 
-BatchNorm here is eval mode only (running statistics).  Train mode comes
-with the training slice; calling it raises.
+BatchNorm has the JAX package's three modes: eval (running statistics),
+train (batch statistics, running statistics updated) and train with
+frozen statistics (batch statistics, no update; :func:`frozen_stats`), the
+reference's ``_disable_tracking_bn_stats``.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -31,25 +34,34 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_
 )
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention: running <- 0.9 * running + 0.1 * batch
 LEAKY_SLOPE = 0.2
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.2) with the slope rounded to x's dtype first: JAX
-    multiplies a bf16 activation by bf16(0.2) = 0.2001953125, PyTorch by
+    """LeakyReLU(0.2) written as flax's ``nn.leaky_relu``,
+    ``where(x >= 0, x, slope * x)``, so that its gradient at exactly 0 is 1
+    as in JAX (``F.leaky_relu``'s is the slope; exact zeros are common in
+    bf16 after a residual add).  The slope is rounded to x's dtype first:
+    JAX multiplies a bf16 activation by bf16(0.2) = 0.2001953125, PyTorch by
     the float 0.2, and the two products round apart for about one negative
     activation in four."""
     slope = torch.tensor(LEAKY_SLOPE, dtype=x.dtype).item()
-    return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * slope)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d over channel axis 1 with ``nn.BatchNorm2d``'s state dict.
+    """BatchNorm2d over channel axis 1 with ``nn.BatchNorm2d``'s state dict,
+    the JAX package's ``models/blocks.py:BatchNorm``.
 
-    Eval mode: normalizes with the running statistics, computing in float32
-    and casting the result back to the input dtype (the JAX package's
-    rounding point under bf16 mixed precision).  Works on (N, C, H, W) and
-    (N, C, H*W) alike.
+    Statistics and affine math are float32 and the result is cast back to
+    the input dtype (the JAX package's rounding point under bf16 mixed
+    precision).  Eval mode normalizes with the running statistics.  Train
+    mode normalizes with the batch mean and biased variance over every axis
+    but 1 and, unless ``update_stats`` is off (:func:`frozen_stats`), moves
+    the running statistics by ``BN_MOMENTUM`` toward the batch mean and the
+    unbiased (Bessel-corrected) variance, as torch's BatchNorm2d does.
+    Works on (N, C, H, W) and (N, C, H*W) alike.
     """
 
     def __init__(self, features: int):
@@ -58,17 +70,44 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm: only eval mode (running statistics) is ported; "
-                "call .eval() on the model")
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        y = ((x.float() - self.running_mean.view(shape))
-             * torch.rsqrt(self.running_var.view(shape) + BN_EPS)
+        x32 = x.float()
+        if self.training:
+            axes = [0] + list(range(2, x.dim()))
+            mean = x32.mean(axes)
+            var = (x32 - mean.view(shape)).square().mean(axes)
+            if self.update_stats:
+                n = x.numel() // x.shape[1]
+                unbiased = var.detach() * (n / (n - 1.0)) if n > 1 else var.detach()
+                m = BN_MOMENTUM
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.detach())
+                    self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = ((x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
              * self.weight.view(shape) + self.bias.view(shape))
         return y.to(x.dtype)
+
+
+@contextmanager
+def frozen_stats(*modules: nn.Module):
+    """Train-mode BatchNorms of ``modules`` normalize with batch statistics
+    but leave their running statistics alone while the block runs: the
+    JAX package discarding the emitted ``batch_stats``, the reference's
+    ``_disable_tracking_bn_stats``."""
+    bns = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    before = [bn.update_stats for bn in bns]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn, flag in zip(bns, before):
+            bn.update_stats = flag
 
 
 class LeakyReLU(nn.Module):

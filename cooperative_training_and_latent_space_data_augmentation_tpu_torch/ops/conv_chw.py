@@ -1,16 +1,26 @@
-"""The CHW 3x3 convolution (kernel K1) and the conv dispatcher.
+"""The CHW 3x3 convolution (kernel K1), its gradients (K1 on flipped
+weights for dx, kernel K2 for dw) and the conv dispatcher.
 
 Counterpart of ``cooperative_training_and_latent_space_data_augmentation_tpu/
 ops/pallas_conv.py``: ``weights_to_wall``, the channel eligibility rule,
-``conv3x3_chw`` and the ``Conv`` dispatcher.  The JAX package's
-CHW-resident entry (``Conv(chw=...)``, ``nhwc_to_chw``, ``chw_to_nhwc``) has
-no counterpart: in NCHW the (N, C, H*W) kernel layout is a free view of
-every activation, so the one NCHW route serves both.
+``conv3x3_chw``, ``_conv3x3_chw_dw``, ``_flip_w``, the custom-VJP
+``conv3x3_chw_ad`` (its ``PALLAS_VJP=pallas`` route) and the ``Conv``
+dispatcher.  The JAX package's CHW-resident entry (``Conv(chw=...)``,
+``nhwc_to_chw``, ``chw_to_nhwc``) has no counterpart: in NCHW the (N, C,
+H*W) kernel layout is a free view of every activation, so the one NCHW
+route serves both.
 
-``conv3x3_chw`` is the wrapper of K1 (``csrc/conv3x3_chw.cu``): on a CUDA
-tensor it launches the kernel or raises; on a CPU tensor it runs
-:func:`conv3x3_chw_plain`, the same function written in plain PyTorch (the
-CPU tests' path and the reference the kernel is held against on the card).
+Each kernel has a wrapper that on a CUDA tensor launches the kernel (or
+raises) and adds one to its ``launches`` count, and on a CPU tensor runs
+the same function written in plain PyTorch (the CPU tests' path and the
+reference the kernel is held against on the card):
+
+* :func:`conv3x3_chw` (K1, ``csrc/conv3x3_chw.cu``), plain
+  :func:`conv3x3_chw_plain`;
+* :func:`conv3x3_chw_dx`: K1 on dy with the wall of the flipped,
+  transposed kernel, counted apart from the forward;
+* :func:`conv3x3_chw_dw` (K2, ``csrc/conv3x3_chw_dw.cu``), plain
+  :func:`conv3x3_chw_dw_plain`.
 
 Weights are PyTorch's OIHW.  The kernel takes them in the "wall" form
 (C_out, 9*C_in), tap-major: column ``t*C_in + i`` holds ``w[:, i, t // 3,
@@ -87,6 +97,21 @@ def _k1():
     return fn
 
 
+def _launch_k1(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_chw: no kernel for device {x.device}")
+    n, c_in, L = x.shape
+    c_out = w_all.shape[0]
+    out = torch.empty((n, c_out, L), dtype=x.dtype, device=x.device)
+    fn = _k1()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w_all.data_ptr(), out.data_ptr(), n, c_in, c_out,
+                H, W, int(x.dtype == torch.bfloat16), stream)
+    kernels.raise_on_error("conv3x3_chw", rc, f"x {tuple(x.shape)}, C_out {c_out}")
+    return out
+
+
 def conv3x3_chw(x: torch.Tensor, w_all: torch.Tensor, H: int,
                 W: int) -> torch.Tensor:
     """SAME stride-1 3x3 conv: x (N, C_in, H*W), w_all (C_out, 9*C_in) in
@@ -99,27 +124,154 @@ def conv3x3_chw(x: torch.Tensor, w_all: torch.Tensor, H: int,
     _check_k1_args(x, w_all, H, W)
     if x.device.type == "cpu":
         return conv3x3_chw_plain(x, w_all, H, W)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_chw: no kernel for device {x.device}")
-    n, c_in, L = x.shape
-    c_out = w_all.shape[0]
-    out = torch.empty((n, c_out, L), dtype=x.dtype, device=x.device)
-    fn = _k1()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w_all.data_ptr(), out.data_ptr(), n, c_in, c_out,
-                H, W, int(x.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        msg = kernels.load("conv3x3_chw").conv3x3_chw_error_string
-        msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"conv3x3_chw: launch failed with CUDA error {rc} "
-                           f"({msg(rc).decode()}) for x {tuple(x.shape)}, "
-                           f"C_out {c_out}")
+    out = _launch_k1(x, w_all, H, W)
     conv3x3_chw.launches += 1
     return out
 
 
 conv3x3_chw.launches = 0
+
+
+def flip_wall(w_all: torch.Tensor) -> torch.Tensor:
+    """The wall of the flipped, transposed kernel, the JAX package's
+    ``weights_to_wall(_flip_w(w))``: for OIHW ``w``, ``w'[i, o, kh, kw] =
+    w[o, i, 2-kh, 2-kw]``, so (C_out, 9*C_in) -> (C_in, 9*C_out) with
+    column ``t*C_out + o`` of row ``i`` read from ``w_all[o, (8-t)*C_in + i]``."""
+    c_out, k = w_all.shape
+    c_in = k // 9
+    return w_all.reshape(c_out, 9, c_in).flip(1).permute(2, 1, 0).reshape(c_in, 9 * c_out)
+
+
+def conv3x3_chw_dx(dy: torch.Tensor, w_all: torch.Tensor, H: int,
+                   W: int) -> torch.Tensor:
+    """Input gradient of :func:`conv3x3_chw`: dy (N, C_out, H*W), w_all
+    (C_out, 9*C_in) -> dx (N, C_in, H*W) in dy's dtype.  A SAME 3x3 conv's
+    input gradient is the SAME 3x3 conv of dy with the flipped, transposed
+    kernel, so this is K1 on :func:`flip_wall`.
+
+    On a CUDA tensor this launches K1 and adds one to
+    ``conv3x3_chw_dx.launches`` (not to the forward's count); on a CPU
+    tensor it runs :func:`conv3x3_chw_plain` on the flipped wall."""
+    w_flip = flip_wall(w_all).contiguous()
+    _check_k1_args(dy, w_flip, H, W)
+    if dy.device.type == "cpu":
+        return conv3x3_chw_plain(dy, w_flip, H, W)
+    out = _launch_k1(dy, w_flip, H, W)
+    conv3x3_chw_dx.launches += 1
+    return out
+
+
+conv3x3_chw_dx.launches = 0
+
+
+def conv3x3_chw_dw_plain(x: torch.Tensor, dy: torch.Tensor, H: int,
+                         W: int) -> torch.Tensor:
+    """K2's function in plain PyTorch: ``sum_n P_n @ dy_n^T`` with P the
+    tap matrix of :func:`conv3x3_chw_plain`, in float32 -> (9*C_in, C_out),
+    row ``t*C_in + i``, column ``o``."""
+    n, c_in, _ = x.shape
+    xp = F.pad(x.float().reshape(n, c_in, H, W), (1, 1, 1, 1))
+    taps = [xp[:, :, ki:ki + H, kj:kj + W] for ki in range(3) for kj in range(3)]
+    p = torch.stack(taps, dim=1).reshape(n, 9 * c_in, H * W)
+    return torch.einsum("nkl,nol->ko", p, dy.float())
+
+
+def _check_k2_args(x: torch.Tensor, dy: torch.Tensor, H: int, W: int):
+    if x.dtype not in (torch.float32, torch.bfloat16) or dy.dtype != x.dtype:
+        raise TypeError(f"conv3x3_chw_dw: x and dy must both be float32 or both "
+                        f"bfloat16, got {x.dtype} and {dy.dtype}")
+    if dy.device != x.device:
+        raise ValueError(f"conv3x3_chw_dw: dy on {dy.device}, x on {x.device}")
+    if (x.dim() != 3 or dy.dim() != 3 or x.shape[2] != H * W or dy.shape[2] != H * W
+            or dy.shape[0] != x.shape[0] or H < 1 or W < 1):
+        raise ValueError(f"conv3x3_chw_dw: x {tuple(x.shape)} and dy {tuple(dy.shape)} "
+                         f"are not (N, C, {H}*{W})")
+    if not (x.shape[0] >= 1 and x.shape[1] >= 1 and 1 <= dy.shape[1] <= MAX_CH):
+        raise ValueError(f"conv3x3_chw_dw: needs N >= 1, C_in >= 1 and "
+                         f"1 <= C_out <= {MAX_CH}, got x {tuple(x.shape)}, "
+                         f"dy {tuple(dy.shape)}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("conv3x3_chw_dw: x and dy must be contiguous")
+
+
+def _k2():
+    lib = kernels.load("conv3x3_chw_dw")
+    fn, ws = lib.conv3x3_chw_dw, lib.conv3x3_chw_dw_workspace
+    if fn.argtypes is None:  # pointers and the stream must not pass as 32-bit ints
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def conv3x3_chw_dw(x: torch.Tensor, dy: torch.Tensor, H: int,
+                   W: int) -> torch.Tensor:
+    """Weight gradient of :func:`conv3x3_chw`: x (N, C_in, H*W), dy (N,
+    C_out, H*W), both float32 or both bfloat16 -> (9*C_in, C_out) float32,
+    summed over the batch in a fixed order (no float atomics), so two runs
+    on the same inputs agree bit for bit.
+
+    On a CUDA tensor this launches K2 and adds one to
+    ``conv3x3_chw_dw.launches``; on a CPU tensor it runs
+    :func:`conv3x3_chw_dw_plain`."""
+    _check_k2_args(x, dy, H, W)
+    if x.device.type == "cpu":
+        return conv3x3_chw_dw_plain(x, dy, H, W)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_chw_dw: no kernel for device {x.device}")
+    n, c_in, _ = x.shape
+    c_out = dy.shape[1]
+    fn, ws_size = _k2()
+    work = torch.empty(ws_size(n, c_in, c_out, H, W), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dy.data_ptr(), work.data_ptr(), out.data_ptr(), n,
+                c_in, c_out, H, W, int(x.dtype == torch.bfloat16), stream)
+    kernels.raise_on_error("conv3x3_chw_dw", rc,
+                           f"x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    conv3x3_chw_dw.launches += 1
+    return out
+
+
+conv3x3_chw_dw.launches = 0
+
+
+class _ConvK1(torch.autograd.Function):
+    """K1 with its gradients, the JAX package's ``conv3x3_chw_ad`` on its
+    ``PALLAS_VJP=pallas`` route: dx is K1 on the flipped wall (only where x
+    needs a gradient: not for an image or a label), dw is K2, rounded to
+    the weight's compute dtype as JAX rounds it (``dw.astype(w.dtype)``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_all, H, W):
+        ctx.save_for_backward(x, w_all)
+        ctx.hw = (H, W)
+        return conv3x3_chw(x, w_all, H, W)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_all = ctx.saved_tensors
+        H, W = ctx.hw
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_chw_dx(dy, w_all, H, W)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_chw_dw(x, dy, H, W).t().to(w_all.dtype)
+        return dx, dw, None, None
+
+
+def conv3x3_chw_ad(x: torch.Tensor, w_all: torch.Tensor, H: int,
+                   W: int) -> torch.Tensor:
+    """Differentiable :func:`conv3x3_chw`: the gradient of w_all comes
+    back in the wall layout (C_out, 9*C_in); autograd maps it through
+    :func:`weights_to_wall` to the OIHW weight."""
+    return _ConvK1.apply(x, w_all, H, W)
 
 
 @contextmanager
@@ -128,7 +280,9 @@ def full_f32(dtype: torch.dtype):
     round f32 conv inputs to TF32 (10-bit mantissa) by default; the port's
     f32 convs (the latent and output heads, the code decoupler, and every
     conv of an f32 predictor) compute in full f32 whatever that global
-    setting says.  Other dtypes run untouched."""
+    setting says.  Their backward runs later, outside the forward's block,
+    so the trainer wraps each backward in ``full_f32(torch.float32)``.
+    Other dtypes run untouched."""
     if dtype != torch.float32:
         yield
         return
@@ -147,7 +301,8 @@ class Conv(nn.Module):
 
     * a stride-1 SAME 3x3 conv with eligible channels goes to K1, on the
       (N, C, H*W) view of the NCHW input (a free reshape in PyTorch's
-      layout, so no transpose is needed around it);
+      layout, so no transpose is needed around it), through
+      :func:`conv3x3_chw_ad`, so its backward runs K1 (dx) and K2 (dw);
     * every other conv goes to ``F.conv2d``, as the JAX package leaves those
       to XLA, in full f32 when it computes in f32 (:func:`full_f32`);
     * the bias is added after the conv, in the compute dtype.
@@ -174,8 +329,8 @@ class Conv(nn.Module):
         w = self.weight.to(dt)
         if self.uses_k1():
             n, c, h, ww = x.shape
-            y = conv3x3_chw(x.reshape(n, c, h * ww).contiguous(),
-                            weights_to_wall(w).contiguous(), h, ww)
+            y = conv3x3_chw_ad(x.reshape(n, c, h * ww).contiguous(),
+                               weights_to_wall(w).contiguous(), h, ww)
             y = y.reshape(n, -1, h, ww)
         else:
             with full_f32(dt):

@@ -38,7 +38,11 @@ TOP = 12                # kernels listed by device time
 def _group(name: str) -> str:
     low = name.lower()
     if "conv3x3_chw_kernel" in name:
-        return "K1 conv3x3_chw"
+        return "K1 conv3x3_chw (forward and dx)"
+    if "dw_partial_kernel" in name or "dw_reduce_kernel" in name:
+        return "K2 conv3x3_chw_dw"
+    if "percentile_mask_kernel" in name:
+        return "K3 percentile_mask"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("cudnn", "conv", "xmma", "implicit", "sm90_")):

@@ -35,8 +35,20 @@ SCRIPT = textwrap.dedent("""
 
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask,
+    )
+    expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.image", "ops.losses",
+                "ops.masking", "ops.percentile_mask", "models.blocks",
+                "models.encoder_decoder", "train.cooperative", "train.draws",
+                "train.predictor", "profile_predict", "profile_train", "data.synthetic"}
+    missing = {port.__name__ + "." + m for m in expected} - set(names)
+    assert not missing, missing
     assert not kernels._libs, "a kernel library was loaded at import"
-    assert conv_chw.conv3x3_chw.launches == 0
+    assert set(kernels.SOURCES) == {"conv3x3_chw", "conv3x3_chw_dw", "percentile_mask"}
+    for fn in (conv_chw.conv3x3_chw, conv_chw.conv3x3_chw_dx, conv_chw.conv3x3_chw_dw,
+               percentile_mask.percentile_mask):
+        assert fn.launches == 0
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
     print("imported", len(names), "modules")
@@ -49,4 +61,4 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported")[1].split()[0])
-    assert n >= 10, proc.stdout
+    assert n >= 18, proc.stdout

@@ -129,13 +129,21 @@ def test_conv_transpose_flip():
 
 
 def test_batchnorm_eval_only():
+    """Eval mode normalizes with the running statistics alone and keeps the
+    input dtype.  (Train mode, ported with the train step, normalizes with
+    the batch's: tests/test_torch_port_masking.py.)"""
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
         BatchNorm,
     )
 
     bn = BatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(1, 4, 2, 2))
+    x = torch.arange(16, dtype=torch.float32).reshape(1, 4, 2, 2)
+    train_out = bn(x)                      # batch statistics, running ones move
+    assert train_out.abs().max() < 2 and not bn.running_mean.eq(0).all()
     bn.eval()
+    with torch.no_grad():
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0)
+    torch.testing.assert_close(bn(x), x / (1 + 1e-5) ** 0.5)
     y = bn(torch.ones(1, 4, 2, 2, dtype=torch.bfloat16))
     assert y.dtype == torch.bfloat16

@@ -73,3 +73,53 @@ def test_replay_leaves_tells_order_from_rounding(dtype, stand_in, passes, monkey
     else:
         with pytest.raises(AssertionError, match="CPU twin"):
             chip_smoke.replay_leaves(torch, card, twin, image, "stand-in")
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    ms, by = chip_smoke.bound(3.35e9, 1.0, "bfloat16")           # 1 ms of bytes
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
+    ms, by = chip_smoke.bound(1.0, 67e9, "float32")              # 1 ms of f32 operations
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+
+
+def test_train_check_mask_rule():
+    """Masks may differ only where the saliency sits within twice the
+    card-vs-CPU saliency difference of the row's threshold."""
+    want_sal = torch.tensor([[4.0, 3.0, 2.0, 1.0]])
+    want = torch.tensor([[0.0, 1.0, 1.0, 1.0]])     # p = 0.25: idx 1, threshold 3.0
+    assert chip_smoke.assert_masks_agree(torch, want, want, want_sal, want_sal, 0.25, "") == 0
+    swapped = torch.tensor([[0.0, 0.0, 1.0, 1.0]])  # 3.0 masked on the card
+    near = want_sal + torch.tensor([[0.0, 1e-6, 0.0, 0.0]])
+    assert chip_smoke.assert_masks_agree(torch, swapped, want, near, want_sal, 0.25, "") == 1
+    far = torch.tensor([[0.0, 1.0, 0.0, 1.0]])      # 2.0 masked: far from the threshold
+    with pytest.raises(AssertionError):
+        chip_smoke.assert_masks_agree(torch, far, want, near, want_sal, 0.25, "")
+
+
+def test_recording_shapes_keeps_the_launch_counts(monkeypatch):
+    """The train phase's shape recorder routes the wrappers through
+    itself; a wrapper's count, kept through its module-level name, must
+    come back to the wrapper."""
+    from collections import Counter
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import masking
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+
+    calls = []
+    orig = conv_chw.conv3x3_chw_dw
+
+    def counted(x, dy, H, W):            # a stand-in that counts as a CUDA launch does
+        calls.append(1)
+        conv_chw.conv3x3_chw_dw.launches += 1
+        return orig(x, dy, H, W)
+
+    counted.launches = 5
+    monkeypatch.setattr(conv_chw, "conv3x3_chw_dw", counted)
+    seen = {k: Counter() for k in chip_smoke.LAUNCH_COUNTERS}
+    with chip_smoke.recording_shapes(conv_chw, pmask, masking, seen):
+        conv_chw.conv3x3_chw_dw(torch.randn(1, 2, 16), torch.randn(1, 3, 16), 4, 4)
+    assert conv_chw.conv3x3_chw_dw is counted and counted.launches == 6
+    assert seen["conv3x3_chw_dw"] == Counter({(2, 3, 4, 4): 1}) and calls == [1]
+    assert masking.percentile_mask is pmask.percentile_mask
