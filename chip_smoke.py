@@ -8,7 +8,10 @@ channels, 192x192x1 slices, 4 classes, bf16 convs) with weights drawn from
 a seed, on cardiac-like phantom slices made from a seed: the serving path,
 the cooperative FTN+STN predictor (``CooperativePredictor.predict(n_iter=
 2)``), and the training path, the cooperative train step with latent
-masking (``CooperativeTrainer.train_step``, batch 20, Adam lr 1e-4).
+masking (``CooperativeTrainer.train_step``, batch 20, Adam lr 1e-4).  Each
+path runs in the default configuration and in ``conv_s2=True`` (the JAX
+package's ``PALLAS_CONV_S2=1``: the encoders' 16->16 and 32->32 stride-2
+downsamples on kernel K4, with K4dx and K4dw in the backward).
 
 Phases, each printing its seconds when it ends:
 
@@ -18,33 +21,39 @@ Phases, each printing its seconds when it ends:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
-   and (20, 144), hard and soft, ties planted), with the tolerance stated;
-   at batch 20, median times from CUDA events for the kernel, the plain
-   version and one library call computing the same function where there
-   is one (``library_ms``, a yardstick the port never calls), and the
-   least time the card could take (``bound_ms``);
+   and (20, 144), hard and soft, ties planted; K4, K4dx and K4dw at
+   16->16 on 192x192 and 32->32 on 96x96, batch 20 and 160, bf16, and
+   batch 20 f32), with the tolerance stated; median times from CUDA events
+   for the kernel, the plain version and one library call computing the
+   same function where there is one (``library_ms``, a yardstick the port
+   never calls), and the least time the card could take (``bound_ms``);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
-   with the launch counts set to 0 just before and read just after.  Each
-   request must launch K1 as often as the path has K1 convs and return
-   finite values of the right shape.  Latency is on the host clock, as
-   min / median / p90 / max: a smoke-level reading, not a benchmark;
+   then 50 of 20 with ``conv_s2=True``, with the launch counts set to 0
+   just before each route and read just after.  Each request must launch
+   K1 (and K4) as often as the path has such convs and return finite
+   values of the right shape.  Latency is on the host clock, as min /
+   median / p90 / max: a smoke-level reading, not a benchmark.  Then a
+   ``predict`` on the model in train mode must give the eval-mode output
+   and leave every buffer and module mode as it was;
 5. check: every leaf module of one bf16 and one f32 request on the card
    held against its CPU twin on the very input the card gave it; then the
-   f32 and bf16 outputs end to end against the same predictor on the CPU;
-6. train: a trainer at batch 20, bf16, on one fixed phantom batch: two
-   steps with each branch forced on both codes (dropout, spatial,
-   channel), then 10 under ``mask_type="random"``, with the launch counts
-   set to 0 just before and read just after each step.  Each step must
-   launch K1 forward, K1 dx, K2 and K3 exactly as often as the branches it
-   drew require, and give finite losses; the standard loss on the first
-   step's input must be lower after the steps than before.  Step time on
-   the host clock as min / median / p90 / max (smoke-level);
-7. train-check: one f32 step on the card against the same step on the
-   CPU, same weights and draws, full width, batch 2 (channel masking on
-   the image code, spatial on the shape code): losses, Adam's first moment
-   (0.1 x the gradient, against the CPU step's own sensitivity to a
-   rounding-sized move of its input), the running statistics and the
-   masks.
+   f32 and bf16 outputs end to end against the same predictor on the CPU,
+   and the f32 output of ``conv_s2=True`` against its CPU twin;
+6. train: for the default configuration and then for ``conv_s2=True``, a
+   trainer at batch 20, bf16, on one fixed phantom batch: two steps with
+   each branch forced on both codes (dropout, spatial, channel), then 10
+   under ``mask_type="random"``, with the launch counts set to 0 just
+   before and read just after each step.  Each step must launch K1
+   forward, K1 dx, K2, K3, K4, K4dx and K4dw exactly as often as the
+   branches it drew require, and give finite losses; the standard loss on
+   the first step's input must be lower after the steps than before.  Step
+   time on the host clock as min / median / p90 / max (smoke-level);
+7. train-check: for each configuration, one f32 step on the card against
+   the same step on the CPU, same weights and draws, full width, batch 2
+   (channel masking on the image code, spatial on the shape code): losses,
+   Adam's first moment (0.1 x the gradient, against the CPU step's own
+   sensitivity to a rounding-sized move of its input), the running
+   statistics and the masks.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``, printed only when
@@ -82,7 +91,11 @@ KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
     "conv3x3_chw_dw": (f"{PORT}/csrc/conv3x3_chw_dw.cu", f"{JAX_PKG}/ops/pallas_conv.py:215"),
     "percentile_mask": (f"{PORT}/csrc/percentile_mask.cu",
                         f"{JAX_PKG}/ops/pallas_kernels.py:66"),
+    "conv3x3s2": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:499"),
+    "conv3x3s2_dx": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:547"),
+    "conv3x3s2_dw": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:588"),
 }
+S2_SHAPES = ((16, 16, 192, 192), (32, 32, 96, 96))  # (C_in, C_out, H, W) of the K4 convs
 TRAIN_BATCH = 20     # the reference's training batch
 FORCED_STEPS = 2     # steps with each branch forced
 RANDOM_STEPS = 10    # steps under mask_type="random"
@@ -402,24 +415,97 @@ def check_k3(torch, pmask, n, d, soft, flush=None):
     return rec
 
 
-LAUNCH_COUNTERS = ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "percentile_mask")
+def check_s2(torch, F, conv_chw, conv_s2, which, shape, n, dtype_name, flush=None):
+    """K4 (``which`` "fwd"), K4dx ("dx") or K4dw ("dw") against its plain
+    version at one forward shape (C_in, C_out, H, W): x (N, C_in, H*W), dy
+    (N, C_out, H/2*W/2).  K4 and K4dx: bf16 within one ulp of scale (one
+    rounding of nearly the same f32 sum), f32 within 1e-5 of scale (another
+    summation order); K4dw (f32 out, the same exact products summed in
+    another order) within 1e-5 of scale, and two launches bit for bit
+    equal.  With ``flush`` also its times and cuDNN's stride-2 conv, input
+    gradient or weight gradient."""
+    c_in, c_out, h, w = shape
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + c_out + h + 13)
+    x = torch.randn((n, c_in, h * w), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((n, c_out, (h // 2) * (w // 2)), generator=gen, device="cuda").to(dtype)
+    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device="cuda")
+             / (9 * c_in) ** 0.5).to(dtype)
+    x4, dy4 = x.view(n, c_in, h, w), dy.view(n, c_out, h // 2, w // 2)
+    w4 = w_all.view(c_out, 3, 3, c_in).permute(0, 3, 1, 2).contiguous()
+    fn, plain, library, out_bytes = {
+        "fwd": (lambda: conv_s2.conv3x3s2(x, w_all, h, w),
+                lambda: conv_s2.conv3x3s2_plain(x, w_all, h, w),
+                lambda: F.conv2d(x4, w4, None, 2, 1), dy.numel() * dy.element_size()),
+        "dx": (lambda: conv_s2.conv3x3s2_dx(dy, w_all, h, w),
+               lambda: conv_s2.conv3x3s2_dx_plain(dy, w_all, h, w),
+               lambda: torch.nn.grad.conv2d_input((n, c_in, h, w), w4, dy4, stride=2,
+                                                  padding=1), x.numel() * x.element_size()),
+        "dw": (lambda: conv_s2.conv3x3s2_dw(x, dy, h, w),
+               lambda: conv_s2.conv3x3s2_dw_plain(x, dy, h, w),
+               lambda: torch.nn.grad.conv2d_weight(x4, (c_out, c_in, 3, 3), dy4, stride=2,
+                                                   padding=1), 9 * c_in * c_out * 4),
+    }[which]
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = bf16_tol(torch, scale) if dtype_name == "bfloat16" and which != "dw" \
+        else 1e-5 * scale
+    same = bool(torch.equal(got, again))
+    rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
+           "tol": tol, "ok": err <= tol and (same or which != "dw")}
+    label = {"fwd": "K4", "dx": "K4dx", "dw": "K4dw"}[which]
+    print(f"  {label} {dtype_name} N={n} {c_in}->{c_out} @ {h}x{w}: max_abs_err {err:.3g} "
+          f"(tol {tol:.3g})" + (f", two launches bitwise equal: {same}" if which == "dw"
+                                else ""), end="" if flush is not None else "\n", flush=True)
+    if flush is None:
+        return rec
+    ms = time_ms(fn, torch, flush)
+    plain_ms = time_ms(plain, torch, flush)
+    with conv_chw.full_f32(dtype):  # an f32 conv in f32, not TF32
+        library_ms = time_ms(library, torch, flush)
+    in_bytes = {"fwd": x.numel() + w_all.numel(), "dx": dy.numel() + w_all.numel(),
+                "dw": x.numel() + dy.numel()}[which] * x.element_size()
+    b, by = bound(in_bytes + out_bytes,
+                  2.0 * n * c_out * 9 * c_in * (h // 2) * (w // 2), dtype_name)
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
+    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+          f"bound_ms {b:.4f} ({by})", flush=True)
+    return rec
+
+
+LAUNCH_COUNTERS = ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "percentile_mask",
+                   "conv3x3s2", "conv3x3s2_dx", "conv3x3s2_dw")
+
+
+def wrappers_of(conv_chw, pmask):
+    """The seven kernel wrappers by name (LAUNCH_COUNTERS)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
+
+    return {"conv3x3_chw": conv_chw.conv3x3_chw, "conv3x3_chw_dx": conv_chw.conv3x3_chw_dx,
+            "conv3x3_chw_dw": conv_chw.conv3x3_chw_dw,
+            "percentile_mask": pmask.percentile_mask, "conv3x3s2": conv_s2.conv3x3s2,
+            "conv3x3s2_dx": conv_s2.conv3x3s2_dx, "conv3x3s2_dw": conv_s2.conv3x3s2_dw}
 
 
 @contextmanager
 def recording_shapes(conv_chw, pmask, masking, seen):
-    """Route the four wrappers through recorders that add each call's
+    """Route the seven wrappers through recorders that add each call's
     shape to ``seen[wrapper]`` and call the wrapper itself (which launches
-    and counts as before): K1 forward, dx and K2 by their forward conv's
-    (C_in, C_out, H, W), K3 by (N, D)."""
-    orig = {"conv3x3_chw": conv_chw.conv3x3_chw, "conv3x3_chw_dx": conv_chw.conv3x3_chw_dx,
-            "conv3x3_chw_dw": conv_chw.conv3x3_chw_dw,
-            "percentile_mask": pmask.percentile_mask}
-    keys = {
-        "conv3x3_chw": lambda x, w_all, H, W: (x.shape[1], w_all.shape[0], H, W),
-        "conv3x3_chw_dx": lambda dy, w_all, H, W: (w_all.shape[1] // 9, w_all.shape[0], H, W),
-        "conv3x3_chw_dw": lambda x, dy, H, W: (x.shape[1], dy.shape[1], H, W),
-        "percentile_mask": lambda sal, p, soft: tuple(sal.shape),
-    }
+    and counts as before): K1 forward, dx, K2, K4, K4dx and K4dw by their
+    forward conv's (C_in, C_out, H, W), K3 by (N, D)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
+
+    orig = wrappers_of(conv_chw, pmask)
+    fwd = lambda x, w_all, H, W: (x.shape[1], w_all.shape[0], H, W)  # noqa: E731
+    dx = lambda dy, w_all, H, W: (w_all.shape[1] // 9, w_all.shape[0], H, W)  # noqa: E731
+    dw = lambda x, dy, H, W: (x.shape[1], dy.shape[1], H, W)  # noqa: E731
+    keys = {"conv3x3_chw": fwd, "conv3x3_chw_dx": dx, "conv3x3_chw_dw": dw,
+            "percentile_mask": lambda sal, p, soft: tuple(sal.shape),
+            "conv3x3s2": fwd, "conv3x3s2_dx": dx, "conv3x3s2_dw": dw}
+    homes = {name: conv_chw for name in LAUNCH_COUNTERS[:3]}
+    homes.update({name: conv_s2 for name in LAUNCH_COUNTERS[4:]})
 
     def recorder(name):
         def call(*args):
@@ -431,32 +517,31 @@ def recording_shapes(conv_chw, pmask, masking, seen):
         return call
 
     recorders = {name: recorder(name) for name in LAUNCH_COUNTERS}
-    for name in LAUNCH_COUNTERS[:3]:
-        setattr(conv_chw, name, recorders[name])
+    for name, home in homes.items():
+        setattr(home, name, recorders[name])
     masking.percentile_mask = recorders["percentile_mask"]
     try:
         yield
     finally:
-        for name in LAUNCH_COUNTERS[:3]:
-            setattr(conv_chw, name, orig[name])
+        for name, home in homes.items():
+            setattr(home, name, orig[name])
         masking.percentile_mask = orig["percentile_mask"]
         for name in LAUNCH_COUNTERS:
             orig[name].launches += recorders[name].launches
 
 
-def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, label):
-    """The train phase (see the module docstring).  Returns (launches by
-    wrapper over the phase, the random steps' calls by wrapper and shape,
-    step times of the random steps)."""
+def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, label,
+                conv_s2=False):
+    """The train phase (see the module docstring) of one configuration.
+    Returns (launches by wrapper over the phase, the random steps' calls by
+    wrapper and shape, step times of the random steps)."""
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
         frozen_stats,
     )
 
-    wrappers = {"conv3x3_chw": conv_chw.conv3x3_chw, "conv3x3_chw_dx": conv_chw.conv3x3_chw_dx,
-                "conv3x3_chw_dw": conv_chw.conv3x3_chw_dw,
-                "percentile_mask": pmask.percentile_mask}
+    wrappers = wrappers_of(conv_chw, pmask)
     trainer = coop.CooperativeTrainer(cfg.LatentDAConfig(), compute_dtype=torch.bfloat16,
-                                      device="cuda", seed=0)
+                                      device="cuda", seed=0, conv_s2=conv_s2)
     img = torch.from_numpy(image).to("cuda")
     lbl = torch.from_numpy(label).to("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -495,7 +580,8 @@ def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, la
                 first = (values, draws)
             if mask_type == "random":
                 times.append(sec)
-            print(f"  {mask_type:7s} branches image {branches['image']} shape "
+            print(f"  {'S2 ' if conv_s2 else ''}{mask_type:7s} branches image "
+                  f"{branches['image']} shape "
                   f"{branches['shape']}: {sec * 1e3:9.3f} ms, launches "
                   f"{[got[k] for k in LAUNCH_COUNTERS]}, loss/total "
                   f"{values['loss/total']:.4f}, loss/standard/total "
@@ -531,9 +617,10 @@ def assert_masks_agree(torch, got_mask, want_mask, got_sal, want_sal, p, what):
     return int(differ.sum())
 
 
-def train_check(torch, cfg, coop, draws_mod, image, label):
+def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False):
     """One f32 step on the card against the same step on the CPU (see the
-    module docstring).  Tolerances, f32 sums in other orders:
+    module docstring), in the default configuration or ``conv_s2=True``.
+    Tolerances, f32 sums in other orders:
 
     * losses: within 1e-4 of their value;
     * running statistics: within 1e-4 of each tensor's scale (40 layers of
@@ -553,11 +640,11 @@ def train_check(torch, cfg, coop, draws_mod, image, label):
                              shape_code=cfg.MaskConfig("ce", "spatial"))
     draws = draws_mod.draw_step(torch.Generator().manual_seed(1), CHECK_BATCH, (192, 192), lda)
     img, lbl = torch.from_numpy(image[:CHECK_BATCH]), torch.from_numpy(label[:CHECK_BATCH])
-    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1)
+    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1, conv_s2=conv_s2)
     got_m = gpu.train_step(img.to("cuda"), lbl.to("cuda"), draws.to("cuda"))
 
     def cpu_step(x):
-        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1)
+        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1, conv_s2=conv_s2)
         return trainer, trainer.train_step(x, lbl, draws)
 
     t0 = time.perf_counter()
@@ -629,7 +716,11 @@ def main():
         phantom_batch,
     )
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import config as cfg
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw, masking
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_chw,
+        conv_s2,
+        masking,
+    )
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
         percentile_mask as pmask,
     )
@@ -702,50 +793,103 @@ def main():
         k3_recs = {(d, soft): check_k3(torch, pmask, TRAIN_BATCH, d, soft,
                                        flush if soft else None)
                    for d in (128, 144) for soft in (False, True)}
+        # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
+        # shapes, timed in bf16 at the training and the serving batch,
+        # checked in f32 at the training batch
+        s2_recs = {(which, n): {sh: check_s2(torch, F, conv_chw, conv_s2, which, sh, n,
+                                             "bfloat16", flush) for sh in S2_SHAPES}
+                   for which in ("fwd", "dx", "dw") for n in (TRAIN_BATCH, SERVE_BATCH)}
+        s2_f32 = {which: [check_s2(torch, F, conv_chw, conv_s2, which, sh, TRAIN_BATCH,
+                                   "float32") for sh in S2_SHAPES]
+                  for which in ("fwd", "dx", "dw")}
         del flush
         bad = [r for r in list(dx_recs.values()) + [dx_f32] + list(dw_recs.values())
-               + [dw_f32] + list(k3_recs.values()) if not r["ok"]]
+               + [dw_f32] + list(k3_recs.values())
+               + [r for group in s2_recs.values() for r in group.values()]
+               + [r for group in s2_f32.values() for r in group] if not r["ok"]]
         if bad:
             raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
         torch.cuda.empty_cache()
 
+    wrappers = wrappers_of(conv_chw, pmask)
+    gpu_s2 = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0,
+                                  conv_s2=True)
+    gpu_s2.load_state_dict(gpu.state_dict())
+
+    def k4_convs(module):
+        return sum(isinstance(c, conv_chw.Conv) and c.uses_k4() for c in module.modules())
+
+    # K4 convs of one predict(n_iter=2): the FTN's encoder once, the STN's once
+    # per refinement
+    k4_per_request = (k4_convs(gpu_s2.image_encoder)
+                      + (N_ITER - 1) * k4_convs(gpu_s2.shape_encoder))
+
     with phase("serve"):
-        def serve(img):
-            before = conv_chw.conv3x3_chw.launches
+        def serve(model, img, k4_expected):
+            before = (conv_chw.conv3x3_chw.launches, conv_s2.conv3x3s2.launches)
             t0 = time.perf_counter()
-            out = gpu.predict(torch.from_numpy(img).to("cuda"), n_iter=N_ITER).cpu()
+            out = model.predict(torch.from_numpy(img).to("cuda"), n_iter=N_ITER).cpu()
             sec = time.perf_counter() - t0
-            launched = conv_chw.conv3x3_chw.launches - before
-            if launched != per_request:
-                raise AssertionError(f"K1 launched {launched} times for one request, "
-                                     f"expected {per_request}")
+            launched = (conv_chw.conv3x3_chw.launches - before[0],
+                        conv_s2.conv3x3s2.launches - before[1])
+            if launched != (per_request, k4_expected):
+                raise AssertionError(f"K1 and K4 launched {launched} times for one request, "
+                                     f"expected {(per_request, k4_expected)}")
             if out.shape != (img.shape[0], 192, 192, 4) or not torch.isfinite(out).all():
                 raise AssertionError(f"bad output {tuple(out.shape)}")
             return sec
 
-        def report(batch, lat):
+        def report(batch, lat, what=""):
             med = statistics.median(lat)
             p90 = statistics.quantiles(lat, n=10)[-1]
-            print(f"  batch {batch}, {len(lat)} requests: latency min {min(lat) * 1e3:.3f} "
-                  f"median {med * 1e3:.3f} p90 {p90 * 1e3:.3f} max {max(lat) * 1e3:.3f} ms; "
-                  f"{batch / med:.1f} slices/s at the median", flush=True)
+            print(f"  {what}batch {batch}, {len(lat)} requests: latency min "
+                  f"{min(lat) * 1e3:.3f} median {med * 1e3:.3f} p90 {p90 * 1e3:.3f} max "
+                  f"{max(lat) * 1e3:.3f} ms; {batch / med:.1f} slices/s at the median",
+                  flush=True)
 
-        for wrapper in (conv_chw.conv3x3_chw, conv_chw.conv3x3_chw_dx,
-                        conv_chw.conv3x3_chw_dw, pmask.percentile_mask):
+        for wrapper in wrappers.values():
             wrapper.launches = 0
-        serve(big)                                   # warm-up
-        report(SERVE_BATCH, [serve(big) for _ in range(N_SERVE_REQUESTS)])
-        serve(images[0])                             # warm-up
-        serve(images[1])
-        report(BATCH, [serve(images[r % N_IMAGES]) for r in range(N_REQUESTS)])
-        serve_launches = conv_chw.conv3x3_chw.launches
-        if serve_launches == 0:
+        serve(gpu, big, 0)                           # warm-up
+        report(SERVE_BATCH, [serve(gpu, big, 0) for _ in range(N_SERVE_REQUESTS)])
+        serve(gpu, images[0], 0)                     # warm-up
+        serve(gpu, images[1], 0)
+        report(BATCH, [serve(gpu, images[r % N_IMAGES], 0) for r in range(N_REQUESTS)])
+        serve_launches = {k: w.launches for k, w in wrappers.items()}
+        if serve_launches["conv3x3_chw"] == 0:
             raise AssertionError("K1 never launched on the serving path")
-        if (conv_chw.conv3x3_chw_dx.launches, conv_chw.conv3x3_chw_dw.launches,
-                pmask.percentile_mask.launches) != (0, 0, 0):
-            raise AssertionError("serving launched a gradient or mask kernel")
+        if any(v for k, v in serve_launches.items() if k != "conv3x3_chw"):
+            raise AssertionError(f"serving launched another kernel than K1: {serve_launches}")
         print(f"  K1 launches during the {N_SERVE_REQUESTS + N_REQUESTS + 3} requests "
-              f"(warm-ups included): {serve_launches}", flush=True)
+              f"(warm-ups included): {serve_launches['conv3x3_chw']}", flush=True)
+
+        # conv_s2=True: the same requests with the downsamples on K4
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        serve(gpu_s2, images[0], k4_per_request)     # warm-up
+        serve(gpu_s2, images[1], k4_per_request)
+        report(BATCH, [serve(gpu_s2, images[r % N_IMAGES], k4_per_request)
+                       for r in range(N_REQUESTS)], "conv_s2: ")
+        s2_serve_launches = {k: w.launches for k, w in wrappers.items()}
+        if s2_serve_launches["conv3x3s2"] != k4_per_request * (N_REQUESTS + 2) or any(
+                v for k, v in s2_serve_launches.items() if k not in ("conv3x3_chw", "conv3x3s2")):
+            raise AssertionError(f"conv_s2 serving launches {s2_serve_launches}")
+        print(f"  conv_s2: {k4_per_request} K4 launches a request; K1 and K4 launches "
+              f"during the {N_REQUESTS + 2} requests: {s2_serve_launches['conv3x3_chw']}, "
+              f"{s2_serve_launches['conv3x3s2']}", flush=True)
+
+        # a model in train mode predicts in eval mode and leaves its state
+        gpu_s2.train()
+        buffers = {k: v.clone() for k, v in gpu_s2.named_buffers()}
+        x0 = torch.from_numpy(images[0]).to("cuda")
+        got = gpu_s2.predict(x0, n_iter=N_ITER)
+        kept = all(torch.equal(v, buffers[k]) for k, v in gpu_s2.named_buffers())
+        modes = all(m.training for m in gpu_s2.modules())
+        gpu_s2.eval()
+        same = bool(torch.equal(got, gpu_s2.predict(x0, n_iter=N_ITER)))
+        print(f"  predict on the model in train mode: buffers unchanged {kept}, modes "
+              f"restored {modes}, output equal to eval mode's {same}", flush=True)
+        if not (kept and modes and same):
+            raise AssertionError("predict on a model in train mode changed it or its output")
 
     with phase("check"):
         gpu32 = CooperativePredictor(compute_dtype=None, device="cuda", seed=0)
@@ -761,46 +905,73 @@ def main():
         got16 = gpu.predict(x0.to("cuda"), n_iter=N_ITER).cpu()
         compare_bf16(got16, cpu.predict(x0, n_iter=N_ITER), want32,
                      "bf16 K1 path vs CPU plain, end to end")
+        # conv_s2=True: the bf16 layers (K4 among them) and the f32 output
+        cpu_s2 = CooperativePredictor(compute_dtype=torch.bfloat16, device="cpu", seed=0,
+                                      conv_s2=True)
+        cpu_s2.load_state_dict(gpu.state_dict())
+        replay_leaves(torch, gpu_s2, cpu_s2, images[0], "conv_s2 bf16 layer by layer")
+        gpu32_s2 = CooperativePredictor(device="cuda", seed=0, conv_s2=True)
+        cpu32_s2 = CooperativePredictor(device="cpu", seed=0, conv_s2=True)
+        gpu32_s2.load_state_dict(gpu.state_dict())
+        cpu32_s2.load_state_dict(gpu.state_dict())
+        compare_f32(gpu32_s2.predict(x0.to("cuda"), n_iter=N_ITER).cpu(),
+                    cpu32_s2.predict(x0, n_iter=N_ITER),
+                    "conv_s2 f32 K1+K4 path vs CPU plain, end to end")
 
-    del gpu, cpu, gpu32, cpu32
+    del gpu, cpu, gpu32, cpu32, gpu_s2, cpu_s2, gpu32_s2, cpu32_s2
     torch.cuda.empty_cache()
     train_image, train_label = phantom_batch(seed=7, n=TRAIN_BATCH)
 
     with phase("train"):
-        train_launches, seen, step_times = train_phase(
-            torch, conv_chw, pmask, masking, cfg, coop, draws_mod, train_image, train_label)
-        med = statistics.median(step_times)
-        p90 = statistics.quantiles(step_times, n=10)[-1]
-        print(f"  {RANDOM_STEPS} random steps of batch {TRAIN_BATCH} (host clock, smoke-level): "
-              f"min {min(step_times) * 1e3:.3f} median {med * 1e3:.3f} p90 {p90 * 1e3:.3f} "
-              f"max {max(step_times) * 1e3:.3f} ms; {TRAIN_BATCH / med:.1f} slices/s at the "
-              f"median", flush=True)
-        print(f"  launches over the train phase: {train_launches}", flush=True)
-        missing = [k for k, v in train_launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"never launched on the training path: {missing}")
-        torch.cuda.empty_cache()
+        runs = {}
+        for on in (False, True):
+            runs[on] = train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod,
+                                   train_image, train_label, conv_s2=on)
+            step_times = runs[on][2]
+            med = statistics.median(step_times)
+            p90 = statistics.quantiles(step_times, n=10)[-1]
+            print(f"  {'conv_s2: ' if on else ''}{RANDOM_STEPS} random steps of batch "
+                  f"{TRAIN_BATCH} (host clock, smoke-level): min {min(step_times) * 1e3:.3f} "
+                  f"median {med * 1e3:.3f} p90 {p90 * 1e3:.3f} max "
+                  f"{max(step_times) * 1e3:.3f} ms; {TRAIN_BATCH / med:.1f} slices/s at the "
+                  f"median", flush=True)
+            print(f"  launches over the {'conv_s2 ' if on else ''}train phase: {runs[on][0]}",
+                  flush=True)
+            torch.cuda.empty_cache()
+        missing = [k for k in LAUNCH_COUNTERS if runs[False][0][k] + runs[True][0][k] == 0]
+        if missing or any(runs[True][0][k] == 0 for k in LAUNCH_COUNTERS[4:]):
+            raise AssertionError(f"never launched on the training paths: {missing}")
 
     with phase("train-check"):
-        train_check(torch, cfg, coop, draws_mod, train_image, train_label)
+        for on in (False, True):
+            print(f"  {'conv_s2=True' if on else 'default configuration'}:", flush=True)
+            train_check(torch, cfg, coop, draws_mod, train_image, train_label, conv_s2=on)
 
     total = time.perf_counter() - t_start
     print(f"chip_smoke total {total:.1f} s", flush=True)
 
     # one record per kernel: ms, plain_ms, bound_ms and library_ms per
     # train step (batch 20, the mean calls per shape over the random steps
-    # times each shape's median time at N = 20); K1's serving numbers per
-    # request are printed in the kernels phase
+    # times each shape's median time at N = 20): K1, K2 and K3 from the
+    # default configuration's steps, K4, K4dx and K4dw from conv_s2's; K1's
+    # serving numbers per request are printed in the kernels phase
+    seen = {k: runs[k in LAUNCH_COUNTERS[4:]][1][k] for k in LAUNCH_COUNTERS}
     per_step = {k: {sh: n / RANDOM_STEPS for sh, n in seen[k].items()} for k in seen}
     timed = {"conv3x3_chw": recs, "conv3x3_chw_dx": dx_recs, "conv3x3_chw_dw": dw_recs,
              "percentile_mask": {(n, d): k3_recs[(d, True)] for (d, soft) in k3_recs if soft
-                                 for n in (TRAIN_BATCH,)}}
+                                 for n in (TRAIN_BATCH,)},
+             "conv3x3s2": s2_recs[("fwd", TRAIN_BATCH)],
+             "conv3x3s2_dx": s2_recs[("dx", TRAIN_BATCH)],
+             "conv3x3s2_dw": s2_recs[("dw", TRAIN_BATCH)]}
     checked = {"conv3x3_chw": list(recs.values()) + [f32_rec] + big_recs,
                "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32],
                "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32],
                "percentile_mask": list(k3_recs.values())}
-    launches = dict(train_launches)
-    launches["conv3x3_chw"] += serve_launches
+    for name, which in (("conv3x3s2", "fwd"), ("conv3x3s2_dx", "dx"), ("conv3x3s2_dw", "dw")):
+        checked[name] = [r for n in (TRAIN_BATCH, SERVE_BATCH)
+                         for r in s2_recs[(which, n)].values()] + s2_f32[which]
+    launches = {k: runs[False][0][k] + runs[True][0][k] + serve_launches[k]
+                + s2_serve_launches[k] for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:
         calls = per_step[name]

@@ -30,6 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, str] = {
     "conv3x3_chw": "conv3x3_chw.cu",
     "conv3x3_chw_dw": "conv3x3_chw_dw.cu",
+    "conv3x3s2": "conv3x3s2.cu",
     "percentile_mask": "percentile_mask.cu",
 }
 

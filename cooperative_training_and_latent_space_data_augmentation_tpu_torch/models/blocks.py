@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
     Conv,
+    eligible_channels,
     full_f32,
 )
 
@@ -142,12 +143,21 @@ class ResCore(nn.Module):
 
 
 class ResConvDown(ResCore):
-    """Stride-2 pad-1 3x3 downsample (``F.conv2d``: the JAX package's
-    default ``PALLAS_CONV_S2=0`` route), then the residual core."""
+    """Stride-2 pad-1 3x3 downsample, then the residual core.
 
-    def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype]):
+    The downsample runs on ``F.conv2d`` by default (the JAX package's
+    default ``PALLAS_CONV_S2=0`` route).  With ``conv_s2`` it runs on K4
+    wherever the JAX package's ``s2_chain_ok`` holds: max(C_in, features)
+    <= 64, and even H and W (checked per call by :class:`Conv`).  The JAX
+    package's CHW stage chaining around it is a layout change only, and in
+    NCHW the (N, C, H*W) kernel layout is a free view, so nothing else
+    changes route.  The parameters are the same under both routes."""
+
+    def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype],
+                 conv_s2: bool = False):
         super().__init__(c_in, features, dtype)
-        self.down = Conv(c_in, c_in, 3, stride=2, padding=1, dtype=dtype)
+        self.down = Conv(c_in, c_in, 3, stride=2, padding=1, dtype=dtype,
+                         k4=conv_s2 and eligible_channels(c_in, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(self.down(x))

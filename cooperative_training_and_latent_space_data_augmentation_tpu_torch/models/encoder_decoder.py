@@ -9,6 +9,10 @@ latent.
 Mixed precision as in the JAX package: the conv stacks compute in
 ``dtype`` (bf16 on the card); the latent head, the output head and the code
 decoupler compute in float32; BatchNorm always computes in float32.
+
+``conv_s2`` is the JAX package's ``PALLAS_CONV_S2`` switch, off by default:
+the encoders' stride-2 downsamples with at most 64 channels run on kernel
+K4 (:class:`..models.blocks.ResConvDown`).
 """
 
 from __future__ import annotations
@@ -36,13 +40,15 @@ class Encoder(nn.Module):
     residual stages -> float32 1x1 conv + BN -> ``act``."""
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
-                 act: Optional[str] = "relu", dtype: Optional[torch.dtype] = None):
+                 act: Optional[str] = "relu", dtype: Optional[torch.dtype] = None,
+                 conv_s2: bool = False):
         super().__init__()
         f = feature_reduce
         widths = (64 // f, 128 // f, 256 // f, 512 // f, 512 // f)
         self.inc = conv_bn_stack(in_ch, widths[0], dtype)
         for i in range(4):
-            self.add_module(f"down{i + 1}", ResConvDown(widths[i], widths[i + 1], dtype))
+            self.add_module(f"down{i + 1}",
+                            ResConvDown(widths[i], widths[i + 1], dtype, conv_s2))
         self.final_conv = nn.Sequential(
             Conv(widths[4], widths[4], 1, dtype=torch.float32), BatchNorm(widths[4]))
         self.act = _ACTS[act]
@@ -92,9 +98,9 @@ class DualBranchEncoder(nn.Module):
     """FTN encoder: x -> (z_i, z_s = code_decoupler(z_i))."""
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, conv_s2: bool = False):
         super().__init__()
-        self.general_encoder = Encoder(in_ch, feature_reduce, "relu", dtype)
+        self.general_encoder = Encoder(in_ch, feature_reduce, "relu", dtype, conv_s2)
         self.code_decoupler = code_decoupler(512 // feature_reduce)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

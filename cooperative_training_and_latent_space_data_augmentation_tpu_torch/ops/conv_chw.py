@@ -1,5 +1,6 @@
 """The CHW 3x3 convolution (kernel K1), its gradients (K1 on flipped
-weights for dx, kernel K2 for dw) and the conv dispatcher.
+weights for dx, kernel K2 for dw) and the conv dispatcher, which also
+routes the stride-2 downsamples to K4 (``ops/conv_s2.py``) when asked.
 
 Counterpart of ``cooperative_training_and_latent_space_data_augmentation_tpu/
 ops/pallas_conv.py``: ``weights_to_wall``, the channel eligibility rule,
@@ -38,6 +39,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_s2 import (
+    conv3x3s2_ad,
+)
 
 MAX_CH = 64  # K1 takes convs with max(C_in, C_out) <= MAX_CH
 
@@ -303,6 +307,10 @@ class Conv(nn.Module):
       (N, C, H*W) view of the NCHW input (a free reshape in PyTorch's
       layout, so no transpose is needed around it), through
       :func:`conv3x3_chw_ad`, so its backward runs K1 (dx) and K2 (dw);
+    * a stride-2 pad-1 3x3 conv built with ``k4=True`` (the caller checked
+      the JAX package's ``s2_chain_ok`` channel rule) goes to K4 on an
+      input of even height and width, through ``conv_s2.conv3x3s2_ad``, so
+      its backward runs K4dx and K4dw;
     * every other conv goes to ``F.conv2d``, as the JAX package leaves those
       to XLA, in full f32 when it computes in f32 (:func:`full_f32`);
     * the bias is added after the conv, in the compute dtype.
@@ -310,18 +318,24 @@ class Conv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, k4: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out))
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
+        self.k4 = k4
 
     def uses_k1(self) -> bool:
         c_out, c_in, kh, _ = self.weight.shape
         return (kh == 3 and self.stride == 1 and self.padding == 1
                 and eligible_channels(c_in, c_out))
+
+    def uses_k4(self) -> bool:
+        """Routed to K4 (on inputs of even height and width)."""
+        return (self.k4 and self.weight.shape[2] == 3 and self.stride == 2
+                and self.padding == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
@@ -332,6 +346,11 @@ class Conv(nn.Module):
             y = conv3x3_chw_ad(x.reshape(n, c, h * ww).contiguous(),
                                weights_to_wall(w).contiguous(), h, ww)
             y = y.reshape(n, -1, h, ww)
+        elif self.uses_k4() and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            n, c, h, ww = x.shape
+            y = conv3x3s2_ad(x.reshape(n, c, h * ww).contiguous(),
+                             weights_to_wall(w).contiguous(), h, ww)
+            y = y.reshape(n, -1, h // 2, ww // 2)
         else:
             with full_f32(dt):
                 y = F.conv2d(x, w, None, self.stride, self.padding)

@@ -1,19 +1,21 @@
 """Where the time of one ``predict(n_iter=2)`` request goes on the card.
 
-    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict [--conv-s2]
 
 Serves phantom requests (bf16, weights from a seed) through
 ``CooperativePredictor.predict``, as ``chip_smoke.py`` does, and traces a few
 of them with ``torch.profiler``.  Prints, per batch size (20 and 160): the
 host-clock latency of a request (numpy in, numpy out) over 50 untraced
 requests, as min / median / p90 / max, the device time per request by
-group (kernel K1, cuDNN convolutions, other kernels, copies), the device's
-idle share over the traced window, and the kernels that take the most
-device time.  Needs a CUDA device.
+group (kernels K1 and K4, cuDNN convolutions, other kernels, copies), the
+device's idle share over the traced window, and the kernels that take the
+most device time.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
+(the encoders' stride-2 downsamples on K4).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import time
 from collections import defaultdict
@@ -37,6 +39,8 @@ TOP = 12                # kernels listed by device time
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "conv3x3s2" in name:
+        return "K4 conv3x3s2 (forward, dx and dw)"
     if "conv3x3_chw_kernel" in name:
         return "K1 conv3x3_chw (forward and dx)"
     if "dw_partial_kernel" in name or "dw_reduce_kernel" in name:
@@ -100,10 +104,15 @@ def profile_batch(predictor, batch: int) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--conv-s2", action="store_true",
+                        help="the encoders' stride-2 downsamples on kernel K4")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict: needs a CUDA device")
-    print(torch.cuda.get_device_name(0))
-    predictor = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0)
+    print(torch.cuda.get_device_name(0), "conv_s2" if args.conv_s2 else "default configuration")
+    predictor = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0,
+                                     conv_s2=args.conv_s2)
     for batch in BATCHES:
         profile_batch(predictor, batch)
     return 0

@@ -1,6 +1,6 @@
 """Where the time of one cooperative train step goes on the card.
 
-    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_train
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_train [--conv-s2]
 
 Trains at full width (FCN_16, 192x192x1, batch 20, bf16 convs, latent DA on
 both codes with ``mask_type="random"``, weights from a seed) on one fixed
@@ -8,13 +8,15 @@ phantom batch, as ``chip_smoke.py``'s train phase does.  After 3 warm-up
 steps it times 20 untraced steps on the host clock (each ending in a
 synchronize) as min / median / p90 / max, then traces 5 steps with
 ``torch.profiler`` and prints the device time per step by group (K1 forward
-and dx, K2, K3, cuDNN, other kernels, copies), the device's idle share over
-the traced window, and the kernels that take the most device time.  Needs a
-CUDA device.
+and dx, K2, K3, K4 with K4dx and K4dw, cuDNN, other kernels, copies), the
+device's idle share over the traced window, and the kernels that take the
+most device time.  ``--conv-s2`` trains the ``conv_s2=True`` configuration
+(the encoders' stride-2 downsamples on K4).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import time
 from collections import defaultdict
@@ -45,11 +47,15 @@ TOP = 15
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--conv-s2", action="store_true",
+                        help="the encoders' stride-2 downsamples on kernel K4")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
-    print(torch.cuda.get_device_name(0))
+    print(torch.cuda.get_device_name(0), "conv_s2" if args.conv_s2 else "default configuration")
     trainer = CooperativeTrainer(LatentDAConfig(), compute_dtype=torch.bfloat16,
-                                 device="cuda", seed=0)
+                                 device="cuda", seed=0, conv_s2=args.conv_s2)
     image, label = phantom_batch(seed=7, n=BATCH)
     image, label = torch.from_numpy(image).to("cuda"), torch.from_numpy(label).to("cuda")
     gen = torch.Generator().manual_seed(0)

@@ -15,6 +15,7 @@ layout the modules compute in, so ``predict`` transposes only at its ends.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -57,24 +58,30 @@ class CooperativePredictor(nn.Module):
     mode, on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
 
     ``compute_dtype``: the conv stacks' dtype (``torch.bfloat16`` on the
-    card; None keeps float32).  ``seed``: parameters are drawn from it (He
-    normal convs, BN scale 1 + 0.02 N(0, 1), zero biases, running stats 0
-    and 1, as the JAX package initialises); load trained weights with
-    :meth:`load_state_dicts`.
+    card; None keeps float32).  ``conv_s2``: the JAX package's
+    ``PALLAS_CONV_S2`` configuration, off by default: the encoders'
+    stride-2 downsamples with at most 64 channels run on kernel K4.
+    ``seed``: parameters are drawn from it (He normal convs, BN scale 1 +
+    0.02 N(0, 1), zero biases, running stats 0 and 1, as the JAX package
+    initialises); load trained weights with :meth:`load_state_dicts`.
+
+    :meth:`predict` and :meth:`slow_refinement` always compute in eval mode
+    (the JAX package's ``train=False``), whatever mode the modules are in.
     """
 
     def __init__(self, image_ch: int = 1, num_classes: int = 4, n_iter: int = 1,
                  temperature: float = 2.0, compute_dtype: Optional[torch.dtype] = None,
-                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 conv_s2: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.n_iter = n_iter
         self.temperature = temperature
         f = 4  # FCN_16: feature_reduce 4
         dt = compute_dtype
-        self.image_encoder = DualBranchEncoder(image_ch, f, dt)
+        self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2)
         self.segmentation_decoder = Decoder(num_classes, f, "NN", None, dt)
-        self.shape_encoder = Encoder(num_classes, f, "relu", dt)
+        self.shape_encoder = Encoder(num_classes, f, "relu", dt, conv_s2)
         self.shape_decoder = Decoder(num_classes, f, "NN", None, dt)
         self.image_decoder = Decoder(image_ch, f, "Conv2", "sigmoid", dt)
         init_parameters(self, seed)
@@ -114,19 +121,33 @@ class CooperativePredictor(nn.Module):
         return self.decode_shape(self.encode_shape(logits))
 
     # ------------------------------------------------------- NHWC serving
+    @contextmanager
+    def _eval_mode(self):
+        """Every module in eval mode while the block runs (BatchNorm on its
+        running statistics, which stay as they are), then each module back
+        in its own mode, also when the block raises."""
+        modes = [(m, m.training) for m in self.modules()]
+        self.eval()
+        try:
+            yield
+        finally:
+            for m, training in modes:
+                m.training = training
+
     @torch.inference_mode()
     def predict(self, x: torch.Tensor, n_iter: Optional[int] = None,
                 softmax: bool = False) -> torch.Tensor:
-        """FTN prediction + (n_iter - 1) STN refinements.
+        """FTN prediction + (n_iter - 1) STN refinements, in eval mode.
 
         x: (B, H, W, image_ch) float32 -> (B, H, W, num_classes) logits, or
         probabilities with ``softmax``.  As in the JAX package, each
         refinement re-applies the STN to the previous prediction.
         """
         n_iter = self.n_iter if n_iter is None else n_iter
-        _, pred = self.fast_predict(_nchw(x))
-        for _ in range(max(0, n_iter - 1)):
-            pred = self.recon_shape(pred)
+        with self._eval_mode():
+            _, pred = self.fast_predict(_nchw(x))
+            for _ in range(max(0, n_iter - 1)):
+                pred = self.recon_shape(pred)
         if softmax:
             pred = torch.softmax(pred, dim=1)
         return _nhwc(pred)
@@ -136,7 +157,8 @@ class CooperativePredictor(nn.Module):
                         auto_stop: bool = False, tol: float = 1e-4,
                         save_internal_predicts: bool = False):
         """The reference's literal ``slow_refinement`` (see the JAX
-        package's docstring): every step refines the ORIGINAL logits, so
+        package's docstring), in eval mode: every step refines the ORIGINAL
+        logits, so
 
         * n_steps == 0: the input;
         * no auto_stop: ``recon_shape(pred_logit)``;
@@ -149,7 +171,8 @@ class CooperativePredictor(nn.Module):
         internal: Dict[int, list] = {0: [pred_logit]}
         if n_steps < 1:
             return (pred_logit, internal) if save_internal_predicts else pred_logit
-        refined = _nhwc(self.recon_shape(_nchw(pred_logit)))
+        with self._eval_mode():
+            refined = _nhwc(self.recon_shape(_nchw(pred_logit)))
         if auto_stop:
             diff0 = torch.sqrt(torch.mean((pred_logit - refined) ** 2))
             s_t = torch.where(diff0 < tol, pred_logit, refined)

@@ -1,9 +1,10 @@
-"""The port's kernels on the card: K1 (forward and dx), K2 and K3 against
-their plain PyTorch versions at edge shapes (ragged tiles, C_in not a
-multiple of the staged chunk, every C_out bucket, D not a multiple of 32,
-ties), K2's fixed summation order, the input checks (no fallback), the
+"""The port's kernels on the card: K1 (forward and dx), K2, K3 and the
+stride-2 K4, K4dx and K4dw against their plain PyTorch versions at the
+main path's shapes and at edge shapes (ragged tiles, C_in not a multiple
+of the staged chunk, every C_out bucket, D not a multiple of 32, ties), the
+fixed summation order of K2 and K4dw, the input checks (no fallback), the
 launch counts, and the predictor and the train step on the card against
-the CPU.
+the CPU, with the default route and with ``conv_s2=True``.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -21,6 +22,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config im
     MaskConfig,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
     percentile_mask as pmask,
 )
@@ -227,13 +229,14 @@ def test_generation_launches_no_k2(cuda):
     assert all(p.grad is None for p in trainer.model.parameters())
 
 
-def test_train_step_on_card_matches_cpu(cuda):
-    """An f32 step through K1, K2 and K3 against the plain path on the
-    CPU: losses within 1e-4; Adam's first moment within twice what the CPU
-    step's own moves when its input image moves by +-1e-6 of each pixel
-    (this step's gradient is not continuous at f32 rounding: a LeakyReLU
-    or ReLU at 0 takes the other slope; chip_smoke.py's train-check says
-    more)."""
+@pytest.mark.parametrize("conv_s2_on", [False, True])
+def test_train_step_on_card_matches_cpu(cuda, conv_s2_on):
+    """An f32 step through K1, K2 and K3 (and K4, K4dx, K4dw with
+    ``conv_s2``) against the plain path on the CPU: losses within 1e-4;
+    Adam's first moment within twice what the CPU step's own moves when its
+    input image moves by +-1e-6 of each pixel (this step's gradient is not
+    continuous at f32 rounding: a LeakyReLU or ReLU at 0 takes the other
+    slope; chip_smoke.py's train-check says more)."""
     lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
                          shape_code=MaskConfig("ce", "spatial"))
     draws = draw_step(torch.Generator().manual_seed(0), 2, (64, 64), lda)
@@ -242,7 +245,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     label = torch.randint(0, 4, (2, 64, 64), generator=gen)
 
     def step(device, x):
-        trainer = CooperativeTrainer(lda, device=device, seed=0)
+        trainer = CooperativeTrainer(lda, device=device, seed=0, conv_s2=conv_s2_on)
         d = draws.to(device)
         metrics = trainer.train_step(x.to(device), label.to(device), d)
         mu, _ = trainer.adam_moments()
@@ -256,3 +259,113 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k, v in want.items():
         assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-7, k
     assert (g_mu - c_mu).norm() <= 2 * (m_mu - c_mu).norm()
+
+
+# (N, C_in, C_out, H, W) of the stride-2 kernels: the main path's two shapes
+# at the training batch, and edges: ragged tiles in both directions, C_in
+# not a multiple of the staged chunk (and over one 16-channel group of K4dx
+# and K4dw), every C_out bucket, several output-channel chunks of K4dx, one
+# output pixel, W/2 over 64 (K4dw's narrower sub-tiles)
+S2_SHAPES = [
+    (20, 16, 16, 192, 192), (20, 32, 32, 96, 96), (3, 3, 5, 18, 34),
+    (2, 20, 17, 10, 70), (2, 16, 33, 4, 4), (1, 64, 64, 48, 48), (2, 7, 1, 2, 2),
+    (2, 4, 8, 6, 140),
+]
+
+
+def _s2_inputs(cuda, n, c_in, c_out, h, w, dt, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, c_in, h * w), generator=gen, device=cuda).to(dt)
+    dy = torch.randn((n, c_out, (h // 2) * (w // 2)), generator=gen, device=cuda).to(dt)
+    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device=cuda)
+             / (9 * c_in) ** 0.5).to(dt)
+    return x, dy, w_all
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_SHAPES)
+def test_k4_and_k4dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, w_all = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 3)
+    got = conv_s2.conv3x3s2(x, w_all, h, w)
+    want = conv_s2.conv3x3s2_plain(x, w_all, h, w)
+    got_dx = conv_s2.conv3x3s2_dx(dy, w_all, h, w)
+    want_dx = conv_s2.conv3x3s2_dx_plain(dy, w_all, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, c_out, (h // 2) * (w // 2))
+    assert got_dx.dtype == dt and got_dx.shape == (n, c_in, h * w)
+    for g, wt in ((got, want), (got_dx, want_dx)):
+        scale = wt.float().abs().max().item()
+        # bf16: one rounding of nearly the same f32 sum; f32: another order
+        atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+        torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_SHAPES)
+def test_k4dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, _ = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 4)
+    got = conv_s2.conv3x3s2_dw(x, dy, h, w)
+    again = conv_s2.conv3x3s2_dw(x, dy, h, w)
+    want = conv_s2.conv3x3s2_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (9 * c_in, c_out)
+    # f32 sums of the same products (a bf16 product is exact in f32) in
+    # another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_k4_rejects_bad_input_without_fallback(cuda):
+    x = torch.randn(2, 4, 64, device=cuda)
+    w_all = torch.randn(8, 36, device=cuda)
+    with pytest.raises(TypeError):
+        conv_s2.conv3x3s2(x.double(), w_all.double(), 8, 8)
+    with pytest.raises(ValueError):
+        conv_s2.conv3x3s2(x, w_all.cpu(), 8, 8)
+    with pytest.raises(ValueError):
+        conv_s2.conv3x3s2(torch.randn(2, 4, 63, device=cuda), w_all, 9, 7)
+    with pytest.raises(ValueError):
+        conv_s2.conv3x3s2(x, torch.randn(65, 36, device=cuda), 8, 8)
+    with pytest.raises(ValueError):
+        conv_s2.conv3x3s2_dw(x, torch.randn(2, 65, 16, device=cuda), 8, 8)
+    with pytest.raises(ValueError):
+        conv_s2.conv3x3s2_dx(torch.randn(2, 8, 16, device=cuda), w_all[:, :35].contiguous(),
+                             8, 8)
+
+
+def test_k4_launches_are_counted(cuda):
+    conv = conv_chw.Conv(3, 3, 3, stride=2, padding=1, k4=True).to(cuda)
+    fns = (conv_s2.conv3x3s2, conv_s2.conv3x3s2_dx, conv_s2.conv3x3s2_dw)
+    before = [f.launches for f in fns]
+    conv(torch.randn(2, 3, 8, 8, device=cuda, requires_grad=True)).sum().backward()
+    conv_s2.conv3x3s2_plain(torch.randn(1, 3, 16), torch.randn(3, 27), 4, 4)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+
+
+def test_predictor_s2_on_card_matches_cpu(cuda):
+    """f32 predict(n_iter=2) with ``conv_s2`` through K1 and K4 against the
+    plain path on the CPU; 4 K4 launches a request."""
+    gpu = CooperativePredictor(device=cuda, seed=0, conv_s2=True)
+    cpu = CooperativePredictor(device="cpu", seed=0, conv_s2=True)
+    x = torch.rand((2, 32, 32, 1), generator=torch.Generator().manual_seed(0))
+    before = (conv_chw.conv3x3_chw.launches, conv_s2.conv3x3s2.launches)
+    got = gpu.predict(x.to(cuda), n_iter=2).cpu()
+    assert (conv_chw.conv3x3_chw.launches - before[0],
+            conv_s2.conv3x3s2.launches - before[1]) == (26, 4)
+    want = cpu.predict(x, n_iter=2)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4 * want.abs().max().item())
+
+
+def test_train_mode_predict_on_card_leaves_buffers(cuda):
+    """A trainer's model predicts in eval mode and leaves every buffer bit
+    for bit as it was."""
+    trainer = CooperativeTrainer(LatentDAConfig(), device=cuda, seed=0, conv_s2=True)
+    before = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    x = torch.rand((2, 32, 32, 1), device=cuda)
+    got = trainer.model.predict(x, n_iter=2)
+    assert all(torch.equal(v, before[k]) for k, v in trainer.model.named_buffers())
+    assert all(m.training for m in trainer.model.modules())
+    trainer.model.eval()
+    assert torch.equal(got, trainer.model.predict(x, n_iter=2))

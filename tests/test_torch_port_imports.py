@@ -35,18 +35,22 @@ SCRIPT = textwrap.dedent("""
 
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
         percentile_mask,
     )
-    expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.image", "ops.losses",
+    expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.conv_s2", "ops.image",
+                "ops.losses",
                 "ops.masking", "ops.percentile_mask", "models.blocks",
                 "models.encoder_decoder", "train.cooperative", "train.draws",
                 "train.predictor", "profile_predict", "profile_train", "data.synthetic"}
     missing = {port.__name__ + "." + m for m in expected} - set(names)
     assert not missing, missing
     assert not kernels._libs, "a kernel library was loaded at import"
-    assert set(kernels.SOURCES) == {"conv3x3_chw", "conv3x3_chw_dw", "percentile_mask"}
+    assert set(kernels.SOURCES) == {"conv3x3_chw", "conv3x3_chw_dw", "conv3x3s2",
+                                    "percentile_mask"}
     for fn in (conv_chw.conv3x3_chw, conv_chw.conv3x3_chw_dx, conv_chw.conv3x3_chw_dw,
+               conv_s2.conv3x3s2, conv_s2.conv3x3s2_dx, conv_s2.conv3x3s2_dw,
                percentile_mask.percentile_mask):
         assert fn.launches == 0
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -61,4 +65,4 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported")[1].split()[0])
-    assert n >= 18, proc.stdout
+    assert n >= 19, proc.stdout

@@ -123,3 +123,28 @@ def test_recording_shapes_keeps_the_launch_counts(monkeypatch):
     assert conv_chw.conv3x3_chw_dw is counted and counted.launches == 6
     assert seen["conv3x3_chw_dw"] == Counter({(2, 3, 4, 4): 1}) and calls == [1]
     assert masking.percentile_mask is pmask.percentile_mask
+
+
+def test_recording_shapes_routes_the_k4_wrappers():
+    """The K4 wrappers live in ``ops/conv_s2.py``: the recorder routes them
+    too, records their forward conv's (C_in, C_out, H, W) and puts them
+    back."""
+    from collections import Counter
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_s2,
+        masking,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+
+    orig = chip_smoke.wrappers_of(conv_chw, pmask)
+    seen = {k: Counter() for k in chip_smoke.LAUNCH_COUNTERS}
+    conv = conv_chw.Conv(3, 3, 3, stride=2, padding=1, k4=True)
+    with chip_smoke.recording_shapes(conv_chw, pmask, masking, seen):
+        conv(torch.randn(2, 3, 8, 6, requires_grad=True)).sum().backward()
+    for name in ("conv3x3s2", "conv3x3s2_dx", "conv3x3s2_dw"):
+        assert seen[name] == Counter({(3, 3, 8, 6): 1}), name
+    assert chip_smoke.wrappers_of(conv_chw, pmask) == orig
+    assert conv_s2.conv3x3s2 is orig["conv3x3s2"]

@@ -81,11 +81,15 @@ def random_variables(solver: CooperativeTripletSolver, seed: int = 0):
 
 
 @contextlib.contextmanager
-def pallas_interpret():
+def pallas_interpret(s2: bool = False):
     """Run the JAX package's Pallas paths in interpret mode on the CPU (the
-    switch is read when a function is traced)."""
+    switch is read when a function is traced); with ``s2`` also its
+    ``PALLAS_CONV_S2=1`` configuration (the stride-2 phase kernel and CHW
+    stage chaining), which needs the Pallas path."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PALLAS_CONV_INTERPRET", "1")
+        if s2:
+            mp.setenv("PALLAS_CONV_S2", "1")
         yield
 
 
@@ -262,11 +266,20 @@ def _host(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def run_step_case(mask_type: str, seed: int = 0):
+def run_step_case(mask_type: str, seed: int = 0, conv_s2: bool = False):
     """JAX's two steps with ``mask_type`` (and the same steps on N_MOVES
     images moved by +-SENSITIVITY per pixel, and its generation), then the
     port's from the same states with the replayed draws.  f32, HW x HW,
-    batch BATCH.  Returns one record per step."""
+    batch BATCH.  With ``conv_s2`` JAX runs its ``PALLAS_CONV_S2=1``
+    configuration in interpret mode and the port its ``conv_s2=True``.
+    Returns one record per step."""
+    if conv_s2:
+        with pallas_interpret(s2=True):
+            return _run_step_case(mask_type, seed, conv_s2)
+    return _run_step_case(mask_type, seed, conv_s2)
+
+
+def _run_step_case(mask_type: str, seed: int, conv_s2: bool):
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import convert
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
         CooperativeTrainer,
@@ -285,7 +298,7 @@ def run_step_case(mask_type: str, seed: int = 0):
                                    .astype(np.float32)), "label": batch["label"]}
              for _ in range(N_MOVES)]
     state = jax_train_state(solver, params, stats)
-    trainer = CooperativeTrainer(lda, device="cpu")
+    trainer = CooperativeTrainer(lda, device="cpu", conv_s2=conv_s2)
     steps = []
     for key_seed in STEP_KEYS:
         key = jax.random.PRNGKey(key_seed)
