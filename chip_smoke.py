@@ -9,9 +9,13 @@ a seed, on cardiac-like phantom slices made from a seed: the serving path,
 the cooperative FTN+STN predictor (``CooperativePredictor.predict(n_iter=
 2)``), and the training path, the cooperative train step with latent
 masking (``CooperativeTrainer.train_step``, batch 20, Adam lr 1e-4).  Each
-path runs in the default configuration and in ``conv_s2=True`` (the JAX
+path runs in three configurations: the default; ``conv_s2=True`` (the JAX
 package's ``PALLAS_CONV_S2=1``: the encoders' 16->16 and 32->32 stride-2
-downsamples on kernel K4, with K4dx and K4dw in the backward).
+downsamples on kernel K4, with K4dx and K4dw in the backward); and
+``conv_nl=True`` (its ``PALLAS_CONV_NL=1``: the residual stages'
+64..128-channel 3x3 convs at 24x24 and 12x12 on kernel K5, with K5 on
+flipped weights for dx and K5dw in the backward).  Last it runs the port's
+``bench_b8_conv``, the path of the blocked conv K6 (with its dx and K6dw).
 
 Phases, each printing its seconds when it ends:
 
@@ -23,28 +27,34 @@ Phases, each printing its seconds when it ends:
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
    and (20, 144), hard and soft, ties planted; K4, K4dx and K4dw at
    16->16 on 192x192 and 32->32 on 96x96, batch 20 and 160, bf16, and
-   batch 20 f32), with the tolerance stated; median times from CUDA events
+   batch 20 f32; K5, K5dx and K5dw at the four large-channel shapes, batch
+   20 and 160, bf16, and batch 20 f32; K6, K6dx and K6dw at the five
+   stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage), with the
+   tolerance stated; median times from CUDA events
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
-   then 50 of 20 with ``conv_s2=True``, with the launch counts set to 0
-   just before each route and read just after.  Each request must launch
-   K1 (and K4) as often as the path has such convs and return finite
+   then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
+   with the launch counts set to 0 just before each route and read just
+   after.  Each request must launch K1 (and K4, or K5) as often as the path
+   has such convs and return finite
    values of the right shape.  Latency is on the host clock, as min /
    median / p90 / max: a smoke-level reading, not a benchmark.  Then a
    ``predict`` on the model in train mode must give the eval-mode output
    and leave every buffer and module mode as it was;
 5. check: every leaf module of one bf16 and one f32 request on the card
    held against its CPU twin on the very input the card gave it; then the
-   f32 and bf16 outputs end to end against the same predictor on the CPU,
-   and the f32 output of ``conv_s2=True`` against its CPU twin;
-6. train: for the default configuration and then for ``conv_s2=True``, a
+   f32 and bf16 outputs end to end against the same predictor on the CPU;
+   for ``conv_s2=True`` and for ``conv_nl=True`` a bf16 request layer by
+   layer and the f32 output end to end against their CPU twins;
+6. train: for each of the three configurations, a
    trainer at batch 20, bf16, on one fixed phantom batch: two steps with
    each branch forced on both codes (dropout, spatial, channel), then 10
    under ``mask_type="random"``, with the launch counts set to 0 just
    before and read just after each step.  Each step must launch K1
-   forward, K1 dx, K2, K3, K4, K4dx and K4dw exactly as often as the
+   forward, K1 dx, K2, K3, K4, K4dx, K4dw, K5, K5dx and K5dw exactly as
+   often as the
    branches it drew require, and give finite losses; the standard loss on
    the first step's input must be lower after the steps than before.  Step
    time on the host clock as min / median / p90 / max (smoke-level);
@@ -53,7 +63,11 @@ Phases, each printing its seconds when it ends:
    (channel masking on the image code, spatial on the shape code): losses,
    Adam's first moment (0.1 x the gradient, against the CPU step's own
    sensitivity to a rounding-sized move of its input), the running
-   statistics and the masks.
+   statistics and the masks;
+8. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
+   stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
+   checked against the CHW route), with the launch counts set to 0 just
+   before and read just after; it must launch K6, K6dx and K6dw.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``, printed only when
@@ -94,8 +108,19 @@ KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
     "conv3x3s2": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:499"),
     "conv3x3s2_dx": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:547"),
     "conv3x3s2_dw": (f"{PORT}/csrc/conv3x3s2.cu", f"{JAX_PKG}/ops/pallas_conv.py:588"),
+    "conv3x3_nl": (f"{PORT}/csrc/conv3x3_nl.cu", f"{JAX_PKG}/ops/pallas_conv.py:776"),
+    "conv3x3_nl_dx": (f"{PORT}/csrc/conv3x3_nl.cu", f"{JAX_PKG}/ops/pallas_conv.py:930"),
+    "conv3x3_nl_dw": (f"{PORT}/csrc/conv3x3_nl.cu", f"{JAX_PKG}/ops/pallas_conv.py:823"),
+    "conv3x3_b8": (f"{PORT}/csrc/conv3x3_b8.cu", f"{JAX_PKG}/ops/pallas_conv_blocked.py:136"),
+    "conv3x3_b8_dx": (f"{PORT}/csrc/conv3x3_b8.cu",
+                      f"{JAX_PKG}/ops/pallas_conv_blocked.py:309"),
+    "conv3x3_b8_dw": (f"{PORT}/csrc/conv3x3_b8.cu",
+                      f"{JAX_PKG}/ops/pallas_conv_blocked.py:192"),
 }
 S2_SHAPES = ((16, 16, 192, 192), (32, 32, 96, 96))  # (C_in, C_out, H, W) of the K4 convs
+# (C_in, C_out, H, W) of the K5 convs: down3's two, down4's, up1's first
+NL_SHAPES = ((64, 128, 24, 24), (128, 128, 24, 24), (128, 128, 12, 12), (128, 64, 24, 24))
+B8_REPS = 5          # timed runs per variant in the b8 phase's bench
 TRAIN_BATCH = 20     # the reference's training batch
 FORCED_STEPS = 2     # steps with each branch forced
 RANDOM_STEPS = 10    # steps under mask_type="random"
@@ -149,52 +174,6 @@ def k1_shapes(conv_chw, predictor_cpu, image):
     finally:
         conv_chw.conv3x3_chw_plain = plain
     return seen
-
-
-def check_k1(torch, F, conv_chw, shape, n, dtype_name, flush=None):
-    """K1 against its plain version on the card at one shape; with a
-    ``flush`` buffer also its times, the plain version's and cuDNN's."""
-    c_in, c_out, h, w = shape
-    dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + c_out + h)
-    x = torch.randn((n, c_in, h * w), generator=gen, device="cuda").to(dtype)
-    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device="cuda")
-             / (9 * c_in) ** 0.5).to(dtype)
-    got = conv_chw.conv3x3_chw(x, w_all, h, w)
-    want = conv_chw.conv3x3_chw_plain(x, w_all, h, w)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    if dtype_name == "bfloat16":
-        # both round the same f32 sum once: at most one bf16 ulp apart
-        tol = 2.0 ** (int(torch.tensor(scale).log2().floor().item()) - 7)
-    else:
-        # f32 sums of 9*C_in products in another order
-        tol = 1e-5 * scale
-    ok = err <= tol
-    rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
-           "tol": tol, "ok": ok}
-    print(f"  K1 {dtype_name} N={n} {c_in}->{c_out} @ {h}x{w}: max_abs_err {err:.3g} "
-          f"(tol {tol:.3g})", end="" if flush is not None else "\n", flush=True)
-    if flush is None:
-        return rec
-    x4 = x.view(n, c_in, h, w)
-    w4 = w_all.view(c_out, 3, 3, c_in).permute(0, 3, 1, 2).contiguous()
-    ms = time_ms(lambda: conv_chw.conv3x3_chw(x, w_all, h, w), torch, flush)
-    plain_ms = time_ms(lambda: conv_chw.conv3x3_chw_plain(x, w_all, h, w), torch, flush)
-    with conv_chw.full_f32(dtype):  # an f32 conv in f32, not TF32
-        library_ms = time_ms(lambda: F.conv2d(x4, w4, None, 1, 1), torch, flush)
-    es = x.element_size()
-    nbytes = (x.numel() + w_all.numel() + n * c_out * h * w) * es
-    flops = 2.0 * n * c_out * 9 * c_in * h * w
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-          f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
-    return rec
 
 
 def compare_f32(got, want, what):
@@ -301,86 +280,6 @@ def bf16_tol(torch, scale):
     return 2.0 ** (int(torch.tensor(max(scale, 1e-30)).log2().floor().item()) - 7)
 
 
-def check_dx(torch, conv_chw, shape, n, dtype_name, flush=None):
-    """K1 dx (K1 on the flipped wall) against its plain version at one
-    forward shape (C_in, C_out, H, W): dy (N, C_out, H*W) -> dx (N, C_in,
-    H*W); with ``flush`` also its times and cuDNN's input gradient."""
-    c_in, c_out, h, w = shape
-    dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + c_out + h + 7)
-    dy = torch.randn((n, c_out, h * w), generator=gen, device="cuda").to(dtype)
-    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device="cuda")
-             / (9 * c_in) ** 0.5).to(dtype)
-    flipped = conv_chw.flip_wall(w_all).contiguous()
-    got = conv_chw.conv3x3_chw_dx(dy, w_all, h, w)
-    want = conv_chw.conv3x3_chw_plain(dy, flipped, h, w)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    # bf16: both round the same f32 sum once; f32: sums in another order
-    tol = bf16_tol(torch, scale) if dtype_name == "bfloat16" else 1e-5 * scale
-    rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
-           "tol": tol, "ok": err <= tol}
-    print(f"  K1 dx {dtype_name} N={n} {c_out}->{c_in} @ {h}x{w}: max_abs_err {err:.3g} "
-          f"(tol {tol:.3g})", end="" if flush is not None else "\n", flush=True)
-    if flush is None:
-        return rec
-    w4 = w_all.view(c_out, 3, 3, c_in).permute(0, 3, 1, 2).contiguous()
-    dy4 = dy.view(n, c_out, h, w)
-    ms = time_ms(lambda: conv_chw.conv3x3_chw_dx(dy, w_all, h, w), torch, flush)
-    plain_ms = time_ms(lambda: conv_chw.conv3x3_chw_plain(dy, conv_chw.flip_wall(w_all)
-                                                          .contiguous(), h, w), torch, flush)
-    with conv_chw.full_f32(dtype):
-        library_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
-            (n, c_in, h, w), w4, dy4, padding=1), torch, flush)
-    nbytes = (dy.numel() + w_all.numel() + n * c_in * h * w) * dy.element_size()
-    b, by = bound(nbytes, 2.0 * n * c_out * 9 * c_in * h * w, dtype_name)
-    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
-    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-          f"bound_ms {b:.4f} ({by})", flush=True)
-    return rec
-
-
-def check_dw(torch, conv_chw, shape, n, dtype_name, flush=None):
-    """K2 against its plain version at one forward shape: x (N, C_in,
-    H*W), dy (N, C_out, H*W) -> (9*C_in, C_out) f32.  Both sum the same
-    f32 products (a bf16 product is exact in f32) in other orders, over up
-    to N*H*W = 737,280 pixels: within 1e-5 of the result's scale.  Also
-    that two launches agree bit for bit (the fixed summation order).
-    With ``flush`` also its times and cuDNN's weight gradient."""
-    c_in, c_out, h, w = shape
-    dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + c_out + h + 11)
-    x = torch.randn((n, c_in, h * w), generator=gen, device="cuda").to(dtype)
-    dy = torch.randn((n, c_out, h * w), generator=gen, device="cuda").to(dtype)
-    got = conv_chw.conv3x3_chw_dw(x, dy, h, w)
-    again = conv_chw.conv3x3_chw_dw(x, dy, h, w)
-    want = conv_chw.conv3x3_chw_dw_plain(x, dy, h, w)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = 1e-5 * want.abs().max().item()
-    same = bool(torch.equal(got, again))
-    rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
-           "tol": tol, "ok": err <= tol and same}
-    print(f"  K2 {dtype_name} N={n} {c_in}->{c_out} @ {h}x{w}: max_abs_err {err:.3g} "
-          f"(tol {tol:.3g}), two launches bitwise equal: {same}",
-          end="" if flush is not None else "\n", flush=True)
-    if flush is None:
-        return rec
-    x4, dy4 = x.view(n, c_in, h, w), dy.view(n, c_out, h, w)
-    ms = time_ms(lambda: conv_chw.conv3x3_chw_dw(x, dy, h, w), torch, flush)
-    plain_ms = time_ms(lambda: conv_chw.conv3x3_chw_dw_plain(x, dy, h, w), torch, flush)
-    with conv_chw.full_f32(dtype):
-        library_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
-            x4, (c_out, c_in, 3, 3), dy4, padding=1), torch, flush)
-    nbytes = (x.numel() + dy.numel()) * x.element_size() + 9 * c_in * c_out * 4
-    b, by = bound(nbytes, 2.0 * n * c_out * 9 * c_in * h * w, dtype_name)
-    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
-    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-          f"bound_ms {b:.4f} ({by})", flush=True)
-    return rec
-
-
 def check_k3(torch, pmask, n, d, soft, flush=None):
     """K3 against its plain version (the sort-based threshold) on one
     (N, D) saliency with ties planted, at p in {0, 0.2, 0.5}: equal
@@ -415,36 +314,55 @@ def check_k3(torch, pmask, n, d, soft, flush=None):
     return rec
 
 
-def check_s2(torch, F, conv_chw, conv_s2, which, shape, n, dtype_name, flush=None):
-    """K4 (``which`` "fwd"), K4dx ("dx") or K4dw ("dw") against its plain
-    version at one forward shape (C_in, C_out, H, W): x (N, C_in, H*W), dy
-    (N, C_out, H/2*W/2).  K4 and K4dx: bf16 within one ulp of scale (one
-    rounding of nearly the same f32 sum), f32 within 1e-5 of scale (another
-    summation order); K4dw (f32 out, the same exact products summed in
-    another order) within 1e-5 of scale, and two launches bit for bit
-    equal.  With ``flush`` also its times and cuDNN's stride-2 conv, input
-    gradient or weight gradient."""
+CONV_KINDS = {  # kind -> (wrapper name in its module, stride, labels of fwd, dx, dw)
+    "chw": ("conv3x3_chw", 1, ("K1", "K1 dx", "K2")),
+    "s2": ("conv3x3s2", 2, ("K4", "K4dx", "K4dw")),
+    "nl": ("conv3x3_nl", 1, ("K5", "K5dx", "K5dw")),
+    "b8": ("conv3x3_b8", 1, ("K6", "K6dx", "K6dw")),
+}
+
+
+def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush=None):
+    """One conv kernel of ``kind`` (``CONV_KINDS``; ``mod`` is the module of
+    its wrappers): the forward (``which`` "fwd"), the input gradient ("dx")
+    or the weight gradient ("dw") against its plain version at one forward
+    shape (C_in, C_out, H, W): x (N, C_in, H*W), dy (N, C_out, H/s * W/s)
+    for stride s.  The plain dx is the module's own where it has one, else
+    the plain forward on the flipped wall (a stride-1 conv's dx is that
+    conv).  Forward and dx: bf16 within one ulp of scale (one rounding of
+    nearly the same f32 sum), f32 within 1e-5 of scale (another summation
+    order); dw (f32 out, the same exact products summed in another order)
+    within 1e-5 of scale, and two launches bit for bit equal.  With
+    ``flush`` also its times and cuDNN's conv, input gradient or weight
+    gradient, and the bound."""
+    name, stride, labels = CONV_KINDS[kind]
     c_in, c_out, h, w = shape
+    ho, wo = h // stride, w // stride
     dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + c_out + h + 13)
+    seed = c_in * 1000 + c_out + h + {"fwd": 0, "dx": 7, "dw": 11}[which]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((n, c_in, h * w), generator=gen, device="cuda").to(dtype)
-    dy = torch.randn((n, c_out, (h // 2) * (w // 2)), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((n, c_out, ho * wo), generator=gen, device="cuda").to(dtype)
     w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device="cuda")
              / (9 * c_in) ** 0.5).to(dtype)
-    x4, dy4 = x.view(n, c_in, h, w), dy.view(n, c_out, h // 2, w // 2)
+    x4, dy4 = x.view(n, c_in, h, w), dy.view(n, c_out, ho, wo)
     w4 = w_all.view(c_out, 3, 3, c_in).permute(0, 3, 1, 2).contiguous()
+    fwd, fwd_plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    dx_plain = getattr(mod, f"{name}_dx_plain", None) or (
+        lambda d, wa, hh, ww: fwd_plain(d, conv_chw.flip_wall(wa).contiguous(), hh, ww))
+    dxf, dwf, dw_plain = (getattr(mod, f"{name}_dx"), getattr(mod, f"{name}_dw"),
+                          getattr(mod, f"{name}_dw_plain"))
+    es = x.element_size()
     fn, plain, library, out_bytes = {
-        "fwd": (lambda: conv_s2.conv3x3s2(x, w_all, h, w),
-                lambda: conv_s2.conv3x3s2_plain(x, w_all, h, w),
-                lambda: F.conv2d(x4, w4, None, 2, 1), dy.numel() * dy.element_size()),
-        "dx": (lambda: conv_s2.conv3x3s2_dx(dy, w_all, h, w),
-               lambda: conv_s2.conv3x3s2_dx_plain(dy, w_all, h, w),
-               lambda: torch.nn.grad.conv2d_input((n, c_in, h, w), w4, dy4, stride=2,
-                                                  padding=1), x.numel() * x.element_size()),
-        "dw": (lambda: conv_s2.conv3x3s2_dw(x, dy, h, w),
-               lambda: conv_s2.conv3x3s2_dw_plain(x, dy, h, w),
-               lambda: torch.nn.grad.conv2d_weight(x4, (c_out, c_in, 3, 3), dy4, stride=2,
-                                                   padding=1), 9 * c_in * c_out * 4),
+        "fwd": (lambda: fwd(x, w_all, h, w), lambda: fwd_plain(x, w_all, h, w),
+                lambda: F.conv2d(x4, w4, None, stride, 1), dy.numel() * es),
+        "dx": (lambda: dxf(dy, w_all, h, w), lambda: dx_plain(dy, w_all, h, w),
+               lambda: torch.nn.grad.conv2d_input((n, c_in, h, w), w4, dy4, stride=stride,
+                                                  padding=1), x.numel() * es),
+        "dw": (lambda: dwf(x, dy, h, w), lambda: dw_plain(x, dy, h, w),
+               lambda: torch.nn.grad.conv2d_weight(x4, (c_out, c_in, 3, 3), dy4,
+                                                   stride=stride, padding=1),
+               9 * c_in * c_out * 4),
     }[which]
     got, again, want = fn(), fn(), plain()
     torch.cuda.synchronize()
@@ -455,10 +373,11 @@ def check_s2(torch, F, conv_chw, conv_s2, which, shape, n, dtype_name, flush=Non
     same = bool(torch.equal(got, again))
     rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
            "tol": tol, "ok": err <= tol and (same or which != "dw")}
-    label = {"fwd": "K4", "dx": "K4dx", "dw": "K4dw"}[which]
+    label = labels[("fwd", "dx", "dw").index(which)]
     print(f"  {label} {dtype_name} N={n} {c_in}->{c_out} @ {h}x{w}: max_abs_err {err:.3g} "
           f"(tol {tol:.3g})" + (f", two launches bitwise equal: {same}" if which == "dw"
                                 else ""), end="" if flush is not None else "\n", flush=True)
+    del got, again, want
     if flush is None:
         return rec
     ms = time_ms(fn, torch, flush)
@@ -466,9 +385,8 @@ def check_s2(torch, F, conv_chw, conv_s2, which, shape, n, dtype_name, flush=Non
     with conv_chw.full_f32(dtype):  # an f32 conv in f32, not TF32
         library_ms = time_ms(library, torch, flush)
     in_bytes = {"fwd": x.numel() + w_all.numel(), "dx": dy.numel() + w_all.numel(),
-                "dw": x.numel() + dy.numel()}[which] * x.element_size()
-    b, by = bound(in_bytes + out_bytes,
-                  2.0 * n * c_out * 9 * c_in * (h // 2) * (w // 2), dtype_name)
+                "dw": x.numel() + dy.numel()}[which] * es
+    b, by = bound(in_bytes + out_bytes, 2.0 * n * c_out * 9 * c_in * ho * wo, dtype_name)
     rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
     print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
           f"bound_ms {b:.4f} ({by})", flush=True)
@@ -476,36 +394,45 @@ def check_s2(torch, F, conv_chw, conv_s2, which, shape, n, dtype_name, flush=Non
 
 
 LAUNCH_COUNTERS = ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "percentile_mask",
-                   "conv3x3s2", "conv3x3s2_dx", "conv3x3s2_dw")
+                   "conv3x3s2", "conv3x3s2_dx", "conv3x3s2_dw",
+                   "conv3x3_nl", "conv3x3_nl_dx", "conv3x3_nl_dw",
+                   "conv3x3_b8", "conv3x3_b8_dx", "conv3x3_b8_dw")
+
+
+def _homes(conv_chw, pmask):
+    """The module each wrapper of LAUNCH_COUNTERS lives in."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_b8,
+        conv_nl,
+        conv_s2,
+    )
+
+    homes = {"percentile_mask": pmask}
+    for mod, names in ((conv_chw, LAUNCH_COUNTERS[:3]), (conv_s2, LAUNCH_COUNTERS[4:7]),
+                       (conv_nl, LAUNCH_COUNTERS[7:10]), (conv_b8, LAUNCH_COUNTERS[10:])):
+        homes.update(dict.fromkeys(names, mod))
+    return {name: homes[name] for name in LAUNCH_COUNTERS}
 
 
 def wrappers_of(conv_chw, pmask):
-    """The seven kernel wrappers by name (LAUNCH_COUNTERS)."""
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
-
-    return {"conv3x3_chw": conv_chw.conv3x3_chw, "conv3x3_chw_dx": conv_chw.conv3x3_chw_dx,
-            "conv3x3_chw_dw": conv_chw.conv3x3_chw_dw,
-            "percentile_mask": pmask.percentile_mask, "conv3x3s2": conv_s2.conv3x3s2,
-            "conv3x3s2_dx": conv_s2.conv3x3s2_dx, "conv3x3s2_dw": conv_s2.conv3x3s2_dw}
+    """The thirteen kernel wrappers by name (LAUNCH_COUNTERS)."""
+    return {name: getattr(home, name) for name, home in _homes(conv_chw, pmask).items()}
 
 
 @contextmanager
 def recording_shapes(conv_chw, pmask, masking, seen):
-    """Route the seven wrappers through recorders that add each call's
+    """Route the thirteen wrappers through recorders that add each call's
     shape to ``seen[wrapper]`` and call the wrapper itself (which launches
-    and counts as before): K1 forward, dx, K2, K4, K4dx and K4dw by their
+    and counts as before): the convs' forward, dx and dw wrappers by their
     forward conv's (C_in, C_out, H, W), K3 by (N, D)."""
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
-
     orig = wrappers_of(conv_chw, pmask)
     fwd = lambda x, w_all, H, W: (x.shape[1], w_all.shape[0], H, W)  # noqa: E731
     dx = lambda dy, w_all, H, W: (w_all.shape[1] // 9, w_all.shape[0], H, W)  # noqa: E731
     dw = lambda x, dy, H, W: (x.shape[1], dy.shape[1], H, W)  # noqa: E731
-    keys = {"conv3x3_chw": fwd, "conv3x3_chw_dx": dx, "conv3x3_chw_dw": dw,
-            "percentile_mask": lambda sal, p, soft: tuple(sal.shape),
-            "conv3x3s2": fwd, "conv3x3s2_dx": dx, "conv3x3s2_dw": dw}
-    homes = {name: conv_chw for name in LAUNCH_COUNTERS[:3]}
-    homes.update({name: conv_s2 for name in LAUNCH_COUNTERS[4:]})
+    keys = {name: (dx if name.endswith("_dx") else dw if name.endswith("_dw") else fwd)
+            for name in LAUNCH_COUNTERS}
+    keys["percentile_mask"] = lambda sal, p, soft: tuple(sal.shape)
+    homes = {k: v for k, v in _homes(conv_chw, pmask).items() if k != "percentile_mask"}
 
     def recorder(name):
         def call(*args):
@@ -531,7 +458,7 @@ def recording_shapes(conv_chw, pmask, masking, seen):
 
 
 def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, label,
-                conv_s2=False):
+                conv_s2=False, conv_nl=False):
     """The train phase (see the module docstring) of one configuration.
     Returns (launches by wrapper over the phase, the random steps' calls by
     wrapper and shape, step times of the random steps)."""
@@ -541,7 +468,8 @@ def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, la
 
     wrappers = wrappers_of(conv_chw, pmask)
     trainer = coop.CooperativeTrainer(cfg.LatentDAConfig(), compute_dtype=torch.bfloat16,
-                                      device="cuda", seed=0, conv_s2=conv_s2)
+                                      device="cuda", seed=0, conv_s2=conv_s2, conv_nl=conv_nl)
+    tag = "S2 " if conv_s2 else "NL " if conv_nl else ""
     img = torch.from_numpy(image).to("cuda")
     lbl = torch.from_numpy(label).to("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -569,7 +497,7 @@ def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, la
             for k in LAUNCH_COUNTERS:
                 total[k] += got[k]
             branches = {"image": draws.image.branch, "shape": draws.shape.branch}
-            want = trainer.expected_launches(branches)
+            want = {**dict.fromkeys(LAUNCH_COUNTERS, 0), **trainer.expected_launches(branches)}
             if got != want:
                 raise AssertionError(f"{mask_type} step, branches {branches}: launches "
                                      f"{got}, expected {want}")
@@ -580,7 +508,7 @@ def train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod, image, la
                 first = (values, draws)
             if mask_type == "random":
                 times.append(sec)
-            print(f"  {'S2 ' if conv_s2 else ''}{mask_type:7s} branches image "
+            print(f"  {tag}{mask_type:7s} branches image "
                   f"{branches['image']} shape "
                   f"{branches['shape']}: {sec * 1e3:9.3f} ms, launches "
                   f"{[got[k] for k in LAUNCH_COUNTERS]}, loss/total "
@@ -617,9 +545,10 @@ def assert_masks_agree(torch, got_mask, want_mask, got_sal, want_sal, p, what):
     return int(differ.sum())
 
 
-def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False):
+def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False, conv_nl=False):
     """One f32 step on the card against the same step on the CPU (see the
-    module docstring), in the default configuration or ``conv_s2=True``.
+    module docstring), in the default configuration, ``conv_s2=True`` or
+    ``conv_nl=True``.
     Tolerances, f32 sums in other orders:
 
     * losses: within 1e-4 of their value;
@@ -640,11 +569,13 @@ def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False):
                              shape_code=cfg.MaskConfig("ce", "spatial"))
     draws = draws_mod.draw_step(torch.Generator().manual_seed(1), CHECK_BATCH, (192, 192), lda)
     img, lbl = torch.from_numpy(image[:CHECK_BATCH]), torch.from_numpy(label[:CHECK_BATCH])
-    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1, conv_s2=conv_s2)
+    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1, conv_s2=conv_s2,
+                                  conv_nl=conv_nl)
     got_m = gpu.train_step(img.to("cuda"), lbl.to("cuda"), draws.to("cuda"))
 
     def cpu_step(x):
-        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1, conv_s2=conv_s2)
+        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1, conv_s2=conv_s2,
+                                          conv_nl=conv_nl)
         return trainer, trainer.train_step(x, lbl, draws)
 
     t0 = time.perf_counter()
@@ -716,8 +647,11 @@ def main():
         phantom_batch,
     )
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import config as cfg
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import bench_b8_conv
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_b8,
         conv_chw,
+        conv_nl,
         conv_s2,
         masking,
     )
@@ -768,12 +702,16 @@ def main():
                       shapes.items(), key=lambda kv: (-kv[0][2], kv[0][0], kv[0][1]))),
               flush=True)
         flush = torch.empty(64 * 2**20 // 4, device="cuda")
-        recs = {s: check_k1(torch, F, conv_chw, s, BATCH, "bfloat16", flush)
-                for s in sorted(shapes, key=lambda s: (-s[2], s[0], s[1]))}
-        f32_rec = check_k1(torch, F, conv_chw, (16, 16, 192, 192), BATCH, "float32", flush)
+        order = sorted(shapes, key=lambda s: (-s[2], s[0], s[1]))
+
+        def k1(which, shape, n, dtype, timed=True):
+            return check_conv(torch, F, conv_chw, conv_chw, "chw", which, shape, n, dtype,
+                              flush if timed else None)
+
+        recs = {s: k1("fwd", s, BATCH, "bfloat16") for s in order}
+        f32_rec = k1("fwd", (16, 16, 192, 192), BATCH, "float32")
         # the serving batch meets the same shapes at N = 160 (checked, not timed)
-        big_recs = [check_k1(torch, F, conv_chw, s, SERVE_BATCH, "bfloat16")
-                    for s in sorted(shapes, key=lambda s: (-s[2], s[0], s[1]))]
+        big_recs = [k1("fwd", s, SERVE_BATCH, "bfloat16", timed=False) for s in order]
         bad = [r for r in list(recs.values()) + [f32_rec] + big_recs if not r["ok"]]
         if bad:
             raise AssertionError(f"K1 disagrees with its plain version: {bad}")
@@ -783,30 +721,49 @@ def main():
         # the train step runs K1 dx and K2 at the forward's shapes: dx for
         # every conv whose input needs a gradient (all but C_in = 1, the
         # image), K2 for every conv
-        order = sorted(shapes, key=lambda s: (-s[2], s[0], s[1]))
-        dx_recs = {s: check_dx(torch, conv_chw, s, TRAIN_BATCH, "bfloat16", flush)
-                   for s in order if s[0] > 1}
-        dx_f32 = check_dx(torch, conv_chw, (16, 16, 192, 192), TRAIN_BATCH, "float32", flush)
-        dw_recs = {s: check_dw(torch, conv_chw, s, TRAIN_BATCH, "bfloat16", flush)
-                   for s in order}
-        dw_f32 = check_dw(torch, conv_chw, (16, 16, 192, 192), TRAIN_BATCH, "float32", flush)
+        dx_recs = {s: k1("dx", s, TRAIN_BATCH, "bfloat16") for s in order if s[0] > 1}
+        dx_f32 = k1("dx", (16, 16, 192, 192), TRAIN_BATCH, "float32")
+        dw_recs = {s: k1("dw", s, TRAIN_BATCH, "bfloat16") for s in order}
+        dw_f32 = k1("dw", (16, 16, 192, 192), TRAIN_BATCH, "float32")
         k3_recs = {(d, soft): check_k3(torch, pmask, TRAIN_BATCH, d, soft,
                                        flush if soft else None)
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
         # shapes, timed in bf16 at the training and the serving batch,
         # checked in f32 at the training batch
-        s2_recs = {(which, n): {sh: check_s2(torch, F, conv_chw, conv_s2, which, sh, n,
-                                             "bfloat16", flush) for sh in S2_SHAPES}
+        s2_recs = {(which, n): {sh: check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
+                                               n, "bfloat16", flush) for sh in S2_SHAPES}
                    for which in ("fwd", "dx", "dw") for n in (TRAIN_BATCH, SERVE_BATCH)}
-        s2_f32 = {which: [check_s2(torch, F, conv_chw, conv_s2, which, sh, TRAIN_BATCH,
-                                   "float32") for sh in S2_SHAPES]
+        s2_f32 = {which: [check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
+                                     TRAIN_BATCH, "float32") for sh in S2_SHAPES]
                   for which in ("fwd", "dx", "dw")}
+        # K5, K5dx and K5dw under conv_nl=True: the four large-channel
+        # shapes, timed in bf16 at the training batch, checked at the
+        # serving batch and in f32
+        nl_recs = {which: {sh: check_conv(torch, F, conv_chw, conv_nl, "nl", which, sh,
+                                          TRAIN_BATCH, "bfloat16", flush) for sh in NL_SHAPES}
+                   for which in ("fwd", "dx", "dw")}
+        nl_other = {which: [check_conv(torch, F, conv_chw, conv_nl, "nl", which, sh, n, dt)
+                            for sh in NL_SHAPES
+                            for n, dt in ((SERVE_BATCH, "bfloat16"), (TRAIN_BATCH, "float32"))]
+                    for which in ("fwd", "dx", "dw")}
+        # K6, K6dx and K6dw at the five stages of bench_b8_conv, timed in
+        # bf16 at its batch, and one stage checked in f32
+        b8_shapes = [(ci, co, h, h) for h, ci, co in bench_b8_conv.STAGES]
+        b8_recs = {which: {sh: check_conv(torch, F, conv_chw, conv_b8, "b8", which, sh,
+                                          TRAIN_BATCH, "bfloat16", flush) for sh in b8_shapes}
+                   for which in ("fwd", "dx", "dw")}
+        b8_f32 = {which: [check_conv(torch, F, conv_chw, conv_b8, "b8", which, b8_shapes[0],
+                                     TRAIN_BATCH, "float32")] for which in ("fwd", "dx", "dw")}
         del flush
         bad = [r for r in list(dx_recs.values()) + [dx_f32] + list(dw_recs.values())
                + [dw_f32] + list(k3_recs.values())
                + [r for group in s2_recs.values() for r in group.values()]
-               + [r for group in s2_f32.values() for r in group] if not r["ok"]]
+               + [r for group in s2_f32.values() for r in group]
+               + [r for group in nl_recs.values() for r in group.values()]
+               + [r for group in nl_other.values() for r in group]
+               + [r for group in b8_recs.values() for r in group.values()]
+               + [r for group in b8_f32.values() for r in group] if not r["ok"]]
         if bad:
             raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
         torch.cuda.empty_cache()
@@ -815,26 +772,35 @@ def main():
     gpu_s2 = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0,
                                   conv_s2=True)
     gpu_s2.load_state_dict(gpu.state_dict())
+    gpu_nl = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0,
+                                  conv_nl=True)
+    gpu_nl.load_state_dict(gpu.state_dict())
 
-    def k4_convs(module):
-        return sum(isinstance(c, conv_chw.Conv) and c.uses_k4() for c in module.modules())
+    def convs_per_request(model, uses):
+        """Convs ``uses`` picks in one predict(n_iter=2): the FTN's encoder
+        and segmentation decoder once, the STN once per refinement."""
+        def count(module):
+            return sum(isinstance(c, conv_chw.Conv) and uses(c) for c in module.modules())
+        return (count(model.image_encoder) + count(model.segmentation_decoder)
+                + (N_ITER - 1) * (count(model.shape_encoder) + count(model.shape_decoder)))
 
-    # K4 convs of one predict(n_iter=2): the FTN's encoder once, the STN's once
-    # per refinement
-    k4_per_request = (k4_convs(gpu_s2.image_encoder)
-                      + (N_ITER - 1) * k4_convs(gpu_s2.shape_encoder))
+    k4_per_request = convs_per_request(gpu_s2, conv_chw.Conv.uses_k4)
+    k5_per_request = convs_per_request(gpu_nl, conv_chw.Conv.uses_k5)
 
     with phase("serve"):
-        def serve(model, img, k4_expected):
-            before = (conv_chw.conv3x3_chw.launches, conv_s2.conv3x3s2.launches)
+        def serve(model, img, extra=None):
+            """One request; ``extra`` is (wrapper, launches it must make)."""
+            before = (conv_chw.conv3x3_chw.launches, extra[0].launches if extra else 0)
             t0 = time.perf_counter()
             out = model.predict(torch.from_numpy(img).to("cuda"), n_iter=N_ITER).cpu()
             sec = time.perf_counter() - t0
             launched = (conv_chw.conv3x3_chw.launches - before[0],
-                        conv_s2.conv3x3s2.launches - before[1])
-            if launched != (per_request, k4_expected):
-                raise AssertionError(f"K1 and K4 launched {launched} times for one request, "
-                                     f"expected {(per_request, k4_expected)}")
+                        extra[0].launches - before[1] if extra else 0)
+            want = (per_request, extra[1] if extra else 0)
+            if launched != want:
+                raise AssertionError(f"K1 and {extra[0].__name__ if extra else 'no other'} "
+                                     f"launched {launched} times for one request, "
+                                     f"expected {want}")
             if out.shape != (img.shape[0], 192, 192, 4) or not torch.isfinite(out).all():
                 raise AssertionError(f"bad output {tuple(out.shape)}")
             return sec
@@ -849,11 +815,11 @@ def main():
 
         for wrapper in wrappers.values():
             wrapper.launches = 0
-        serve(gpu, big, 0)                           # warm-up
-        report(SERVE_BATCH, [serve(gpu, big, 0) for _ in range(N_SERVE_REQUESTS)])
-        serve(gpu, images[0], 0)                     # warm-up
-        serve(gpu, images[1], 0)
-        report(BATCH, [serve(gpu, images[r % N_IMAGES], 0) for r in range(N_REQUESTS)])
+        serve(gpu, big)                              # warm-up
+        report(SERVE_BATCH, [serve(gpu, big) for _ in range(N_SERVE_REQUESTS)])
+        serve(gpu, images[0])                        # warm-up
+        serve(gpu, images[1])
+        report(BATCH, [serve(gpu, images[r % N_IMAGES]) for r in range(N_REQUESTS)])
         serve_launches = {k: w.launches for k, w in wrappers.items()}
         if serve_launches["conv3x3_chw"] == 0:
             raise AssertionError("K1 never launched on the serving path")
@@ -862,20 +828,28 @@ def main():
         print(f"  K1 launches during the {N_SERVE_REQUESTS + N_REQUESTS + 3} requests "
               f"(warm-ups included): {serve_launches['conv3x3_chw']}", flush=True)
 
-        # conv_s2=True: the same requests with the downsamples on K4
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
-        serve(gpu_s2, images[0], k4_per_request)     # warm-up
-        serve(gpu_s2, images[1], k4_per_request)
-        report(BATCH, [serve(gpu_s2, images[r % N_IMAGES], k4_per_request)
-                       for r in range(N_REQUESTS)], "conv_s2: ")
-        s2_serve_launches = {k: w.launches for k, w in wrappers.items()}
-        if s2_serve_launches["conv3x3s2"] != k4_per_request * (N_REQUESTS + 2) or any(
-                v for k, v in s2_serve_launches.items() if k not in ("conv3x3_chw", "conv3x3s2")):
-            raise AssertionError(f"conv_s2 serving launches {s2_serve_launches}")
-        print(f"  conv_s2: {k4_per_request} K4 launches a request; K1 and K4 launches "
-              f"during the {N_REQUESTS + 2} requests: {s2_serve_launches['conv3x3_chw']}, "
-              f"{s2_serve_launches['conv3x3s2']}", flush=True)
+        # conv_s2=True and conv_nl=True: the same requests with the
+        # downsamples on K4, or the large-channel convs on K5
+        routed = {}
+        for name, model, wrapper, k in (("conv_s2", gpu_s2, conv_s2.conv3x3s2, k4_per_request),
+                                        ("conv_nl", gpu_nl, conv_nl.conv3x3_nl,
+                                         k5_per_request)):
+            for w in wrappers.values():
+                w.launches = 0
+            serve(model, images[0], (wrapper, k))    # warm-up
+            serve(model, images[1], (wrapper, k))
+            report(BATCH, [serve(model, images[r % N_IMAGES], (wrapper, k))
+                           for r in range(N_REQUESTS)], f"{name}: ")
+            got = {key: w.launches for key, w in wrappers.items()}
+            kname = wrapper.__name__
+            if got[kname] != k * (N_REQUESTS + 2) or any(
+                    v for key, v in got.items() if key not in ("conv3x3_chw", kname)):
+                raise AssertionError(f"{name} serving launches {got}")
+            print(f"  {name}: {k} {kname} launches a request; K1 and {kname} launches "
+                  f"during the {N_REQUESTS + 2} requests: {got['conv3x3_chw']}, "
+                  f"{got[kname]}", flush=True)
+            routed[name] = got
+        s2_serve_launches, nl_serve_launches = routed["conv_s2"], routed["conv_nl"]
 
         # a model in train mode predicts in eval mode and leaves its state
         gpu_s2.train()
@@ -905,47 +879,71 @@ def main():
         got16 = gpu.predict(x0.to("cuda"), n_iter=N_ITER).cpu()
         compare_bf16(got16, cpu.predict(x0, n_iter=N_ITER), want32,
                      "bf16 K1 path vs CPU plain, end to end")
-        # conv_s2=True: the bf16 layers (K4 among them) and the f32 output
-        cpu_s2 = CooperativePredictor(compute_dtype=torch.bfloat16, device="cpu", seed=0,
-                                      conv_s2=True)
-        cpu_s2.load_state_dict(gpu.state_dict())
-        replay_leaves(torch, gpu_s2, cpu_s2, images[0], "conv_s2 bf16 layer by layer")
-        gpu32_s2 = CooperativePredictor(device="cuda", seed=0, conv_s2=True)
-        cpu32_s2 = CooperativePredictor(device="cpu", seed=0, conv_s2=True)
-        gpu32_s2.load_state_dict(gpu.state_dict())
-        cpu32_s2.load_state_dict(gpu.state_dict())
-        compare_f32(gpu32_s2.predict(x0.to("cuda"), n_iter=N_ITER).cpu(),
-                    cpu32_s2.predict(x0, n_iter=N_ITER),
-                    "conv_s2 f32 K1+K4 path vs CPU plain, end to end")
+        del gpu32, cpu32
+        # conv_s2=True and conv_nl=True: the bf16 layers (K4, or K5, among
+        # them) and the f32 output
+        for name, model, flags in (("conv_s2", gpu_s2, dict(conv_s2=True)),
+                                   ("conv_nl", gpu_nl, dict(conv_nl=True))):
+            twin = CooperativePredictor(compute_dtype=torch.bfloat16, device="cpu", seed=0,
+                                        **flags)
+            twin.load_state_dict(gpu.state_dict())
+            replay_leaves(torch, model, twin, images[0], f"{name} bf16 layer by layer")
+            card32 = CooperativePredictor(device="cuda", seed=0, **flags)
+            twin32 = CooperativePredictor(device="cpu", seed=0, **flags)
+            card32.load_state_dict(gpu.state_dict())
+            twin32.load_state_dict(gpu.state_dict())
+            compare_f32(card32.predict(x0.to("cuda"), n_iter=N_ITER).cpu(),
+                        twin32.predict(x0, n_iter=N_ITER),
+                        f"{name} f32 path vs CPU plain, end to end")
+            del twin, card32, twin32
 
-    del gpu, cpu, gpu32, cpu32, gpu_s2, cpu_s2, gpu32_s2, cpu32_s2
+    del gpu, cpu, gpu_s2, gpu_nl
     torch.cuda.empty_cache()
     train_image, train_label = phantom_batch(seed=7, n=TRAIN_BATCH)
+    configs = {"default": {}, "conv_s2": dict(conv_s2=True), "conv_nl": dict(conv_nl=True)}
 
     with phase("train"):
         runs = {}
-        for on in (False, True):
-            runs[on] = train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod,
-                                   train_image, train_label, conv_s2=on)
-            step_times = runs[on][2]
+        for name, flags in configs.items():
+            runs[name] = train_phase(torch, conv_chw, pmask, masking, cfg, coop, draws_mod,
+                                     train_image, train_label, **flags)
+            step_times = runs[name][2]
             med = statistics.median(step_times)
             p90 = statistics.quantiles(step_times, n=10)[-1]
-            print(f"  {'conv_s2: ' if on else ''}{RANDOM_STEPS} random steps of batch "
+            print(f"  {name}: {RANDOM_STEPS} random steps of batch "
                   f"{TRAIN_BATCH} (host clock, smoke-level): min {min(step_times) * 1e3:.3f} "
                   f"median {med * 1e3:.3f} p90 {p90 * 1e3:.3f} max "
                   f"{max(step_times) * 1e3:.3f} ms; {TRAIN_BATCH / med:.1f} slices/s at the "
                   f"median", flush=True)
-            print(f"  launches over the {'conv_s2 ' if on else ''}train phase: {runs[on][0]}",
-                  flush=True)
+            print(f"  launches over the {name} train phase: {runs[name][0]}", flush=True)
             torch.cuda.empty_cache()
-        missing = [k for k in LAUNCH_COUNTERS if runs[False][0][k] + runs[True][0][k] == 0]
-        if missing or any(runs[True][0][k] == 0 for k in LAUNCH_COUNTERS[4:]):
+        # the configuration whose steps each kernel's per-step numbers come from
+        source = {k: "default" for k in LAUNCH_COUNTERS[:4]}
+        source.update(dict.fromkeys(LAUNCH_COUNTERS[4:7], "conv_s2"))
+        source.update(dict.fromkeys(LAUNCH_COUNTERS[7:10], "conv_nl"))
+        missing = [k for k in LAUNCH_COUNTERS[:10] if runs[source[k]][0][k] == 0]
+        if missing:
             raise AssertionError(f"never launched on the training paths: {missing}")
 
     with phase("train-check"):
-        for on in (False, True):
-            print(f"  {'conv_s2=True' if on else 'default configuration'}:", flush=True)
-            train_check(torch, cfg, coop, draws_mod, train_image, train_label, conv_s2=on)
+        for name, flags in configs.items():
+            print(f"  {name}:", flush=True)
+            train_check(torch, cfg, coop, draws_mod, train_image, train_label, **flags)
+
+    with phase("b8"):
+        for w in wrappers.values():
+            w.launches = 0
+        b8_bench = bench_b8_conv.run(batch=TRAIN_BATCH, dtype="bfloat16", device="cuda",
+                                     reps=B8_REPS)
+        b8_launches = {k: w.launches for k, w in wrappers.items()}
+        if any(b8_launches[k] == 0 for k in LAUNCH_COUNTERS[10:]) or any(
+                v for k, v in b8_launches.items()
+                if k not in LAUNCH_COUNTERS[10:] + ("conv3x3_chw", "conv3x3_chw_dx",
+                                                   "conv3x3_chw_dw")):
+            raise AssertionError(f"bench_b8_conv launches {b8_launches}")
+        print(f"  launches over the bench: {b8_launches}; B8 forward against cuDNN "
+              + ", ".join(f"{r['stage']} {r['b8_vs_cudnn']:.3f}x" for r in b8_bench),
+              flush=True)
 
     total = time.perf_counter() - t_start
     print(f"chip_smoke total {total:.1f} s", flush=True)
@@ -953,16 +951,23 @@ def main():
     # one record per kernel: ms, plain_ms, bound_ms and library_ms per
     # train step (batch 20, the mean calls per shape over the random steps
     # times each shape's median time at N = 20): K1, K2 and K3 from the
-    # default configuration's steps, K4, K4dx and K4dw from conv_s2's; K1's
-    # serving numbers per request are printed in the kernels phase
-    seen = {k: runs[k in LAUNCH_COUNTERS[4:]][1][k] for k in LAUNCH_COUNTERS}
-    per_step = {k: {sh: n / RANDOM_STEPS for sh, n in seen[k].items()} for k in seen}
+    # default configuration's steps, K4, K4dx and K4dw from conv_s2's, K5,
+    # K5dx and K5dw from conv_nl's; K6, K6dx and K6dw per pass of the bench
+    # over its five stages (one launch each).  K1's serving numbers per
+    # request are printed in the kernels phase
+    per_step = {k: {sh: n / RANDOM_STEPS for sh, n in runs[source[k]][1][k].items()}
+                for k in LAUNCH_COUNTERS[:10]}
+    per_step.update({k: dict.fromkeys(b8_shapes, 1.0) for k in LAUNCH_COUNTERS[10:]})
     timed = {"conv3x3_chw": recs, "conv3x3_chw_dx": dx_recs, "conv3x3_chw_dw": dw_recs,
              "percentile_mask": {(n, d): k3_recs[(d, True)] for (d, soft) in k3_recs if soft
                                  for n in (TRAIN_BATCH,)},
              "conv3x3s2": s2_recs[("fwd", TRAIN_BATCH)],
              "conv3x3s2_dx": s2_recs[("dx", TRAIN_BATCH)],
-             "conv3x3s2_dw": s2_recs[("dw", TRAIN_BATCH)]}
+             "conv3x3s2_dw": s2_recs[("dw", TRAIN_BATCH)],
+             "conv3x3_nl": nl_recs["fwd"], "conv3x3_nl_dx": nl_recs["dx"],
+             "conv3x3_nl_dw": nl_recs["dw"],
+             "conv3x3_b8": b8_recs["fwd"], "conv3x3_b8_dx": b8_recs["dx"],
+             "conv3x3_b8_dw": b8_recs["dw"]}
     checked = {"conv3x3_chw": list(recs.values()) + [f32_rec] + big_recs,
                "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32],
                "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32],
@@ -970,8 +975,13 @@ def main():
     for name, which in (("conv3x3s2", "fwd"), ("conv3x3s2_dx", "dx"), ("conv3x3s2_dw", "dw")):
         checked[name] = [r for n in (TRAIN_BATCH, SERVE_BATCH)
                          for r in s2_recs[(which, n)].values()] + s2_f32[which]
-    launches = {k: runs[False][0][k] + runs[True][0][k] + serve_launches[k]
-                + s2_serve_launches[k] for k in LAUNCH_COUNTERS}
+    for group, others, base in ((nl_recs, nl_other, "conv3x3_nl"),
+                                (b8_recs, b8_f32, "conv3x3_b8")):
+        for which, name in (("fwd", base), ("dx", f"{base}_dx"), ("dw", f"{base}_dw")):
+            checked[name] = list(group[which].values()) + others[which]
+    launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
+                + sum(run[0][k] for run in runs.values()) + b8_launches[k]
+                for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:
         calls = per_step[name]
@@ -988,19 +998,20 @@ def main():
         by = Counter({r["bound_by"]: 0.0 for r in timed[name].values()})
         for sh in calls:
             by[timed[name][sh]["bound_by"]] += calls[sh] * timed[name][sh]["bound_ms"]
-        source, replaces = KERNELS[name]
+        source_file, replaces = KERNELS[name]
         records.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source_file, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checked[name]),
             "ms": total_of("ms"), "plain_ms": total_of("plain_ms"),
             "bound_ms": total_of("bound_ms"), "bound_by": by.most_common(1)[0][0],
             "library_ms": total_of("library_ms"),
         })
-        print(f"  {name}: {sum(calls.values()):.1f} calls per random step at {len(calls)} "
-              f"shapes; per step ms {records[-1]['ms']:.4f} plain {records[-1]['plain_ms']:.4f} "
-              f"bound {records[-1]['bound_ms']:.6f} library {records[-1]['library_ms']}",
-              flush=True)
+        unit = "bench pass" if name in LAUNCH_COUNTERS[10:] else "random step"
+        print(f"  {name}: {sum(calls.values()):.1f} calls per {unit} at {len(calls)} "
+              f"shapes; per {unit} ms {records[-1]['ms']:.4f} plain "
+              f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
+              f"{records[-1]['library_ms']}", flush=True)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,8 +28,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 # name -> source file under csrc/
 SOURCES: Dict[str, str] = {
+    "conv3x3_b8": "conv3x3_b8.cu",
     "conv3x3_chw": "conv3x3_chw.cu",
     "conv3x3_chw_dw": "conv3x3_chw_dw.cu",
+    "conv3x3_nl": "conv3x3_nl.cu",
     "conv3x3s2": "conv3x3s2.cu",
     "percentile_mask": "percentile_mask.cu",
 }
@@ -106,6 +108,49 @@ def raise_on_error(name: str, rc: int, what: str) -> None:
     msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
     raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
                        f"({msg(rc).decode()}) for {what}")
+
+
+def function(lib: str, name: str, argtypes: list):
+    """The C function ``name`` of library ``lib``, with ``argtypes``
+    declared (ctypes would pass an undeclared pointer or stream handle as a
+    32-bit int and cut it) and an ``int`` result (a ``*_workspace`` size:
+    ``long long``)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong if name.endswith("_workspace") else ctypes.c_int
+    return fn
+
+
+def launch(lib: str, name: str, argtypes: list, what: str, ref, *args) -> None:
+    """Call the launcher ``name`` of library ``lib`` with ``args`` and then
+    the current stream of ``ref``'s device; raise if ``ref`` is not on a
+    CUDA device, or with the CUDA error the launcher returned (``what``
+    names the call's shapes)."""
+    import torch
+
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+    fn = function(lib, name, argtypes)
+    with torch.cuda.device(ref.device):
+        rc = fn(*args, torch.cuda.current_stream(ref.device).cuda_stream)
+    raise_on_error(lib, rc, what)
+
+
+def check_operands(name: str, *tensors) -> None:
+    """What every conv launcher needs of its tensors before it passes their
+    pointers: float32 or bfloat16 alike, on one device, contiguous."""
+    import torch
+
+    a = tensors[0]
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != a.dtype:
+            raise TypeError(f"{name}: needs float32 or bfloat16 operands of one dtype, "
+                            f"got {[u.dtype for u in tensors]}")
+        if t.device != a.device:
+            raise ValueError(f"{name}: operands on {[str(u.device) for u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
 
 
 def load(name: str) -> ctypes.CDLL:

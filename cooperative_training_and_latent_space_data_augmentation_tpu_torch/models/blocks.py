@@ -116,26 +116,32 @@ class LeakyReLU(nn.Module):
         return leaky_relu(x)
 
 
-def conv_bn_stack(c_in: int, features: int,
-                  dtype: Optional[torch.dtype]) -> nn.Sequential:
+def conv_bn_stack(c_in: int, features: int, dtype: Optional[torch.dtype],
+                  conv_nl: bool = False) -> nn.Sequential:
     """conv3-BN-LeakyReLU(0.2)-conv3-BN, no trailing activation: the JAX
     package's ``ConvBlock`` (the encoder's ``inc``) and the residual branch
-    of its ``_ResCore``.  Indices 0, 1, 3, 4 hold the parameters."""
+    of its ``_ResCore``.  Indices 0, 1, 3, 4 hold the parameters.  With
+    ``conv_nl`` (the JAX package's ``PALLAS_CONV_NL=1``) both 3x3 convs go to
+    K5 where their channels pass the NL rule (:meth:`Conv.uses_k5`), as they
+    are the JAX package's dispatching ``Conv``."""
     return nn.Sequential(
-        Conv(c_in, features, 3, padding=1, dtype=dtype), BatchNorm(features),
+        Conv(c_in, features, 3, padding=1, dtype=dtype, k5=conv_nl), BatchNorm(features),
         LeakyReLU(),
-        Conv(features, features, 3, padding=1, dtype=dtype), BatchNorm(features))
+        Conv(features, features, 3, padding=1, dtype=dtype, k5=conv_nl),
+        BatchNorm(features))
 
 
 class ResCore(nn.Module):
     """LeakyReLU(conv1x1(x) + [conv3-BN-LReLU-conv3-BN](x)): the JAX
     package's ``_ResCore``, with the reference's names ``conv_input`` (the
-    1x1 shortcut) and ``conv`` (the residual branch)."""
+    1x1 shortcut) and ``conv`` (the residual branch).  ``conv_nl`` reaches
+    the residual branch's two 3x3 convs only, never the shortcut."""
 
-    def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype]):
+    def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype],
+                 conv_nl: bool = False):
         super().__init__()
         self.conv_input = Conv(c_in, features, 1, dtype=dtype)
-        self.conv = conv_bn_stack(c_in, features, dtype)
+        self.conv = conv_bn_stack(c_in, features, dtype, conv_nl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(x)
@@ -151,11 +157,12 @@ class ResConvDown(ResCore):
     <= 64, and even H and W (checked per call by :class:`Conv`).  The JAX
     package's CHW stage chaining around it is a layout change only, and in
     NCHW the (N, C, H*W) kernel layout is a free view, so nothing else
-    changes route.  The parameters are the same under both routes."""
+    changes route.  The parameters are the same under both routes.
+    ``conv_nl`` reaches the residual core, never the downsample."""
 
     def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype],
-                 conv_s2: bool = False):
-        super().__init__(c_in, features, dtype)
+                 conv_s2: bool = False, conv_nl: bool = False):
+        super().__init__(c_in, features, dtype, conv_nl)
         self.down = Conv(c_in, c_in, 3, stride=2, padding=1, dtype=dtype,
                          k4=conv_s2 and eligible_channels(c_in, features))
 
@@ -188,11 +195,11 @@ def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class ResUp(ResCore):
     """x2 upsample ('NN' nearest or 'Conv2' k2s2 transposed conv), then the
-    residual core."""
+    residual core (``conv_nl`` as for :class:`ResCore`)."""
 
     def __init__(self, c_in: int, features: int, up_type: str,
-                 dtype: Optional[torch.dtype]):
-        super().__init__(c_in, features, dtype)
+                 dtype: Optional[torch.dtype], conv_nl: bool = False):
+        super().__init__(c_in, features, dtype, conv_nl)
         if up_type == "Conv2":
             self.up = ConvTranspose2x2(c_in, c_in, dtype)
         elif up_type != "NN":

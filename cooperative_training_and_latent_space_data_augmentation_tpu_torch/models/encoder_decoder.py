@@ -12,7 +12,12 @@ decoupler compute in float32; BatchNorm always computes in float32.
 
 ``conv_s2`` is the JAX package's ``PALLAS_CONV_S2`` switch, off by default:
 the encoders' stride-2 downsamples with at most 64 channels run on kernel
-K4 (:class:`..models.blocks.ResConvDown`).
+K4 (:class:`..models.blocks.ResConvDown`).  ``conv_nl`` is its
+``PALLAS_CONV_NL`` switch, also off by default: the 3x3 convs of the
+residual stages whose channels pass the NL rule run on kernel K5 (at full
+width the encoders' ``down3`` and ``down4``, four convs a pass, and the
+decoders' ``up1``, one).  The two combine freely.  The code decoupler never
+takes K5 (:func:`code_decoupler`).
 """
 
 from __future__ import annotations
@@ -41,14 +46,14 @@ class Encoder(nn.Module):
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
                  act: Optional[str] = "relu", dtype: Optional[torch.dtype] = None,
-                 conv_s2: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False):
         super().__init__()
         f = feature_reduce
         widths = (64 // f, 128 // f, 256 // f, 512 // f, 512 // f)
-        self.inc = conv_bn_stack(in_ch, widths[0], dtype)
+        self.inc = conv_bn_stack(in_ch, widths[0], dtype, conv_nl)
         for i in range(4):
             self.add_module(f"down{i + 1}",
-                            ResConvDown(widths[i], widths[i + 1], dtype, conv_s2))
+                            ResConvDown(widths[i], widths[i + 1], dtype, conv_s2, conv_nl))
         self.final_conv = nn.Sequential(
             Conv(widths[4], widths[4], 1, dtype=torch.float32), BatchNorm(widths[4]))
         self.act = _ACTS[act]
@@ -67,13 +72,13 @@ class Decoder(nn.Module):
 
     def __init__(self, output_channel: int, feature_reduce: int = 4,
                  up_type: str = "NN", last_act: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, conv_nl: bool = False):
         super().__init__()
         f = feature_reduce
         widths = (512 // f, 256 // f, 128 // f, 64 // f, 64 // f)
         for i in range(4):
             self.add_module(f"up{i + 1}",
-                            ResUp(widths[i], widths[i + 1], up_type, dtype))
+                            ResUp(widths[i], widths[i + 1], up_type, dtype, conv_nl))
         self.final_conv = Conv(widths[4], output_channel, 1, dtype=torch.float32)
         self.last_act = _ACTS[last_act]
 
@@ -86,7 +91,13 @@ class Decoder(nn.Module):
 
 
 def code_decoupler(features: int) -> nn.Sequential:
-    """z_i -> z_s filter, conv3-BN-LReLU-conv3-BN-ReLU, always float32."""
+    """z_i -> z_s filter, conv3-BN-LReLU-conv3-BN-ReLU, always float32.
+
+    Takes no ``conv_nl``: its two 128->128 3x3 convs would pass the NL
+    channel rule, but the JAX package builds them with flax's stock
+    ``nn.Conv`` (``models/encoder_decoder.py:174,178`` there), not with its
+    dispatching ``Conv``, so under ``PALLAS_CONV_NL=1`` they stay on XLA.
+    Here they stay on ``F.conv2d``."""
     return nn.Sequential(
         Conv(features, features, 3, padding=1, dtype=torch.float32),
         BatchNorm(features), LeakyReLU(),
@@ -98,9 +109,11 @@ class DualBranchEncoder(nn.Module):
     """FTN encoder: x -> (z_i, z_s = code_decoupler(z_i))."""
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
-                 dtype: Optional[torch.dtype] = None, conv_s2: bool = False):
+                 dtype: Optional[torch.dtype] = None, conv_s2: bool = False,
+                 conv_nl: bool = False):
         super().__init__()
-        self.general_encoder = Encoder(in_ch, feature_reduce, "relu", dtype, conv_s2)
+        self.general_encoder = Encoder(in_ch, feature_reduce, "relu", dtype, conv_s2,
+                                       conv_nl)
         self.code_decoupler = code_decoupler(512 // feature_reduce)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

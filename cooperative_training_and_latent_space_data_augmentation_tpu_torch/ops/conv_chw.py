@@ -1,6 +1,7 @@
 """The CHW 3x3 convolution (kernel K1), its gradients (K1 on flipped
 weights for dx, kernel K2 for dw) and the conv dispatcher, which also
-routes the stride-2 downsamples to K4 (``ops/conv_s2.py``) when asked.
+routes the stride-2 downsamples to K4 (``ops/conv_s2.py``) and the
+large-channel 3x3 convs to K5 (``ops/conv_nl.py``) when asked.
 
 Counterpart of ``cooperative_training_and_latent_space_data_augmentation_tpu/
 ops/pallas_conv.py``: ``weights_to_wall``, the channel eligibility rule,
@@ -39,6 +40,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_nl import (
+    conv3x3_nl_ad,
+    eligible_channels_nl,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_s2 import (
     conv3x3s2_ad,
 )
@@ -91,14 +96,15 @@ def _check_k1_args(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int):
         raise ValueError("conv3x3_chw: x and w_all must be contiguous")
 
 
+_SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
+    "conv3x3_chw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "conv3x3_chw_dw": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "conv3x3_chw_dw_workspace": [ctypes.c_int] * 5,
+}
+
+
 def _k1():
-    fn = kernels.load("conv3x3_chw").conv3x3_chw
-    if fn.argtypes is None:  # pointers and the stream must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return kernels.function("conv3x3_chw", "conv3x3_chw", _SIGNATURES["conv3x3_chw"])
 
 
 def _launch_k1(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -107,12 +113,9 @@ def _launch_k1(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Te
     n, c_in, L = x.shape
     c_out = w_all.shape[0]
     out = torch.empty((n, c_out, L), dtype=x.dtype, device=x.device)
-    fn = _k1()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w_all.data_ptr(), out.data_ptr(), n, c_in, c_out,
-                H, W, int(x.dtype == torch.bfloat16), stream)
-    kernels.raise_on_error("conv3x3_chw", rc, f"x {tuple(x.shape)}, C_out {c_out}")
+    kernels.launch("conv3x3_chw", "conv3x3_chw", _SIGNATURES["conv3x3_chw"],
+                   f"x {tuple(x.shape)}, C_out {c_out}", x, x.data_ptr(), w_all.data_ptr(),
+                   out.data_ptr(), n, c_in, c_out, H, W, int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -198,19 +201,6 @@ def _check_k2_args(x: torch.Tensor, dy: torch.Tensor, H: int, W: int):
         raise ValueError("conv3x3_chw_dw: x and dy must be contiguous")
 
 
-def _k2():
-    lib = kernels.load("conv3x3_chw_dw")
-    fn, ws = lib.conv3x3_chw_dw, lib.conv3x3_chw_dw_workspace
-    if fn.argtypes is None:  # pointers and the stream must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        ws.argtypes = [ctypes.c_int] * 5
-        ws.restype = ctypes.c_longlong
-    return fn, ws
-
-
 def conv3x3_chw_dw(x: torch.Tensor, dy: torch.Tensor, H: int,
                    W: int) -> torch.Tensor:
     """Weight gradient of :func:`conv3x3_chw`: x (N, C_in, H*W), dy (N,
@@ -228,16 +218,15 @@ def conv3x3_chw_dw(x: torch.Tensor, dy: torch.Tensor, H: int,
         raise ValueError(f"conv3x3_chw_dw: no kernel for device {x.device}")
     n, c_in, _ = x.shape
     c_out = dy.shape[1]
-    fn, ws_size = _k2()
+    ws_size = kernels.function("conv3x3_chw_dw", "conv3x3_chw_dw_workspace",
+                               _SIGNATURES["conv3x3_chw_dw_workspace"])
     work = torch.empty(ws_size(n, c_in, c_out, H, W), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dy.data_ptr(), work.data_ptr(), out.data_ptr(), n,
-                c_in, c_out, H, W, int(x.dtype == torch.bfloat16), stream)
-    kernels.raise_on_error("conv3x3_chw_dw", rc,
-                           f"x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    kernels.launch("conv3x3_chw_dw", "conv3x3_chw_dw", _SIGNATURES["conv3x3_chw_dw"],
+                   f"x {tuple(x.shape)}, dy {tuple(dy.shape)}", x, x.data_ptr(),
+                   dy.data_ptr(), work.data_ptr(), out.data_ptr(), n, c_in, c_out, H, W,
+                   int(x.dtype == torch.bfloat16))
     conv3x3_chw_dw.launches += 1
     return out
 
@@ -311,6 +300,15 @@ class Conv(nn.Module):
       the JAX package's ``s2_chain_ok`` channel rule) goes to K4 on an
       input of even height and width, through ``conv_s2.conv3x3s2_ad``, so
       its backward runs K4dx and K4dw;
+    * a stride-1 SAME 3x3 conv built with ``k5=True`` whose channels pass
+      ``conv_nl.eligible_channels_nl`` goes to K5, on the same (N, C, H*W)
+      view, through ``conv_nl.conv3x3_nl_ad``, so its backward runs K5 (dx)
+      and K5dw.  K1 comes first, as in the JAX package's ``Conv``, but the
+      two channel rules are disjoint.  The route is chosen per call site,
+      never by channel count alone: the JAX package sends to its NL kernel
+      only the convs built with its dispatching ``Conv`` (the encoders' and
+      decoders' residual stages), not the code decoupler's stock
+      ``nn.Conv``, so only those blocks build their convs with ``k5``;
     * every other conv goes to ``F.conv2d``, as the JAX package leaves those
       to XLA, in full f32 when it computes in f32 (:func:`full_f32`);
     * the bias is added after the conv, in the compute dtype.
@@ -318,7 +316,8 @@ class Conv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 dtype: Optional[torch.dtype] = None, k4: bool = False):
+                 dtype: Optional[torch.dtype] = None, k4: bool = False,
+                 k5: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out))
@@ -326,6 +325,7 @@ class Conv(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.k4 = k4
+        self.k5 = k5
 
     def uses_k1(self) -> bool:
         c_out, c_in, kh, _ = self.weight.shape
@@ -336,6 +336,11 @@ class Conv(nn.Module):
         """Routed to K4 (on inputs of even height and width)."""
         return (self.k4 and self.weight.shape[2] == 3 and self.stride == 2
                 and self.padding == 1)
+
+    def uses_k5(self) -> bool:
+        c_out, c_in, kh, _ = self.weight.shape
+        return (self.k5 and kh == 3 and self.stride == 1 and self.padding == 1
+                and not self.uses_k1() and eligible_channels_nl(c_in, c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
@@ -351,6 +356,11 @@ class Conv(nn.Module):
             y = conv3x3s2_ad(x.reshape(n, c, h * ww).contiguous(),
                              weights_to_wall(w).contiguous(), h, ww)
             y = y.reshape(n, -1, h // 2, ww // 2)
+        elif self.uses_k5():
+            n, c, h, ww = x.shape
+            y = conv3x3_nl_ad(x.reshape(n, c, h * ww).contiguous(),
+                              weights_to_wall(w).contiguous(), h, ww)
+            y = y.reshape(n, -1, h, ww)
         else:
             with full_f32(dt):
                 y = F.conv2d(x, w, None, self.stride, self.padding)

@@ -85,17 +85,8 @@ def conv3x3s2_dw_plain(x: torch.Tensor, dy: torch.Tensor, H: int,
 
 
 def _check(name: str, H: int, W: int, *tensors: torch.Tensor):
-    """Shared checks: float32 or bfloat16 alike, one device, contiguous;
-    H and W even."""
-    a = tensors[0]
-    for t in tensors:
-        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != a.dtype:
-            raise TypeError(f"{name}: needs float32 or bfloat16 operands of one dtype, "
-                            f"got {[u.dtype for u in tensors]}")
-        if t.device != a.device:
-            raise ValueError(f"{name}: operands on {[str(u.device) for u in tensors]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
+    """Shared checks: ``kernels.check_operands``; H and W even."""
+    kernels.check_operands(name, *tensors)
     if H < 2 or W < 2 or H % 2 or W % 2:
         raise ValueError(f"{name}: needs even H and W, got {H}x{W}")
 
@@ -124,21 +115,12 @@ _SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
 
 
 def _fn(name: str):
-    fn = getattr(kernels.load("conv3x3s2"), name)
-    if fn.argtypes is None:  # pointers and the stream must not pass as 32-bit ints
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_longlong if name.endswith("workspace") else ctypes.c_int
-    return fn
+    return kernels.function("conv3x3s2", name, _SIGNATURES[name])
 
 
 def _launch(name: str, what: str, ref: torch.Tensor, *args) -> None:
-    if ref.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {ref.device}")
-    fn = _fn(name)
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        rc = fn(*args, int(ref.dtype == torch.bfloat16), stream)
-    kernels.raise_on_error("conv3x3s2", rc, what)
+    kernels.launch("conv3x3s2", name, _SIGNATURES[name], what, ref, *args,
+                   int(ref.dtype == torch.bfloat16))
 
 
 def conv3x3s2(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -58,13 +58,9 @@ def _check_args(saliency: torch.Tensor, p: torch.Tensor, soft_vals: torch.Tensor
                              f"{saliency.device}")
 
 
-def _k3():
-    fn = kernels.load("percentile_mask").percentile_mask
-    if fn.argtypes is None:  # pointers and the stream must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
+    "percentile_mask": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+}
 
 
 def percentile_mask(saliency: torch.Tensor, p: torch.Tensor,
@@ -87,12 +83,9 @@ def percentile_mask(saliency: torch.Tensor, p: torch.Tensor,
     sal, pc, soft = saliency.contiguous(), p.contiguous(), soft_vals.contiguous()
     n, d = sal.shape
     out = torch.empty_like(sal)
-    fn = _k3()
-    with torch.cuda.device(sal.device):
-        stream = torch.cuda.current_stream(sal.device).cuda_stream
-        rc = fn(sal.data_ptr(), pc.data_ptr(), soft.data_ptr(), out.data_ptr(), n, d,
-                stream)
-    kernels.raise_on_error("percentile_mask", rc, f"saliency {tuple(sal.shape)}")
+    kernels.launch("percentile_mask", "percentile_mask", _SIGNATURES["percentile_mask"],
+                   f"saliency {tuple(sal.shape)}", sal, sal.data_ptr(), pc.data_ptr(),
+                   soft.data_ptr(), out.data_ptr(), n, d)
     percentile_mask.launches += 1
     return out
 

@@ -1,16 +1,18 @@
 """Where the time of one ``predict(n_iter=2)`` request goes on the card.
 
-    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict [--conv-s2]
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict [--conv-s2] [--conv-nl]
 
 Serves phantom requests (bf16, weights from a seed) through
 ``CooperativePredictor.predict``, as ``chip_smoke.py`` does, and traces a few
 of them with ``torch.profiler``.  Prints, per batch size (20 and 160): the
 host-clock latency of a request (numpy in, numpy out) over 50 untraced
 requests, as min / median / p90 / max, the device time per request by
-group (kernels K1 and K4, cuDNN convolutions, other kernels, copies), the
+group (kernels K1, K4 and K5, cuDNN convolutions, other kernels, copies), the
 device's idle share over the traced window, and the kernels that take the
 most device time.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
-(the encoders' stride-2 downsamples on K4).  Needs a CUDA device.
+(the encoders' stride-2 downsamples on K4), ``--conv-nl`` the
+``conv_nl=True`` one (the residual stages' large-channel 3x3 convs on K5);
+the two combine.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ TOP = 12                # kernels listed by device time
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "conv3x3_nl" in name:
+        return "K5 conv3x3_nl (forward, dx and dw)"
+    if "conv3x3_b8" in name:
+        return "K6 conv3x3_b8 (forward, dx and dw)"
     if "conv3x3s2" in name:
         return "K4 conv3x3s2 (forward, dx and dw)"
     if "conv3x3_chw_kernel" in name:
@@ -103,16 +109,25 @@ def profile_batch(predictor, batch: int) -> None:
         print(f"    {us / 1e3 / TRACED_REQUESTS:8.3f} ms  x{count // TRACED_REQUESTS:<4d} {key[:110]}")
 
 
+def configuration(args) -> str:
+    """The configuration's name from the ``--conv-s2``/``--conv-nl`` flags."""
+    on = [name for name, flag in (("conv_s2", args.conv_s2), ("conv_nl", args.conv_nl))
+          if flag]
+    return " + ".join(on) or "default configuration"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--conv-s2", action="store_true",
                         help="the encoders' stride-2 downsamples on kernel K4")
+    parser.add_argument("--conv-nl", action="store_true",
+                        help="the residual stages' large-channel 3x3 convs on kernel K5")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict: needs a CUDA device")
-    print(torch.cuda.get_device_name(0), "conv_s2" if args.conv_s2 else "default configuration")
+    print(torch.cuda.get_device_name(0), configuration(args))
     predictor = CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=0,
-                                     conv_s2=args.conv_s2)
+                                     conv_s2=args.conv_s2, conv_nl=args.conv_nl)
     for batch in BATCHES:
         profile_batch(predictor, batch)
     return 0

@@ -1,6 +1,6 @@
 """Where the time of one cooperative train step goes on the card.
 
-    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_train [--conv-s2]
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_train [--conv-s2] [--conv-nl]
 
 Trains at full width (FCN_16, 192x192x1, batch 20, bf16 convs, latent DA on
 both codes with ``mask_type="random"``, weights from a seed) on one fixed
@@ -8,10 +8,12 @@ phantom batch, as ``chip_smoke.py``'s train phase does.  After 3 warm-up
 steps it times 20 untraced steps on the host clock (each ending in a
 synchronize) as min / median / p90 / max, then traces 5 steps with
 ``torch.profiler`` and prints the device time per step by group (K1 forward
-and dx, K2, K3, K4 with K4dx and K4dw, cuDNN, other kernels, copies), the
-device's idle share over the traced window, and the kernels that take the
-most device time.  ``--conv-s2`` trains the ``conv_s2=True`` configuration
-(the encoders' stride-2 downsamples on K4).  Needs a CUDA device.
+and dx, K2, K3, K4 with K4dx and K4dw, K5 with its dx and K5dw, cuDNN,
+other kernels, copies), the device's idle share over the traced window, and
+the kernels that take the most device time.  ``--conv-s2`` trains the
+``conv_s2=True`` configuration (the encoders' stride-2 downsamples on K4),
+``--conv-nl`` the ``conv_nl=True`` one (the residual stages' large-channel
+3x3 convs on K5); the two combine.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synt
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
     _group,
+    configuration,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
@@ -50,12 +53,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--conv-s2", action="store_true",
                         help="the encoders' stride-2 downsamples on kernel K4")
+    parser.add_argument("--conv-nl", action="store_true",
+                        help="the residual stages' large-channel 3x3 convs on kernel K5")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
-    print(torch.cuda.get_device_name(0), "conv_s2" if args.conv_s2 else "default configuration")
+    print(torch.cuda.get_device_name(0), configuration(args))
     trainer = CooperativeTrainer(LatentDAConfig(), compute_dtype=torch.bfloat16,
-                                 device="cuda", seed=0, conv_s2=args.conv_s2)
+                                 device="cuda", seed=0, conv_s2=args.conv_s2,
+                                 conv_nl=args.conv_nl)
     image, label = phantom_batch(seed=7, n=BATCH)
     image, label = torch.from_numpy(image).to("cuda"), torch.from_numpy(label).to("cuda")
     gen = torch.Generator().manual_seed(0)

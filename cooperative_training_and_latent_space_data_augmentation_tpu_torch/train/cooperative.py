@@ -73,20 +73,21 @@ class CooperativeTrainer:
 
     ``latent_da``: the latent DA configuration (None trains without hard
     examples).  ``compute_dtype``, ``device`` (``"cuda"`` unless the caller
-    asks for ``"cpu"``), ``seed`` and ``conv_s2`` (the JAX package's
-    ``PALLAS_CONV_S2``: the encoders' stride-2 downsamples on kernel K4)
-    are the predictor's.
+    asks for ``"cpu"``), ``seed``, ``conv_s2`` (the JAX package's
+    ``PALLAS_CONV_S2``: the encoders' stride-2 downsamples on kernel K4) and
+    ``conv_nl`` (its ``PALLAS_CONV_NL``: the residual stages' large-channel
+    3x3 convs on kernel K5) are the predictor's.
     """
 
     def __init__(self, latent_da: Optional[LatentDAConfig], *, input_noise_std: float = 0.05,
                  learning_rate: float = 1e-4, compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
                  image_ch: int = 1, num_classes: int = 4, temperature: float = 2.0,
-                 conv_s2: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False):
         self.model = CooperativePredictor(image_ch=image_ch, num_classes=num_classes,
                                           temperature=temperature,
                                           compute_dtype=compute_dtype, device=device,
-                                          seed=seed, conv_s2=conv_s2)
+                                          seed=seed, conv_s2=conv_s2, conv_nl=conv_nl)
         self.model.train()
         self.latent_da = latent_da
         self.input_noise_std = input_noise_std
@@ -256,56 +257,67 @@ class CooperativeTrainer:
         """Kernel launches one :meth:`train_step` makes on the card, by
         wrapper (``conv3x3_chw``: K1 forward, ``conv3x3_chw_dx``: K1 on
         flipped weights, ``conv3x3_chw_dw``: K2, ``percentile_mask``: K3,
-        ``conv3x3s2``, ``conv3x3s2_dx``, ``conv3x3s2_dw``: K4, K4dx, K4dw),
-        for the branches drawn (``{"image": b, "shape": b}``).
+        ``conv3x3s2``, ``conv3x3s2_dx``, ``conv3x3s2_dw``: K4, K4dx, K4dw,
+        ``conv3x3_nl``, ``conv3x3_nl_dx``, ``conv3x3_nl_dw``: K5 forward, K5
+        on flipped weights, K5dw), for the branches drawn (``{"image": b,
+        "shape": b}``).
 
         Every K1 conv of the loss graph launches forward and K2; all but
         those whose input needs no gradient (an encoder's first conv on an
         image, a label or a detached segmentation) launch dx.  Generation
         decodes each code once, and a targeted branch adds a saliency
-        forward and backward (dx only) and one K3.  A K4 conv (an
-        encoder's downsample under ``conv_s2``) launches K4, K4dx and K4dw
-        once per encoder pass: its input comes after the encoder's ``inc``
-        block, so it always needs a gradient, and generation runs no
+        forward and backward (dx only) and one K3.  K5 convs (under
+        ``conv_nl``) count by the same rule; none is an encoder's first
+        conv, so each launches dx wherever it runs in the loss graph.  A K4
+        conv (an encoder's downsample under ``conv_s2``) launches K4, K4dx
+        and K4dw once per encoder pass: its input comes after the encoder's
+        ``inc`` block, so it always needs a gradient, and generation runs no
         encoder.  The image encoder runs once per FTN pass, the shape
         encoder once per recon."""
         m = self.model
+        lda = self.latent_da
 
         def count(name, uses):
             return sum(isinstance(c, Conv) and uses(c) for c in getattr(m, name).modules())
 
-        k1 = {name: count(name, Conv.uses_k1) for name in MODULE_NAMES}
+        def stride1(uses):
+            """(forward, dx, dw) launches of the stride-1 convs that ``uses``
+            picks."""
+            k = {name: count(name, uses) for name in MODULE_NAMES}
+            img_first = int(uses(m.image_encoder.general_encoder.inc[0]))
+            shp_first = int(uses(m.shape_encoder.inc[0]))
+            ftn = k["image_encoder"] + k["segmentation_decoder"] + k["image_decoder"]
+            stn = k["shape_encoder"] + k["shape_decoder"]
+            # standard pass: FTN, ground-truth recon, predicted recon
+            fwd = ftn + 2 * stn
+            dx = (ftn - img_first) + (stn - shp_first) + stn
+            if self.use_latent_da:
+                if lda.gen_corrupted_image:  # hard FTN + its predicted recon
+                    fwd += ftn + stn
+                    dx += (ftn - img_first) + stn
+                if lda.gen_corrupted_seg:    # recon of the perturbed segmentation
+                    fwd += stn
+                    dx += stn - shp_first
+            dw = fwd
+            if self.use_latent_da:
+                for key, on, dec in (("image", lda.gen_corrupted_image, "image_decoder"),
+                                     ("shape", lda.gen_corrupted_seg, "segmentation_decoder")):
+                    if on:
+                        targeted = branches[key] != 0
+                        fwd += k[dec] * (2 if targeted else 1)
+                        dx += k[dec] if targeted else 0
+            return fwd, dx, dw
+
+        ftn_passes = 1 + int(self.use_latent_da and lda.gen_corrupted_image)
+        recons = 2 + int(self.use_latent_da and lda.gen_corrupted_image) \
+            + int(self.use_latent_da and lda.gen_corrupted_seg)
+        mask = sum(int(self.use_latent_da and on and branches[key] != 0) for key, on in (
+            ("image", lda is not None and lda.gen_corrupted_image),
+            ("shape", lda is not None and lda.gen_corrupted_seg)))
         k4 = {name: count(name, Conv.uses_k4) for name in ("image_encoder", "shape_encoder")}
-        img_first = int(m.image_encoder.general_encoder.inc[0].uses_k1())
-        shp_first = int(m.shape_encoder.inc[0].uses_k1())
-        ftn = k1["image_encoder"] + k1["segmentation_decoder"] + k1["image_decoder"]
-        stn = k1["shape_encoder"] + k1["shape_decoder"]
-        # standard pass: FTN, ground-truth recon, predicted recon
-        fwd = ftn + 2 * stn
-        dx = (ftn - img_first) + (stn - shp_first) + stn
-        ftn_passes, recons = 1, 2
-        mask = 0
-        lda = self.latent_da
-        if self.use_latent_da:
-            if lda.gen_corrupted_image:  # hard FTN + its predicted recon
-                fwd += ftn + stn
-                dx += (ftn - img_first) + stn
-                ftn_passes += 1
-                recons += 1
-            if lda.gen_corrupted_seg:    # recon of the perturbed segmentation
-                fwd += stn
-                dx += stn - shp_first
-                recons += 1
-        dw = fwd
-        if self.use_latent_da:
-            for key, on, dec in (("image", lda.gen_corrupted_image, "image_decoder"),
-                                 ("shape", lda.gen_corrupted_seg, "segmentation_decoder")):
-                if on:
-                    targeted = branches[key] != 0
-                    fwd += k1[dec] * (2 if targeted else 1)
-                    dx += k1[dec] if targeted else 0
-                    mask += int(targeted)
         s2 = ftn_passes * k4["image_encoder"] + recons * k4["shape_encoder"]
-        return {"conv3x3_chw": fwd, "conv3x3_chw_dx": dx, "conv3x3_chw_dw": dw,
+        k1, k5 = stride1(Conv.uses_k1), stride1(Conv.uses_k5)
+        return {"conv3x3_chw": k1[0], "conv3x3_chw_dx": k1[1], "conv3x3_chw_dw": k1[2],
                 "percentile_mask": mask, "conv3x3s2": s2, "conv3x3s2_dx": s2,
-                "conv3x3s2_dw": s2}
+                "conv3x3s2_dw": s2, "conv3x3_nl": k5[0], "conv3x3_nl_dx": k5[1],
+                "conv3x3_nl_dw": k5[2]}

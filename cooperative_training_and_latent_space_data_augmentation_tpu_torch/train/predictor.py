@@ -61,6 +61,11 @@ class CooperativePredictor(nn.Module):
     card; None keeps float32).  ``conv_s2``: the JAX package's
     ``PALLAS_CONV_S2`` configuration, off by default: the encoders'
     stride-2 downsamples with at most 64 channels run on kernel K4.
+    ``conv_nl``: its ``PALLAS_CONV_NL`` configuration, off by default: the
+    residual stages' 3x3 convs with 64..256 channels (the encoders' last
+    two stages and the decoders' first) run on kernel K5; the code
+    decoupler's stay on ``F.conv2d``, as in the JAX package.  The two
+    combine freely.
     ``seed``: parameters are drawn from it (He normal convs, BN scale 1 +
     0.02 N(0, 1), zero biases, running stats 0 and 1, as the JAX package
     initialises); load trained weights with :meth:`load_state_dicts`.
@@ -72,18 +77,18 @@ class CooperativePredictor(nn.Module):
     def __init__(self, image_ch: int = 1, num_classes: int = 4, n_iter: int = 1,
                  temperature: float = 2.0, compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
-                 conv_s2: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.n_iter = n_iter
         self.temperature = temperature
         f = 4  # FCN_16: feature_reduce 4
         dt = compute_dtype
-        self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2)
-        self.segmentation_decoder = Decoder(num_classes, f, "NN", None, dt)
-        self.shape_encoder = Encoder(num_classes, f, "relu", dt, conv_s2)
-        self.shape_decoder = Decoder(num_classes, f, "NN", None, dt)
-        self.image_decoder = Decoder(image_ch, f, "Conv2", "sigmoid", dt)
+        self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2, conv_nl)
+        self.segmentation_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl)
+        self.shape_encoder = Encoder(num_classes, f, "relu", dt, conv_s2, conv_nl)
+        self.shape_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl)
+        self.image_decoder = Decoder(image_ch, f, "Conv2", "sigmoid", dt, conv_nl)
         init_parameters(self, seed)
         self.to(device)
         self.eval()

@@ -188,3 +188,41 @@ def test_kernel_binding_declares_pointer_arguments(monkeypatch):
     assert fn.restype is ctypes.c_int
     assert [fn.argtypes[i] for i in (0, 1, 2, 9)] == [ctypes.c_void_p] * 4
     assert fn.argtypes[3:9] == [ctypes.c_int] * 6
+
+
+def test_bindings_match_the_c_prototypes():
+    """Every ``_SIGNATURES`` table of the kernel modules declares, for each
+    C function it binds, exactly the parameters of that function's
+    prototype in ``csrc/*.cu`` (a pointer as ``c_void_p``, an ``int`` as
+    ``c_int``): a wrong count or kind would shift or cut the arguments
+    ctypes passes.  Every exported function but the error strings is
+    bound."""
+    import ctypes
+    import glob
+    import re
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_b8,
+        conv_nl,
+        conv_s2,
+        percentile_mask,
+    )
+
+    import os
+
+    csrc = os.path.join(os.path.dirname(conv_chw.__file__), "..", "csrc")
+    prototypes = {}
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        text = open(path).read()
+        body = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"^(?:int|long long|const char\*) (\w+)\(([^)]*)\)",
+                                       body, re.M):
+            kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                     for p in (q.strip() for q in params.split(",")) if p]
+            prototypes[name] = kinds
+    bound = {}
+    for mod in (conv_chw, conv_s2, conv_nl, conv_b8, percentile_mask):
+        bound.update(mod._SIGNATURES)
+    assert set(bound) == {n for n in prototypes if not n.endswith("_error_string")}
+    for name, argtypes in bound.items():
+        assert argtypes == prototypes[name], name

@@ -1,10 +1,12 @@
-"""The port's kernels on the card: K1 (forward and dx), K2, K3 and the
-stride-2 K4, K4dx and K4dw against their plain PyTorch versions at the
-main path's shapes and at edge shapes (ragged tiles, C_in not a multiple
-of the staged chunk, every C_out bucket, D not a multiple of 32, ties), the
-fixed summation order of K2 and K4dw, the input checks (no fallback), the
-launch counts, and the predictor and the train step on the card against
-the CPU, with the default route and with ``conv_s2=True``.
+"""The port's kernels on the card: K1 (forward and dx), K2, K3, the
+stride-2 K4, K4dx and K4dw, the large-channel K5 (forward and dx) and
+K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
+PyTorch versions at the main path's shapes and at edge shapes (ragged
+tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
+multiple of 32, ties), the fixed summation order of K2, K4dw, K5dw and
+K6dw, the input checks (no fallback), the launch counts, and the predictor
+and the train step on the card against the CPU, with the default route,
+with ``conv_s2=True`` and with ``conv_nl=True``.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -21,7 +23,9 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config im
     LatentDAConfig,
     MaskConfig,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_b8
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_nl
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
     percentile_mask as pmask,
@@ -369,3 +373,188 @@ def test_train_mode_predict_on_card_leaves_buffers(cuda):
     assert all(m.training for m in trainer.model.modules())
     trainer.model.eval()
     assert torch.equal(got, trainer.model.predict(x, n_iter=2))
+
+
+# (N, C_in, C_out, H, W) of K5: the main path's four shapes at the training
+# batch, and edges: C_in not a multiple of the 32-channel step (and 9*C_in
+# not a multiple of the 64-row dw tile), C_out not a multiple of the
+# 64-column tile, tiles that cross images (12x12 = 144 pixels, 2.25 tiles),
+# non-square images, the largest channel count, one pixel
+NL_SHAPES = [
+    (20, 64, 128, 24, 24), (20, 128, 128, 24, 24), (20, 128, 128, 12, 12),
+    (20, 128, 64, 24, 24), (3, 72, 136, 7, 11), (2, 100, 200, 5, 3), (2, 256, 64, 6, 6),
+    (3, 64, 128, 1, 1),
+]
+
+
+def _nl_inputs(cuda, n, c_in, c_out, h, w, dt, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, c_in, h * w), generator=gen, device=cuda).to(dt)
+    dy = torch.randn((n, c_out, h * w), generator=gen, device=cuda).to(dt)
+    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device=cuda)
+             / (9 * c_in) ** 0.5).to(dt)
+    return x, dy, w_all
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", NL_SHAPES)
+def test_k5_and_k5dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, w_all = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 5)
+    got = conv_nl.conv3x3_nl(x, w_all, h, w)
+    want = conv_nl.conv3x3_nl_plain(x, w_all, h, w)
+    got_dx = conv_nl.conv3x3_nl_dx(dy, w_all, h, w)
+    want_dx = conv_nl.conv3x3_nl_plain(dy, conv_chw.flip_wall(w_all).contiguous(), h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, c_out, h * w)
+    assert got_dx.dtype == dt and got_dx.shape == (n, c_in, h * w)
+    for g, wt in ((got, want), (got_dx, want_dx)):
+        scale = wt.float().abs().max().item()
+        # bf16: one rounding of nearly the same f32 sum (the tensor cores'
+        # f32 accumulation); f32: FMAs in another order
+        atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+        torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", NL_SHAPES)
+def test_k5dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 6)
+    got = conv_nl.conv3x3_nl_dw(x, dy, h, w)
+    again = conv_nl.conv3x3_nl_dw(x, dy, h, w)
+    want = conv_nl.conv3x3_nl_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (9 * c_in, c_out)
+    # f32 sums of the same products (a bf16 product is exact in f32) in
+    # another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_k5_rejects_bad_input_without_fallback(cuda):
+    x = torch.randn(2, 64, 16, device=cuda)
+    w_all = torch.randn(128, 576, device=cuda)
+    with pytest.raises(TypeError):
+        conv_nl.conv3x3_nl(x.double(), w_all.double(), 4, 4)
+    with pytest.raises(ValueError):
+        conv_nl.conv3x3_nl(x, w_all.cpu(), 4, 4)
+    with pytest.raises(ValueError):
+        conv_nl.conv3x3_nl(x, torch.randn(64, 576, device=cuda), 4, 4)
+    with pytest.raises(ValueError):
+        conv_nl.conv3x3_nl_dw(x, torch.randn(2, 64, 16, device=cuda), 4, 4)
+
+
+def test_k5_launches_are_counted(cuda):
+    conv = conv_chw.Conv(64, 128, 3, padding=1, k5=True).to(cuda)
+    fns = (conv_nl.conv3x3_nl, conv_nl.conv3x3_nl_dx, conv_nl.conv3x3_nl_dw)
+    before = [f.launches for f in fns]
+    conv(torch.randn(2, 64, 4, 4, device=cuda, requires_grad=True)).sum().backward()
+    conv_nl.conv3x3_nl_plain(torch.randn(1, 64, 16), torch.randn(128, 576), 4, 4)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+
+
+def test_predictor_nl_on_card_matches_cpu(cuda):
+    """f32 predict(n_iter=2) with ``conv_nl`` through K1 and K5 against the
+    plain path on the CPU; 10 K5 launches a request, K1's 26 unchanged."""
+    gpu = CooperativePredictor(device=cuda, seed=0, conv_nl=True)
+    cpu = CooperativePredictor(device="cpu", seed=0, conv_nl=True)
+    x = torch.rand((2, 32, 32, 1), generator=torch.Generator().manual_seed(0))
+    before = (conv_chw.conv3x3_chw.launches, conv_nl.conv3x3_nl.launches)
+    got = gpu.predict(x.to(cuda), n_iter=2).cpu()
+    assert (conv_chw.conv3x3_chw.launches - before[0],
+            conv_nl.conv3x3_nl.launches - before[1]) == (26, 10)
+    want = cpu.predict(x, n_iter=2)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4 * want.abs().max().item())
+
+
+def test_train_step_nl_on_card_matches_cpu(cuda):
+    """An f32 step with ``conv_nl`` (K5, its dx and K5dw beside K1-K3)
+    against the plain path on the CPU, held as
+    test_train_step_on_card_matches_cpu holds the default route's."""
+    lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                         shape_code=MaskConfig("ce", "spatial"))
+    draws = draw_step(torch.Generator().manual_seed(0), 2, (64, 64), lda)
+    gen = torch.Generator().manual_seed(0)
+    image = torch.rand((2, 64, 64, 1), generator=gen)
+    label = torch.randint(0, 4, (2, 64, 64), generator=gen)
+
+    def step(device, x):
+        trainer = CooperativeTrainer(lda, device=device, seed=0, conv_nl=True)
+        metrics = trainer.train_step(x.to(device), label.to(device), draws.to(device))
+        mu, _ = trainer.adam_moments()
+        return metrics, torch.cat([v.detach().cpu().double().flatten()
+                                   for m in mu for v in mu[m].values()])
+
+    before = [f.launches for f in (conv_nl.conv3x3_nl, conv_nl.conv3x3_nl_dx,
+                                   conv_nl.conv3x3_nl_dw)]
+    got, g_mu = step(cuda, image)
+    after = [f.launches for f in (conv_nl.conv3x3_nl, conv_nl.conv3x3_nl_dx,
+                                  conv_nl.conv3x3_nl_dw)]
+    want_launches = CooperativeTrainer(lda, device="cpu", conv_nl=True).expected_launches(
+        {"image": draws.image.branch, "shape": draws.shape.branch})
+    assert [a - b for a, b in zip(after, before)] == [
+        want_launches[k] for k in ("conv3x3_nl", "conv3x3_nl_dx", "conv3x3_nl_dw")]
+    want, c_mu = step("cpu", image)
+    sign = torch.randint(0, 2, image.shape, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    _, m_mu = step("cpu", image * (1 + 1e-6 * sign))
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-7, k
+    assert (g_mu - c_mu).norm() <= 2 * (m_mu - c_mu).norm()
+
+
+# (N, C_in, C_out, H, W) of K6: the five stages of bench_b8_conv at its
+# batch, and edges: the gate's smallest C_in and W, C_out not a multiple of
+# the 8-channel group, a ragged last run of pixel blocks, two rows
+B8_SHAPES = [
+    (20, 16, 16, 192, 192), (20, 16, 32, 96, 96), (20, 32, 32, 96, 96), (20, 32, 64, 48, 48),
+    (20, 64, 64, 48, 48), (3, 8, 4, 12, 16), (2, 24, 13, 10, 40), (2, 64, 1, 2, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES)
+def test_k6_and_k6dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, w_all = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 7)
+    got = conv_b8.conv3x3_b8(x, w_all, h, w)
+    want = conv_b8.conv3x3_b8_plain(x, w_all, h, w)
+    got_dx = conv_b8.conv3x3_b8_dx(dy, w_all, h, w)
+    want_dx = conv_b8.conv3x3_b8_plain(dy, conv_chw.flip_wall(w_all).contiguous(), h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, c_out, h * w)
+    assert got_dx.dtype == dt and got_dx.shape == (n, c_in, h * w)
+    for g, wt in ((got, want), (got_dx, want_dx)):
+        scale = wt.float().abs().max().item()
+        atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+        torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES)
+def test_k6dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 8)
+    got = conv_b8.conv3x3_b8_dw(x, dy, h, w)
+    again = conv_b8.conv3x3_b8_dw(x, dy, h, w)
+    want = conv_b8.conv3x3_b8_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (9 * c_in, c_out)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_k6_rejects_bad_input_and_counts_launches(cuda):
+    x = torch.randn(2, 8, 64, device=cuda)
+    w_all = torch.randn(16, 72, device=cuda)
+    with pytest.raises(TypeError):
+        conv_b8.conv3x3_b8(x.double(), w_all.double(), 8, 8)
+    with pytest.raises(ValueError):
+        conv_b8.conv3x3_b8(x, w_all.cpu(), 8, 8)
+    with pytest.raises(ValueError):
+        conv_b8.conv3x3_b8(torch.randn(2, 8, 48, device=cuda), w_all, 8, 6)
+    fns = (conv_b8.conv3x3_b8, conv_b8.conv3x3_b8_dx, conv_b8.conv3x3_b8_dw)
+    before = [f.launches for f in fns]
+    xg = x.clone().requires_grad_(True)
+    conv_b8.conv3x3_b8_ad(xg, w_all.clone().requires_grad_(True), 8, 8).sum().backward()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]

@@ -36,10 +36,13 @@ SCRIPT = textwrap.dedent("""
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_s2
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_nl
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_b8
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
         percentile_mask,
     )
-    expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.conv_s2", "ops.image",
+    expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.conv_s2", "ops.conv_nl",
+                "ops.conv_b8", "bench_b8_conv", "ops.image",
                 "ops.losses",
                 "ops.masking", "ops.percentile_mask", "models.blocks",
                 "models.encoder_decoder", "train.cooperative", "train.draws",
@@ -48,9 +51,11 @@ SCRIPT = textwrap.dedent("""
     assert not missing, missing
     assert not kernels._libs, "a kernel library was loaded at import"
     assert set(kernels.SOURCES) == {"conv3x3_chw", "conv3x3_chw_dw", "conv3x3s2",
-                                    "percentile_mask"}
+                                    "conv3x3_nl", "conv3x3_b8", "percentile_mask"}
     for fn in (conv_chw.conv3x3_chw, conv_chw.conv3x3_chw_dx, conv_chw.conv3x3_chw_dw,
                conv_s2.conv3x3s2, conv_s2.conv3x3s2_dx, conv_s2.conv3x3s2_dw,
+               conv_nl.conv3x3_nl, conv_nl.conv3x3_nl_dx, conv_nl.conv3x3_nl_dw,
+               conv_b8.conv3x3_b8, conv_b8.conv3x3_b8_dx, conv_b8.conv3x3_b8_dw,
                percentile_mask.percentile_mask):
         assert fn.launches == 0
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
@@ -65,4 +70,4 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported")[1].split()[0])
-    assert n >= 19, proc.stdout
+    assert n >= 22, proc.stdout

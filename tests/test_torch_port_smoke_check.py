@@ -148,3 +148,81 @@ def test_recording_shapes_routes_the_k4_wrappers():
         assert seen[name] == Counter({(3, 3, 8, 6): 1}), name
     assert chip_smoke.wrappers_of(conv_chw, pmask) == orig
     assert conv_s2.conv3x3s2 is orig["conv3x3s2"]
+
+
+def test_recording_shapes_routes_the_k5_and_k6_wrappers():
+    """The K5 wrappers live in ``ops/conv_nl.py``, the K6 ones in
+    ``ops/conv_b8.py``: the recorder routes them too, records their forward
+    conv's (C_in, C_out, H, W) and puts them back; ``wrappers_of`` names
+    all thirteen, each from its own module."""
+    from collections import Counter
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_b8,
+        conv_nl,
+        masking,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+
+    orig = chip_smoke.wrappers_of(conv_chw, pmask)
+    assert list(orig) == list(chip_smoke.LAUNCH_COUNTERS) and len(orig) == 13
+    assert all(fn.__name__ == name for name, fn in orig.items())
+    seen = {k: Counter() for k in chip_smoke.LAUNCH_COUNTERS}
+    conv = conv_chw.Conv(64, 128, 3, padding=1, k5=True)
+    with chip_smoke.recording_shapes(conv_chw, pmask, masking, seen):
+        conv(torch.randn(2, 64, 4, 6, requires_grad=True)).sum().backward()
+        x = torch.randn(2, 8, 64, requires_grad=True)
+        conv_b8.conv3x3_b8_ad(x, torch.randn(16, 72, requires_grad=True), 8, 8).sum().backward()
+    for name in ("conv3x3_nl", "conv3x3_nl_dx", "conv3x3_nl_dw"):
+        assert seen[name] == Counter({(64, 128, 4, 6): 1}), name
+    for name in ("conv3x3_b8", "conv3x3_b8_dx", "conv3x3_b8_dw"):
+        assert seen[name] == Counter({(8, 16, 8, 8): 1}), name
+    assert chip_smoke.wrappers_of(conv_chw, pmask) == orig
+    assert conv_nl.conv3x3_nl is orig["conv3x3_nl"] and conv_b8.conv3x3_b8 is orig["conv3x3_b8"]
+
+
+def test_kernel_table_names_every_wrapper():
+    """The kernels JSON line carries every wrapper, each with its CUDA
+    source in the port and the line of the TPU kernel's ``pallas_call``
+    (or of the flipped-weight call its dx is)."""
+    import re
+
+    assert set(chip_smoke.KERNELS) == set(chip_smoke.LAUNCH_COUNTERS)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, (source, replaces) in chip_smoke.KERNELS.items():
+        assert os.path.isfile(os.path.join(root, source)), source
+        path, line = replaces.rsplit(":", 1)
+        with open(os.path.join(root, path)) as f:
+            text = f.readlines()[int(line) - 1]
+        assert re.search(r"pl\.pallas_call\(|_flip_w\(w\)", text), (name, text)
+
+
+@pytest.mark.parametrize("kind,shape", [("chw", (3, 8, 16, 16)), ("s2", (4, 8, 16, 12)),
+                                        ("nl", (64, 128, 6, 6)), ("b8", (8, 16, 8, 16))])
+@pytest.mark.parametrize("which", ["fwd", "dx", "dw"])
+def test_check_conv_reaches_every_kind(kind, shape, which):
+    """``check_conv`` names each kind's wrappers and plain versions right and
+    builds inputs of the kernel's shapes.  It runs on the card; here a shim
+    puts its tensors on the CPU, where each wrapper runs its plain version,
+    so the check passes with no error (dw twice equal, and the records
+    carry the shape and the tolerance)."""
+    import types
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_b8,
+        conv_nl,
+        conv_s2,
+    )
+
+    class CpuTorch(types.SimpleNamespace):
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    shim = CpuTorch(Generator=lambda device=None: torch.Generator(),
+                    randn=lambda *a, device=None, **k: torch.randn(*a, **k),
+                    cuda=types.SimpleNamespace(synchronize=lambda: None))
+    mod = {"chw": conv_chw, "s2": conv_s2, "nl": conv_nl, "b8": conv_b8}[kind]
+    rec = chip_smoke.check_conv(shim, F, conv_chw, mod, kind, which, shape, 2, "float32")
+    assert rec["ok"] and rec["max_abs_err"] == 0.0 and rec["shape"] == [2, *shape]

@@ -119,7 +119,8 @@ def test_launch_count_formula_matches_the_calls(monkeypatch):
     assert CooperativeTrainer(LatentDAConfig(), device="cpu").expected_launches(
         {"image": 1, "shape": 2}) == {"conv3x3_chw": 120, "conv3x3_chw_dx": 102,
                                       "conv3x3_chw_dw": 92, "percentile_mask": 2,
-                                      "conv3x3s2": 0, "conv3x3s2_dx": 0, "conv3x3s2_dw": 0}
+                                      "conv3x3s2": 0, "conv3x3s2_dx": 0, "conv3x3s2_dw": 0,
+                                      "conv3x3_nl": 0, "conv3x3_nl_dx": 0, "conv3x3_nl_dw": 0}
 
 
 def test_train_state_round_trip():

@@ -133,7 +133,8 @@ def test_launch_count_formula_matches_the_calls(monkeypatch):
     default = CooperativeTrainer(LatentDAConfig(), device="cpu")
     assert s2.expected_launches(branches) == {
         "conv3x3_chw": 120, "conv3x3_chw_dx": 102, "conv3x3_chw_dw": 92,
-        "percentile_mask": 2, "conv3x3s2": 12, "conv3x3s2_dx": 12, "conv3x3s2_dw": 12}
+        "percentile_mask": 2, "conv3x3s2": 12, "conv3x3s2_dx": 12, "conv3x3s2_dw": 12,
+        "conv3x3_nl": 0, "conv3x3_nl_dx": 0, "conv3x3_nl_dw": 0}
     assert default.expected_launches(branches) == {
         **s2.expected_launches(branches), "conv3x3s2": 0, "conv3x3s2_dx": 0,
         "conv3x3s2_dw": 0}

@@ -81,15 +81,22 @@ def random_variables(solver: CooperativeTripletSolver, seed: int = 0):
 
 
 @contextlib.contextmanager
-def pallas_interpret(s2: bool = False):
+def pallas_interpret(s2: bool = False, nl: bool = False, max_ch: int = None):
     """Run the JAX package's Pallas paths in interpret mode on the CPU (the
     switch is read when a function is traced); with ``s2`` also its
     ``PALLAS_CONV_S2=1`` configuration (the stride-2 phase kernel and CHW
-    stage chaining), which needs the Pallas path."""
+    stage chaining), with ``nl`` its ``PALLAS_CONV_NL=1`` configuration (the
+    NL-sublanes kernel on the large-channel convs); both need the Pallas
+    path.  ``max_ch`` sets ``PALLAS_CONV_MAX_CH``, the CHW kernel's channel
+    cutoff (0 leaves every conv it would take to XLA)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PALLAS_CONV_INTERPRET", "1")
         if s2:
             mp.setenv("PALLAS_CONV_S2", "1")
+        if nl:
+            mp.setenv("PALLAS_CONV_NL", "1")
+        if max_ch is not None:
+            mp.setenv("PALLAS_CONV_MAX_CH", str(max_ch))
         yield
 
 
@@ -266,20 +273,23 @@ def _host(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def run_step_case(mask_type: str, seed: int = 0, conv_s2: bool = False):
-    """JAX's two steps with ``mask_type`` (and the same steps on N_MOVES
-    images moved by +-SENSITIVITY per pixel, and its generation), then the
-    port's from the same states with the replayed draws.  f32, HW x HW,
-    batch BATCH.  With ``conv_s2`` JAX runs its ``PALLAS_CONV_S2=1``
-    configuration in interpret mode and the port its ``conv_s2=True``.
+def run_step_case(mask_type: str, seed: int = 0, conv_s2: bool = False,
+                  conv_nl: bool = False, keys=STEP_KEYS, max_ch: int = None):
+    """JAX's steps with ``mask_type``, one for each of ``keys`` (and the same
+    steps on N_MOVES images moved by +-SENSITIVITY per pixel, and its
+    generation), then the port's from the same states with the replayed
+    draws.  f32, HW x HW, batch BATCH.  With ``conv_s2`` (``conv_nl``) JAX
+    runs its ``PALLAS_CONV_S2=1`` (``PALLAS_CONV_NL=1``) configuration in
+    interpret mode and the port its ``conv_s2=True`` (``conv_nl=True``);
+    ``max_ch`` is JAX's ``PALLAS_CONV_MAX_CH`` (:func:`pallas_interpret`).
     Returns one record per step."""
-    if conv_s2:
-        with pallas_interpret(s2=True):
-            return _run_step_case(mask_type, seed, conv_s2)
-    return _run_step_case(mask_type, seed, conv_s2)
+    if conv_s2 or conv_nl:
+        with pallas_interpret(s2=conv_s2, nl=conv_nl, max_ch=max_ch):
+            return _run_step_case(mask_type, seed, conv_s2, conv_nl, keys)
+    return _run_step_case(mask_type, seed, conv_s2, conv_nl, keys)
 
 
-def _run_step_case(mask_type: str, seed: int, conv_s2: bool):
+def _run_step_case(mask_type: str, seed: int, conv_s2: bool, conv_nl: bool, keys):
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import convert
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
         CooperativeTrainer,
@@ -298,9 +308,9 @@ def _run_step_case(mask_type: str, seed: int, conv_s2: bool):
                                    .astype(np.float32)), "label": batch["label"]}
              for _ in range(N_MOVES)]
     state = jax_train_state(solver, params, stats)
-    trainer = CooperativeTrainer(lda, device="cpu", conv_s2=conv_s2)
+    trainer = CooperativeTrainer(lda, device="cpu", conv_s2=conv_s2, conv_nl=conv_nl)
     steps = []
-    for key_seed in STEP_KEYS:
+    for key_seed in keys:
         key = jax.random.PRNGKey(key_seed)
         new, metrics = step(state, batch, key)
         rec = {"before": _host(state), "after": _host(new), "metrics": _host(metrics),
