@@ -69,11 +69,14 @@ Phases, each printing its seconds when it ends:
    checked against the CHW route), with the launch counts set to 0 just
    before and read just after; it must launch K6, K6dx and K6dw.
 
-The last lines are the card's ``nvidia-smi`` line, one JSON object with a
-record per kernel, and ``{"ok": true, "device": {...}}``, printed only when
-every phase passed.  Any failure exits non-zero.  Without a CUDA device, or
-without the port's package beside this file, it exits non-zero before
-printing any result.
+At the end it prints, per kernel, its launches and times per random step
+(per bench pass for K6), and a table of K2 by shape: launches per random
+step, ms, cuDNN's ``conv2d_weight`` ms and the bound, with the per-step
+totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
+object with a record per kernel, and ``{"ok": true, "device": {...}}``,
+printed only when every phase passed.  Any failure exits non-zero.
+Without a CUDA device, or without the port's package beside this file, it
+exits non-zero before printing any result.
 """
 
 import json
@@ -1012,6 +1015,17 @@ def main():
               f"shapes; per {unit} ms {records[-1]['ms']:.4f} plain "
               f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
               f"{records[-1]['library_ms']}", flush=True)
+    # K2 by shape: launches per random step (default configuration) beside
+    # the kernels phase's times at N = 20, bf16
+    k2_calls, k2 = per_step["conv3x3_chw_dw"], records[LAUNCH_COUNTERS.index("conv3x3_chw_dw")]
+    print("  K2 by shape (C_in->C_out @ HxW: launches per random step, ms, cuDNN "
+          "conv2d_weight ms, bound ms):", flush=True)
+    for sh in sorted(k2_calls, key=lambda s: (-s[2], s[0], s[1])):
+        r = dw_recs[sh]
+        print(f"    {sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]}: {k2_calls[sh]:.1f}, {r['ms']:.4f}, "
+              f"{r['library_ms']:.4f}, {r['bound_ms']:.4f}", flush=True)
+    print(f"  K2 per random step: {k2['ms']:.4f} ms; cuDNN conv2d_weight at the same shapes "
+          f"{k2['library_ms']:.4f} ms; bound {k2['bound_ms']:.4f} ms", flush=True)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -49,7 +49,8 @@ def _group(name: str) -> str:
         return "K4 conv3x3s2 (forward, dx and dw)"
     if "conv3x3_chw_kernel" in name:
         return "K1 conv3x3_chw (forward and dx)"
-    if "dw_partial_kernel" in name or "dw_reduce_kernel" in name:
+    if any(k in name for k in ("dw_partial_kernel", "dw_mma_partial_kernel",
+                               "dw_reduce_kernel")):
         return "K2 conv3x3_chw_dw"
     if "percentile_mask_kernel" in name:
         return "K3 percentile_mask"

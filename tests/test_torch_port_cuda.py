@@ -146,6 +146,26 @@ def test_k1_dx_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     (2, 64, 64, 24, 24),     # four channel groups, bucket 64
     (1, 7, 2, 1, 1),         # one pixel
     (2, 16, 64, 65, 7),      # W over 64 and ragged, narrow
+    # the train step's 12 shapes, C_in->C_out @ H^2 (bf16: the tensor-core path)
+    (2, 1, 16, 192, 192),
+    (2, 4, 16, 192, 192),
+    (2, 16, 16, 192, 192),
+    (2, 16, 16, 96, 96),
+    (2, 16, 32, 96, 96),
+    (2, 32, 16, 96, 96),
+    (2, 32, 32, 96, 96),
+    (2, 32, 32, 48, 48),
+    (2, 32, 64, 48, 48),
+    (2, 64, 32, 48, 48),
+    (2, 64, 64, 48, 48),
+    (2, 64, 64, 24, 24),
+    (2, 16, 16, 51, 192),    # bands of 2 rows: the last band has one
+    (2, 16, 32, 98, 96),     # bands of 3 rows: the last band has two
+    (2, 16, 16, 20, 97),     # odd W over 64: rows not 16-byte aligned
+    (1, 8, 16, 6, 201),      # odd W over 192: two column windows, unaligned
+    (1, 16, 16, 5, 264),     # two column windows, aligned, the second ragged
+    (2, 16, 8, 48, 48),      # C_out 8: half an m-tile
+    (2, 32, 24, 24, 24),     # C_out 24: one and a half m-tiles
 ])
 def test_k2_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
     dt = getattr(torch, dtype)
