@@ -21,7 +21,8 @@ Phases, each printing its seconds when it ends:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
-   ``csrc/``, one process per source, all started together;
+   ``csrc/``, one process per source, all started together; K1 must
+   report 0 spill bytes;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
@@ -34,6 +35,9 @@ Phases, each printing its seconds when it ends:
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
+   for K1, K1 dx and K2 and their cuDNN calls also the device time alone
+   (``device_ms``, ``library_device_ms``: ``torch.profiler``'s kernel
+   durations, without the host time the events hold);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
    then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
    with the launch counts set to 0 just before each route and read just
@@ -70,9 +74,10 @@ Phases, each printing its seconds when it ends:
    before and read just after; it must launch K6, K6dx and K6dw.
 
 At the end it prints, per kernel, its launches and times per random step
-(per bench pass for K6), and a table of K2 by shape: launches per random
-step, ms, cuDNN's ``conv2d_weight`` ms and the bound, with the per-step
-totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
+(per bench pass for K6), and tables of K2, K1 and K1 dx by shape:
+launches per random step, ms, device ms, cuDNN's ms and device ms
+(``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
+per-step totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
 object with a record per kernel, and ``{"ok": true, "device": {...}}``,
 printed only when every phase passed.  Any failure exits non-zero.
 Without a CUDA device, or without the port's package beside this file, it
@@ -82,6 +87,7 @@ exits non-zero before printing any result.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -159,6 +165,34 @@ def time_ms(fn, torch, flush):
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def device_ms(fn, torch, flush, keep, tries=3):
+    """Device time of one call of ``fn`` without the host: ``torch.profiler``
+    over REPS calls, each after the L2 cache was overwritten, of the kernels
+    whose name ``keep`` takes; per kernel name its median duration times
+    its launches per call, summed.  A session now and then delivers no
+    device events, so an empty one is run again, up to ``tries`` times;
+    None when none saw the kernels (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                flush.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        durations = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA and keep(evt.name):
+                durations.setdefault(evt.name, []).append(evt.time_range.elapsed_us())
+        if durations:
+            return sum(statistics.median(d) * len(d) for d in durations.values()) / REPS / 1e3
+    return None
 
 
 def k1_shapes(conv_chw, predictor_cpu, image):
@@ -325,7 +359,8 @@ CONV_KINDS = {  # kind -> (wrapper name in its module, stride, labels of fwd, dx
 }
 
 
-def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush=None):
+def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush=None,
+               device=None):
     """One conv kernel of ``kind`` (``CONV_KINDS``; ``mod`` is the module of
     its wrappers): the forward (``which`` "fwd"), the input gradient ("dx")
     or the weight gradient ("dw") against its plain version at one forward
@@ -337,7 +372,9 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
     order); dw (f32 out, the same exact products summed in another order)
     within 1e-5 of scale, and two launches bit for bit equal.  With
     ``flush`` also its times and cuDNN's conv, input gradient or weight
-    gradient, and the bound."""
+    gradient, and the bound.  With ``device`` (the profiler's row of this
+    kind's kernel, and the flush kernel's names) also the device times of
+    the kernel and the library call (:func:`device_ms`)."""
     name, stride, labels = CONV_KINDS[kind]
     c_in, c_out, h, w = shape
     ho, wo = h // stride, w // stride
@@ -391,9 +428,40 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
                 "dw": x.numel() + dy.numel()}[which] * es
     b, by = bound(in_bytes + out_bytes, 2.0 * n * c_out * 9 * c_in * ho * wo, dtype_name)
     rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
-    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-          f"bound_ms {b:.4f} ({by})", flush=True)
+    line = (f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+            f"bound_ms {b:.4f} ({by})")
+    if device is not None:
+        row, flush_names = device
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+            _group,
+        )
+
+        rec["device_ms"] = device_ms(fn, torch, flush, lambda name: _group(name) == row)
+        with conv_chw.full_f32(dtype):
+            rec["library_device_ms"] = device_ms(library, torch, flush,
+                                                 lambda name: name not in flush_names)
+        line += f" device_ms {fmt(rec['device_ms'])} library_device_ms " \
+                f"{fmt(rec['library_device_ms'])}"
+    print(line, flush=True)
     return rec
+
+
+def fmt(v, digits=4):
+    """A time for the log: its value, or "not measured"."""
+    return "not measured" if v is None else f"{v:.{digits}f}"
+
+
+def flush_kernels(torch, flush):
+    """Names of the kernels ``flush.fill_`` launches, which device_ms drops
+    from a library call's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            flush.fill_(1.0)
+        torch.cuda.synchronize()
+    return {evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA}
 
 
 LAUNCH_COUNTERS = ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw", "percentile_mask",
@@ -636,6 +704,31 @@ def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False, conv_n
     print(f"  masks (channel on the image code, spatial on the shape code): "
           f"{swapped} elements swapped next to the threshold", flush=True)
 
+
+def per_call(calls, recs, key):
+    """Sum over shapes of calls x ``recs[shape][key]``; None if a shape's
+    value is None (not measured)."""
+    vals = [recs[sh].get(key) for sh in calls]
+    if any(v is None for v in vals):
+        return None
+    return sum(calls[sh] * recs[sh][key] for sh in calls)
+
+
+def by_shape(calls, recs, total, label, library):
+    """Print one kernel's table by shape (forward C_in->C_out @ HxW) and its
+    per-step totals."""
+    print(f"  {label} by shape (C_in->C_out @ HxW: launches per random step, ms, device ms, "
+          f"cuDNN {library} ms, cuDNN device ms, bound ms):", flush=True)
+    for sh in sorted(calls, key=lambda s: (-s[2], s[0], s[1])):
+        r = recs[sh]
+        print(f"    {sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]}: {calls[sh]:.1f}, {r['ms']:.4f}, "
+              f"{fmt(r.get('device_ms'))}, {r['library_ms']:.4f}, "
+              f"{fmt(r.get('library_device_ms'))}, {r['bound_ms']:.4f}", flush=True)
+    print(f"  {label} per random step: {total['ms']:.4f} ms, device {fmt(total['device_ms'])} "
+          f"ms; cuDNN {library} at the same shapes {total['library_ms']:.4f} ms, device "
+          f"{fmt(total['library_device_ms'])} ms; bound {total['bound_ms']:.4f} ms", flush=True)
+
+
 def main():
     import torch
 
@@ -687,6 +780,12 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
+        # K1 is built to fit 128 registers a thread: it must not spill
+        spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                                  built.get("conv3x3_chw", {}).get("log", ""))
+                  if int(m.group(1)) or int(m.group(2))]
+        if spills:
+            raise AssertionError(f"K1 spills registers: {spills}")
         for name in kernels.SOURCES:
             kernels.load(name)
 
@@ -707,9 +806,20 @@ def main():
         flush = torch.empty(64 * 2**20 // 4, device="cuda")
         order = sorted(shapes, key=lambda s: (-s[2], s[0], s[1]))
 
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+            _group,
+        )
+
+        flush_names = flush_kernels(torch, flush)
+        # the profiler's rows of K1 (forward and dx) and K2, by their own kernel names
+        rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
+                for which, name in (("fwd", "conv3x3_chw_kernel"), ("dx", "conv3x3_chw_kernel"),
+                                    ("dw", "dw_partial_kernel"))}
+
         def k1(which, shape, n, dtype, timed=True):
+            device = (rows[which], flush_names) if timed and dtype == "bfloat16" else None
             return check_conv(torch, F, conv_chw, conv_chw, "chw", which, shape, n, dtype,
-                              flush if timed else None)
+                              flush if timed else None, device)
 
         recs = {s: k1("fwd", s, BATCH, "bfloat16") for s in order}
         f32_rec = k1("fwd", (16, 16, 192, 192), BATCH, "float32")
@@ -719,8 +829,9 @@ def main():
         if bad:
             raise AssertionError(f"K1 disagrees with its plain version: {bad}")
         print("  K1 per predict(n_iter=2) request of 20: " + ", ".join(
-            f"{key} {sum(shapes[s] * recs[s][key] for s in shapes):.4f}"
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms")) + " ms", flush=True)
+            f"{key} {fmt(per_call(shapes, recs, key))}"
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                        "library_device_ms")) + " ms", flush=True)
         # the train step runs K1 dx and K2 at the forward's shapes: dx for
         # every conv whose input needs a gradient (all but C_in = 1, the
         # image), K2 for every conv
@@ -993,10 +1104,7 @@ def main():
                                  f"{sorted(set(calls) - set(timed[name]))}")
 
         def total_of(key, name=name, calls=calls):
-            vals = [timed[name][sh][key] for sh in calls]
-            if any(v is None for v in vals):
-                return None
-            return sum(calls[sh] * timed[name][sh][key] for sh in calls)
+            return per_call(calls, timed[name], key)
 
         by = Counter({r["bound_by"]: 0.0 for r in timed[name].values()})
         for sh in calls:
@@ -1009,23 +1117,21 @@ def main():
             "ms": total_of("ms"), "plain_ms": total_of("plain_ms"),
             "bound_ms": total_of("bound_ms"), "bound_by": by.most_common(1)[0][0],
             "library_ms": total_of("library_ms"),
+            "device_ms": total_of("device_ms"), "library_device_ms": total_of("library_device_ms"),
         })
         unit = "bench pass" if name in LAUNCH_COUNTERS[10:] else "random step"
         print(f"  {name}: {sum(calls.values()):.1f} calls per {unit} at {len(calls)} "
               f"shapes; per {unit} ms {records[-1]['ms']:.4f} plain "
               f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
-              f"{records[-1]['library_ms']}", flush=True)
-    # K2 by shape: launches per random step (default configuration) beside
-    # the kernels phase's times at N = 20, bf16
-    k2_calls, k2 = per_step["conv3x3_chw_dw"], records[LAUNCH_COUNTERS.index("conv3x3_chw_dw")]
-    print("  K2 by shape (C_in->C_out @ HxW: launches per random step, ms, cuDNN "
-          "conv2d_weight ms, bound ms):", flush=True)
-    for sh in sorted(k2_calls, key=lambda s: (-s[2], s[0], s[1])):
-        r = dw_recs[sh]
-        print(f"    {sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]}: {k2_calls[sh]:.1f}, {r['ms']:.4f}, "
-              f"{r['library_ms']:.4f}, {r['bound_ms']:.4f}", flush=True)
-    print(f"  K2 per random step: {k2['ms']:.4f} ms; cuDNN conv2d_weight at the same shapes "
-          f"{k2['library_ms']:.4f} ms; bound {k2['bound_ms']:.4f} ms", flush=True)
+              f"{records[-1]['library_ms']} device {records[-1]['device_ms']} library "
+              f"device {records[-1]['library_device_ms']}", flush=True)
+    # K2, K1 and K1 dx by shape: launches per random step (default
+    # configuration) beside the kernels phase's times at N = 20, bf16
+    for name, label, library in (("conv3x3_chw_dw", "K2", "conv2d_weight"),
+                                 ("conv3x3_chw", "K1", "F.conv2d"),
+                                 ("conv3x3_chw_dx", "K1 dx", "conv2d_input")):
+        by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
+                 library)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -47,7 +47,7 @@ def _group(name: str) -> str:
         return "K6 conv3x3_b8 (forward, dx and dw)"
     if "conv3x3s2" in name:
         return "K4 conv3x3s2 (forward, dx and dw)"
-    if "conv3x3_chw_kernel" in name:
+    if any(k in name for k in ("conv3x3_chw_kernel", "conv3x3_chw_mma_kernel")):
         return "K1 conv3x3_chw (forward and dx)"
     if any(k in name for k in ("dw_partial_kernel", "dw_mma_partial_kernel",
                                "dw_reduce_kernel")):

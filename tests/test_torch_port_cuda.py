@@ -54,6 +54,12 @@ def _bf16_ulp(scale):
     return 2.0 ** (int(torch.tensor(scale).log2().floor().item()) - 7)
 
 
+# (C_in, C_out, H) of the main path's K1 convs (square images), forward
+K1_SHAPES = [(1, 16, 192), (4, 16, 192), (16, 16, 192), (16, 16, 96), (16, 32, 96),
+             (32, 16, 96), (32, 32, 96), (32, 32, 48), (32, 64, 48), (64, 32, 48),
+             (64, 64, 48), (64, 64, 24)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c_in,c_out,h,w", [
     (2, 1, 16, 192, 192),    # the image encoder's first conv
@@ -62,6 +68,10 @@ def _bf16_ulp(scale):
     (2, 16, 33, 8, 8),       # C_out bucket 64, one partial tile
     (1, 64, 64, 24, 24),
     (2, 7, 1, 1, 1),         # a single pixel: every tap but the centre is padding
+    (2, 9, 3, 5, 201),       # bf16 tensor cores: C_in 9, four column windows, unaligned
+    (2, 40, 48, 7, 136),     # three channel groups; C_out 48: two blocks along C_out
+    *[(2, ci, co, h, h) for ci, co, h in K1_SHAPES],   # the main path's shapes
+    (160, 64, 64, 24, 24),   # the serving batch: taller bands, more tiles a block
 ])
 def test_k1_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     dt = getattr(torch, dtype)
@@ -70,6 +80,7 @@ def test_k1_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device=cuda)
              / (9 * c_in) ** 0.5).to(dt)
     got = conv_chw.conv3x3_chw(x, w_all, h, w)
+    again = conv_chw.conv3x3_chw(x, w_all, h, w)
     want = conv_chw.conv3x3_chw_plain(x, w_all, h, w)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (n, c_out, h * w)
@@ -77,6 +88,8 @@ def test_k1_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     # bf16: one rounding of the same f32 sum; f32: another summation order
     atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    # no atomics: one summation order per output, so launches repeat bit for bit
+    assert torch.equal(got, again)
 
 
 def test_k1_rejects_bad_input(cuda):
@@ -121,6 +134,8 @@ def test_predictor_on_card_matches_cpu(cuda):
     (2, 64, 64, 24, 24),
     (2, 33, 64, 8, 8),       # dx at C_out 33: bucket 64
     (1, 7, 2, 1, 1),
+    # the train step's dx shapes: every main-path conv but the image's
+    *[(2, ci, co, h, h) for ci, co, h in K1_SHAPES if ci > 1],
 ])
 def test_k1_dx_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     dt = getattr(torch, dtype)
@@ -129,12 +144,14 @@ def test_k1_dx_matches_plain(cuda, n, c_in, c_out, h, w, dtype):
     w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device=cuda)
              / (9 * c_in) ** 0.5).to(dt)
     got = conv_chw.conv3x3_chw_dx(dy, w_all, h, w)
+    again = conv_chw.conv3x3_chw_dx(dy, w_all, h, w)
     want = conv_chw.conv3x3_chw_plain(dy, conv_chw.flip_wall(w_all).contiguous(), h, w)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (n, c_in, h * w)
     scale = want.float().abs().max().item()
     atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
