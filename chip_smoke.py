@@ -21,21 +21,23 @@ Phases, each printing its seconds when it ends:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
-   ``csrc/``, one process per source, all started together; K1 must
-   report 0 spill bytes;
+   ``csrc/``, one process per source, all started together; K1 and K5's
+   tensor-core kernel must report 0 spill bytes;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
    and (20, 144), hard and soft, ties planted; K4, K4dx and K4dw at
    16->16 on 192x192 and 32->32 on 96x96, batch 20 and 160, bf16, and
    batch 20 f32; K5, K5dx and K5dw at the four large-channel shapes, batch
-   20 and 160, bf16, and batch 20 f32; K6, K6dx and K6dw at the five
+   20 and 160, bf16, and batch 20 f32 (K5 and K5dx also batch 160 f32); K6,
+   K6dx and K6dw at the five
    stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage), with the
    tolerance stated; median times from CUDA events
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
-   for K1, K1 dx and K2 and their cuDNN calls also the device time alone
+   for K1, K1 dx, K2, K5, K5dx and K5dw and their cuDNN calls also the
+   device time alone
    (``device_ms``, ``library_device_ms``: ``torch.profiler``'s kernel
    durations, without the host time the events hold);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
@@ -74,7 +76,8 @@ Phases, each printing its seconds when it ends:
    before and read just after; it must launch K6, K6dx and K6dw.
 
 At the end it prints, per kernel, its launches and times per random step
-(per bench pass for K6), and tables of K2, K1 and K1 dx by shape:
+(per bench pass for K6), and tables of K2, K1, K1 dx, K5 and K5 dx by shape
+(K5's launches from the ``conv_nl`` train phase):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
 per-step totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
@@ -193,6 +196,18 @@ def device_ms(fn, torch, flush, keep, tries=3):
         if durations:
             return sum(statistics.median(d) * len(d) for d in durations.values()) / REPS / 1e3
     return None
+
+
+def spill_lines(log, kernel=""):
+    """ptxas's spill reports in an nvcc log (``-Xptxas -v``) that are not
+    zero, of the functions whose mangled name holds ``kernel``."""
+    bad = []
+    for part in log.split("Function properties for ")[1:]:
+        name = part.split(None, 1)[0] if part.strip() else ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if kernel in name and m and (int(m.group(1)) or int(m.group(2))):
+            bad.append(f"{name}: {m.group(0)}")
+    return bad
 
 
 def k1_shapes(conv_chw, predictor_cpu, image):
@@ -780,12 +795,12 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 is built to fit 128 registers a thread: it must not spill
-        spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                                  built.get("conv3x3_chw", {}).get("log", ""))
-                  if int(m.group(1)) or int(m.group(2))]
-        if spills:
-            raise AssertionError(f"K1 spills registers: {spills}")
+        # K1 and K5's tensor-core kernel are built to fit 128 registers a
+        # thread: they must not spill
+        for lib, kernel in (("conv3x3_chw", ""), ("conv3x3_nl", "conv3x3_nl_mma_kernel")):
+            spills = spill_lines(built.get(lib, {}).get("log", ""), kernel)
+            if spills:
+                raise AssertionError(f"{lib} spills registers: {spills}")
         for name in kernels.SOURCES:
             kernels.load(name)
 
@@ -811,10 +826,15 @@ def main():
         )
 
         flush_names = flush_kernels(torch, flush)
-        # the profiler's rows of K1 (forward and dx) and K2, by their own kernel names
+        # the profiler's rows of K1 (forward and dx), K2, K5 (forward and dx)
+        # and K5dw, by their own kernel names
         rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
                 for which, name in (("fwd", "conv3x3_chw_kernel"), ("dx", "conv3x3_chw_kernel"),
                                     ("dw", "dw_partial_kernel"))}
+        nl_rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
+                   for which, name in (("fwd", "conv3x3_nl_mma_kernel"),
+                                       ("dx", "conv3x3_nl_mma_kernel"),
+                                       ("dw", "conv3x3_nl_dw_partial"))}
 
         def k1(which, shape, n, dtype, timed=True):
             device = (rows[which], flush_names) if timed and dtype == "bfloat16" else None
@@ -852,14 +872,17 @@ def main():
                                      TRAIN_BATCH, "float32") for sh in S2_SHAPES]
                   for which in ("fwd", "dx", "dw")}
         # K5, K5dx and K5dw under conv_nl=True: the four large-channel
-        # shapes, timed in bf16 at the training batch, checked at the
-        # serving batch and in f32
+        # shapes, timed in bf16 at the training batch (with device times),
+        # checked at the serving batch and in f32 (K5 and K5dx at both)
         nl_recs = {which: {sh: check_conv(torch, F, conv_chw, conv_nl, "nl", which, sh,
-                                          TRAIN_BATCH, "bfloat16", flush) for sh in NL_SHAPES}
+                                          TRAIN_BATCH, "bfloat16", flush,
+                                          (nl_rows[which], flush_names)) for sh in NL_SHAPES}
                    for which in ("fwd", "dx", "dw")}
+        dw_checks = ((SERVE_BATCH, "bfloat16"), (TRAIN_BATCH, "float32"))
+        fwd_checks = dw_checks + ((SERVE_BATCH, "float32"),)
+        nl_checks = {"fwd": fwd_checks, "dx": fwd_checks, "dw": dw_checks}
         nl_other = {which: [check_conv(torch, F, conv_chw, conv_nl, "nl", which, sh, n, dt)
-                            for sh in NL_SHAPES
-                            for n, dt in ((SERVE_BATCH, "bfloat16"), (TRAIN_BATCH, "float32"))]
+                            for sh in NL_SHAPES for n, dt in nl_checks[which]]
                     for which in ("fwd", "dx", "dw")}
         # K6, K6dx and K6dw at the five stages of bench_b8_conv, timed in
         # bf16 at its batch, and one stage checked in f32
@@ -1125,11 +1148,14 @@ def main():
               f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
               f"{records[-1]['library_ms']} device {records[-1]['device_ms']} library "
               f"device {records[-1]['library_device_ms']}", flush=True)
-    # K2, K1 and K1 dx by shape: launches per random step (default
-    # configuration) beside the kernels phase's times at N = 20, bf16
+    # K2, K1, K1 dx, K5 and K5 dx by shape: launches per random step (the
+    # default configuration's, conv_nl's for K5) beside the kernels phase's
+    # times at N = 20, bf16
     for name, label, library in (("conv3x3_chw_dw", "K2", "conv2d_weight"),
                                  ("conv3x3_chw", "K1", "F.conv2d"),
-                                 ("conv3x3_chw_dx", "K1 dx", "conv2d_input")):
+                                 ("conv3x3_chw_dx", "K1 dx", "conv2d_input"),
+                                 ("conv3x3_nl", "K5", "F.conv2d"),
+                                 ("conv3x3_nl_dx", "K5 dx", "conv2d_input")):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library)
     print(smi)

@@ -10,43 +10,84 @@
 // grid of chunks (dw).  These kernels compute the same functions on the
 // port's NCHW layout, x (N, C_in, H*W):
 //
-//   out[n, o, p]          = sum_{t, i} w_all[o, t*C_in + i] * P[(n, p), t*C_in + i]
-//   dw[t*C_in + i, o]     = sum_{n, p} P[(n, p), t*C_in + i] * dy[n, o, p]
-//   P[(n, p), t*C_in + i] = x[n, i, p + (ki-1)*W + (kj-1)] where the tap stays
-//                           in the image, else 0 (t = 3*ki + kj)
+//   out[n, o, y*W + x] = sum_{ki, kj, i} w_all[o, (3*ki + kj)*C_in + i]
+//                                        * x[n, i, (y+ki-1)*W + (x+kj-1)]
+//   dw[t*C_in + i, o]  = sum_{n, p} P[(n, p), t*C_in + i] * dy[n, o, p]
 //
-// with f32 accumulation; the forward rounds once to the input type at the
-// store, dw is returned in f32.
+// with taps outside the image reading zero and f32 accumulation; the forward
+// rounds once to the input type at the store, dw is returned in f32.  K5's
+// input gradient is the forward on the flipped, transposed wall; with
+// flip = 1 the forward reads that wall out of the unflipped one,
+// w'[i, t*C_out + o] = w_all[o, (8-t)*C_in + i], so no flipped copy is made.
 //
-// What bounds them on the H100: at the main path's shapes (64->128, 128->128
-// and 128->64 at 24^2 and 12^2, batch 20) the MACs dominate the bytes, so on
-// paper both are bound by operations: 0.9-3.4 us on the tensor cores in bf16.
-// On the CUDA cores the same work cannot take less than about 51 us at
-// 128->128 on 24^2 (67 TFLOP/s of f32).  So the bf16 path runs its products
-// on the tensor cores (mma.sync.aligned.m16n8k16, bf16 inputs, f32
-// accumulators); the f32 path stays on f32 FMAs in full precision (no TF32:
-// the port's f32 convs are full f32).
+// What bounds K5 on the H100: at the main path's shapes (64->128, 128->128
+// and 128->64 at 24^2, 128->128 at 12^2, batch 20; dx the same four mirrored)
+// an output pixel carries 2*9*C_in*C_out operations on 2*(C_in + C_out)
+// bytes, 384..576 operations a byte, above the card's 295 for bf16 on the
+// tensor cores: bound by operations, 0.86 us (128->128 @ 12^2) to 3.44 us
+// (128->128 @ 24^2) a launch at 989 TFLOP/s.  On the CUDA cores the same work
+// cannot take less than about 51 us at 128->128 @ 24^2 (67 TFLOP/s of f32).
 //
-// What the design does about it: both are implicit GEMMs.  P is never written
-// to device memory.  A block owns a 64 x 64 tile of the result and 4 warps,
-// each 32 x 32 of it (2 x 4 tiles of 16 x 8, 32 accumulators a thread, in
-// the mma accumulator layout in both paths).  The reduction runs in steps of
-// 32: each step stages a 64 x 32 tile of P (gathered from x with the tap's
-// shift and the image-edge masks, as the TPU kernel's roll and mask do) and
-// a 64 x 32 tile of the other operand in shared memory, both with the
-// reduction index contiguous and rows padded to avoid bank conflicts on the
-// fragment loads.
+// bf16: an implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// out), out (C_out x pixels) = wall (C_out x 9*C_in) . P, with M = 16 output
+// channels, N = 8 pixels, a k-step = 16 input channels of one tap.  P is
+// never built.  Against the gathered design it replaces:
 //
-//   * K5: rows are pixels (M = N*H*W, batch-major), columns output channels;
-//     the reduction walks the 9 taps and, in each, the input channels in
-//     steps of 32.  The other operand is the wall, read as (C_out, 9*C_in).
-//   * K5dw: rows are the 9*C_in wall rows, columns output channels; the
-//     reduction walks pixels.  Hopper's blocks run in no order, so the TPU
-//     kernel's accumulation across its grid becomes two passes with a fixed
-//     summation order and no float atomics: pixels are cut into slabs (their
-//     number depends on the shapes only), each block writes the partial sum
-//     of its slab to a workspace slot of its own, and a second kernel adds
-//     the slots in slot order.  Two launches agree bit for bit.
+//   * One staged tile for all nine taps.  A block owns a tile of whole rows
+//     of one image (a band; the tile is a column window only for rows too
+//     wide to stage) and 32 output channels.  For each stage of 32 input
+//     channels it stages the band with a one-row halo above and below and a
+//     zero column at each side, channel-innermost: pixel (r, s) at
+//     (r*swp + s)*CP, 32 channels padded to CP = 40 (80 bytes, so the 8
+//     pixels of a fragment load fall in 8 distinct bank groups; swp = wd + 2,
+//     or wd + 8 where 8-pixel groups cross rows).  The nine taps are offsets
+//     (ki*swp + kj)*CP into that one tile: x is read once per block and stage
+//     and the edge masks are zeros in shared memory.
+//   * Loads overlap the products.  x lands by 16-byte cp.async as the band's
+//     flat run of pixels (its rows are contiguous in CHW), two stages ahead,
+//     into two landing buffers; one ldmatrix.x4.trans on the 32 channel rows
+//     of a 16-byte piece gives each lane four channel pairs of one pixel,
+//     stored into the tile (shared to shared).  The wall's slice of a stage
+//     (9 taps x 32 output channels x 32 input channels) lands by cp.async
+//     straight into its final layout, in three buffers, also two ahead.  The
+//     warps run mma.sync on stage s while stages s+1 and s+2 are in flight.
+//   * Fragments by ldmatrix.x4: B (two n-tiles) from the pixel tile, A from
+//     the wall's rows of 64 bytes, whose four 16-byte units sit XOR-swizzled
+//     (unit u of row r at u ^ ((r >> 1) & 3)), conflict-free without padding.
+//   * The grid fills the card: bands get shorter while the grid still fits
+//     two blocks on each of the 132 SMs at once (the shared memory allows
+//     two); at N = 20 each of the four shapes takes 240 blocks (bands of 8
+//     rows at 24^2 with 128 channels out, 4 rows with 64 out and at 12^2),
+//     at N = 160 640..1920.  Its 8 warps are 2 k-groups x 4 pixel groups: a
+//     warp takes one of the two k-steps of each tap for 2 m-tiles and up to 6
+//     n-tiles, so it holds 48 accumulators and loads 5 fragments for 12
+//     products; at the end the second k-group's sums go through shared
+//     memory and the first adds them in a fixed order (two launches agree bit
+//     for bit) and stores bf16 pairs.
+//   * dx (flip = 1) reads rows of the unflipped wall, (8-t)*C_out + o0 ..
+//     +31 for input channel c0 + k, into rows of k, and takes A by
+//     ldmatrix.x4.trans: the flip is in the addresses.
+//   * Edges as data: landing pieces outside the image plane, channels past
+//     C_in and wall rows past C_out are zero (cp.async with a source size of
+//     0).  Where the plane is not a multiple of 8 pixels (or x not 16-byte
+//     aligned, or the band too wide to stage), x is staged element by element
+//     (in column windows of at most 128 where rows are wider); where the
+//     wall's rows are not (C_in, or C_out for dx, not a multiple of 8), the
+//     wall is.
+//
+// f32 stays on the CUDA cores in full f32 (no TF32: the port's f32 convs are
+// full f32): a block owns a 64 x 64 tile of (pixels x C_out) with 4 warps
+// and 32 f32 accumulators a thread, and stages gathered 64 x 32 tiles of P
+// and of the wall per step of 32 (flip = 1 reads the wall flipped).
+//
+// K5dw: rows are the 9*C_in wall rows, columns output channels; the
+// reduction walks pixels in 64 x 64 tiles of mma.sync (bf16) or f32 FMAs.
+// Hopper's blocks run in no order, so the TPU kernel's accumulation across
+// its grid becomes two passes with a fixed summation order and no float
+// atomics: pixels are cut into slabs (their number depends on the shapes
+// only), each block writes the partial sum of its slab to a workspace slot
+// of its own, and a second kernel adds the slots in slot order.  Two
+// launches agree bit for bit.
 //
 // C interface (bound with ctypes): conv3x3_nl(...) and conv3x3_nl_dw(...)
 // launch on the given stream, allocate nothing, do not synchronise, and
@@ -56,6 +97,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -76,9 +119,6 @@ __device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) {
   return __float2bfloat16_rn(0.f);
 }
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -151,12 +191,14 @@ __device__ __forceinline__ void step(const float* As, const float* Bs,
   }
 }
 
-// K5.  Grid (ceil(M / BM), ceil(C_out / BN)).  Thread tid stages pixel row
-// tid % BM of the P tile, input channels tid / BM + 2*s of the step.
+// K5 in f32.  Grid (ceil(M / BM), ceil(C_out / BN)).  Thread tid stages
+// pixel row tid % BM of the P tile, input channels tid / BM + 2*s of the
+// step.  flip = 1: w_all is (C_in, 9*C_out), read flipped and transposed.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
-                  T* __restrict__ out, int n_img, int c_in, int c_out, int H, int W) {
+                  T* __restrict__ out, int n_img, int c_in, int c_out, int H, int W,
+                  int flip) {
   constexpr int RS = Stage<T>::RS;
   __shared__ __align__(16) T As[BM * RS];
   __shared__ __align__(16) T Bs[BN * RS];
@@ -202,7 +244,8 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
         const int o = e / KK, j = e % KK;
         T v = zero;
         if (o0 + o < c_out && c0 + j < c_in)
-          v = w_all[(long long)(o0 + o) * 9 * c_in + t * c_in + c0 + j];
+          v = flip ? w_all[(long long)(c0 + j) * 9 * c_out + (8 - t) * c_out + o0 + o]
+                   : w_all[(long long)(o0 + o) * 9 * c_in + t * c_in + c0 + j];
         Bs[o * RS + j] = v;
       }
       __syncthreads();
@@ -350,18 +393,18 @@ bool valid(int n, int c_in, int c_out, int h, int w) {
   if (n < 1 || c_in < 1 || c_out < 1 || h < 1 || w < 1) return false;
   const long long M = (long long)n * h * w;
   return M <= (1LL << 40) && (M + BM - 1) / BM <= 0x7fffffffLL &&
-         (c_out + BN - 1) / BN <= 65535 && (long long)h * w <= 0x7fffffffLL &&
-         (long long)c_in * h * w <= 0x7fffffffLL;
+         (c_out + BN - 1) / BN <= 65535 && (long long)(h + 2) * w <= 0x7fffffffLL &&
+         (long long)c_in * h * w <= 0x7fffffffLL && (long long)c_out * h * w <= 0x7fffffffLL &&
+         9LL * (c_in + 32) * (c_out + 32) <= 0x7fffffffLL;  // K5's 32-bit offsets
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w_all, void* out, int n, int c_in,
-                       int c_out, int h, int w, cudaStream_t stream) {
+cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n, int c_in,
+                           int c_out, int h, int w, int flip, cudaStream_t stream) {
   const long long M = (long long)n * h * w;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (c_out + BN - 1) / BN);
-  conv3x3_nl_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_all), static_cast<T*>(out), n, c_in,
-      c_out, h, w);
+  conv3x3_nl_kernel<float><<<grid, NT, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w_all), static_cast<float*>(out),
+      n, c_in, c_out, h, w, flip);
   return cudaGetLastError();
 }
 
@@ -381,20 +424,451 @@ cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5 in bf16: tensor cores (see the note at the top).
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int OPB = 32;                 // output channels of a block: two m-tiles
+constexpr int CG = 32;                  // input channels of a stage: two k-steps
+constexpr int WN = 4;                   // pixel groups of warps in each k-group
+constexpr int NTW = 6;                  // most n-tiles (8 pixels each) a warp owns
+constexpr int MAX_PIX = WN * NTW * 8;   // most pixels of a tile (192)
+constexpr int MAX_WIN = 128;            // most columns of a window, where x is staged element-wise
+constexpr int CP = CG + 8;              // staged elements a pixel (80 bytes)
+constexpr int WROW = 32;                // elements of a wall row (64 bytes, swizzled)
+constexpr int WSLICE = 9 * OPB * CG;    // elements of a stage's wall slice
+constexpr int WBUFS = 3;                // wall slices in flight or in use
+constexpr int SMS = 132;                // SMs of an H100
+constexpr int SMEM_MOST = 113 * 1024;   // so that two blocks fit an SM
+constexpr int WD_SHIFT = 20;            // q / wd == (q * wd_mul) >> WD_SHIFT
+static_assert(WN * NTW * 2 * 4 * 32 * 4 <= WBUFS * WSLICE * 2,
+              "the second k-group's sums fit the wall buffers");
+
+// How a launch is cut.  A tile is `rows` rows of a window of `wd` columns of
+// one image (wd == W unless rows of W are too wide to stage): `ncw` windows
+// across a row, `bands` bands down the image, `tiles` in all (grid.x); `mz`
+// blocks of OPB output channels (grid.y).  A tile has `npix` = rows * wd
+// pixels, `nt` n-tiles of 8 in row-major order (an n-tile may cross rows).
+// vec_x: x lands by cp.async as each band's flat run of pixels (whole rows,
+// H*W % 8 == 0, x 16-byte aligned), into landing buffers of CG channel rows
+// of `lpc` 16-byte pieces (odd, so the 8 rows an ldmatrix reads fall in 8
+// distinct bank groups); else it is staged element by element.  Shared
+// memory: the WBUFS wall slices, the pixel tile xs ((rows + 2) x swp pixels
+// of CP elements) at xs_off, and two landing buffers at land_off.
+struct Geometry {
+  int mz, wd, ncw, rows, bands, tiles, npix, nt, swp, vec_x, lpc, wd_mul;
+  int xs_off, land_off, land_bytes, smem;  // bytes
+};
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+void layout(Geometry& g, int W) {
+  const int r2 = g.rows + 2;
+  g.npix = g.rows * g.wd;
+  g.nt = ceil_div(g.npix, 8);
+  g.swp = g.wd % 8 == 0 ? g.wd + 2 : g.wd + 8;  // see the note at the top
+  g.xs_off = WBUFS * WSLICE * 2;
+  g.land_off = g.xs_off + r2 * g.swp * CP * 2;
+  // a band's run starts at (y0-1)*W rounded down to 8 and spans r2*W pixels
+  g.lpc = g.vec_x ? ((r2 * W + 14) / 8) | 1 : 0;
+  g.land_bytes = CG * g.lpc * 16;
+  g.smem = g.land_off + 2 * g.land_bytes;
+}
+
+Geometry geometry(int n, int c_out, int h, int w, bool aligned) {
+  Geometry g;
+  g.mz = ceil_div(c_out, OPB);
+  g.vec_x = aligned && (long long)h * w % 8 == 0 && w <= MAX_PIX;
+  for (;;) {
+    g.ncw = g.vec_x || w <= MAX_WIN ? 1 : ceil_div(w, MAX_WIN);
+    g.wd = ceil_div(w, g.ncw);
+    int most = MAX_PIX / g.wd;
+    if (most > h) most = h;
+    if (most < 1) most = 1;
+    // more, shorter bands (balanced) while the grid still fits two blocks an
+    // SM at once
+    int bands = ceil_div(h, most);
+    while (bands < h && (long long)g.mz * n * (bands + 1) * g.ncw <= 2 * SMS) ++bands;
+    g.rows = ceil_div(h, bands);
+    for (;;) {
+      layout(g, w);
+      if (g.smem <= SMEM_MOST || g.rows == 1) break;
+      --g.rows;
+    }
+    if (g.smem <= SMEM_MOST || !g.vec_x) break;
+    g.vec_x = 0;  // whole rows too wide to land: element-wise, in windows
+  }
+  g.bands = ceil_div(h, g.rows);
+  const long long tiles = (long long)n * g.bands * g.ncw;
+  g.tiles = tiles > 0x7fffffffLL ? -1 : (int)tiles;
+  g.wd_mul = (1 << WD_SHIFT) / g.wd + 1;  // exact for q * wd < 2^20 (q < 3 * MAX_PIX)
+  return g;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or 16 zero bytes when bytes == 0 (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(smem_addr(p)));
+}
+
+// d += a . b; m16n8k16, bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element e (0..31) of wall row r (0 .. 9*32-1) in a slice: 16-byte unit
+// e / 8 sits at unit (e / 8) ^ ((r >> 1) & 3), so the 8 rows an ldmatrix
+// reads at one unit fall in 8 distinct bank groups.
+__device__ __forceinline__ int wall_at(int r, int e) {
+  return r * WROW + 8 * ((e >> 3) ^ ((r >> 1) & 3)) + (e & 7);
+}
+
+// The wall slice of the stage's input channels c0 .. c0+31 for the block's
+// output channels o0 .. o0+31, row r = t*32 + i of tap t:
+//   flip = 0: row i is output channel o0+i, element k = w_all[(o0+i)*9*c_in
+//             + t*c_in + c0+k] (A row-major: ldmatrix);
+//   flip = 1: row i is input channel c0+i, element m = w_all[(c0+i)*9*c_out
+//             + (8-t)*c_out + o0+m] (w_all is the forward's wall, (c_in,
+//             9*c_out); A column-major: ldmatrix.trans).
+// Zero past C_in and C_out.  Offsets fit 32 bits (valid()).  vec: the
+// rows' 16-byte units are aligned
+// (c_in, or c_out for flip, a multiple of 8, w_all 16-byte aligned), one
+// cp.async each; else element by element.
+template <bool FLIP>
+__device__ __forceinline__ void stage_w(bf16* ws, const bf16* w_all, int c0, int c_in,
+                                        int c_out, int o0, int vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < 9 * 32 * 4; e += THREADS) {
+      const int u = e & 3, r = e >> 2, t = r >> 5, i = r & 31;
+      const bool in = FLIP ? c0 + i < c_in && o0 + 8 * u < c_out
+                           : o0 + i < c_out && c0 + 8 * u < c_in;
+      const bf16* src = w_all + (FLIP ? ((c0 + i) * 9 + 8 - t) * c_out + o0 + 8 * u
+                                      : ((o0 + i) * 9 + t) * c_in + c0 + 8 * u);
+      cp_async16(ws + wall_at(r, 8 * u), in ? src : w_all, in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int e = tid; e < 9 * 32 * 32; e += THREADS) {
+      const int k = e & 31, r = e >> 5, t = r >> 5, i = r & 31;
+      bf16 v = zero;
+      if (FLIP) {
+        if (c0 + i < c_in && o0 + k < c_out) v = w_all[((c0 + i) * 9 + 8 - t) * c_out + o0 + k];
+      } else if (o0 + i < c_out && c0 + k < c_in) {
+        v = w_all[((o0 + i) * 9 + t) * c_in + c0 + k];
+      }
+      ws[wall_at(r, k)] = v;
+    }
+  }
+}
+
+// Grid (tiles, mz); THREADS threads.  flip: see stage_w.
+template <bool FLIP>
+__global__ void __launch_bounds__(THREADS, 2)
+conv3x3_nl_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all,
+                      bf16* __restrict__ out, int c_in, int c_out, int H, int W,
+                      Geometry g, int vec_w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* wbuf = reinterpret_cast<bf16*>(smem);
+  bf16* xs = reinterpret_cast<bf16*>(smem + g.xs_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kg = warp / WN, wn = warp % WN;  // k-group, pixel group
+  const int o0 = blockIdx.y * OPB;
+  const int per_image = g.bands * g.ncw;
+  const int n = blockIdx.x / per_image;
+  const int b = blockIdx.x - n * per_image;
+  const int band = b / g.ncw;
+  const int y0 = band * g.rows, x0 = (b - band * g.ncw) * g.wd;
+  const int L = H * W;  // offsets inside one image fit 32 bits (valid())
+  const bf16* xn = x + (long long)n * c_in * L;
+  bf16* outn = out + (long long)n * c_out * L;
+  const int stages = (c_in + CG - 1) / CG;
+
+  // vec_x: the band's rows y0-1 .. y0+rows are the plane's pixels [lo, lo +
+  // (rows+2)*W); pieces of 8 from pstart (lo rounded down to 8), in or out
+  // of the plane as a whole (H*W % 8 == 0)
+  const int lo = (y0 - 1) * W;
+  const int pstart = lo >= 0 ? lo / 8 * 8 : -((7 - lo) / 8 * 8);
+  const int span = (g.rows + 2) * W;
+  const int npieces = (lo + span + 7 - pstart) / 8;
+  auto land_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + g.land_off + (s & 1) * g.land_bytes);
+  };
+  // Stage s's x pieces (warp w lands channel rows w, w+8, ...; lanes walk
+  // the pieces) and its wall slice: one commit group, empty past the last
+  // stage.
+  auto issue = [&](int s) {
+    if (s < stages) {
+      const int c0 = s * CG;
+      if (g.vec_x) {
+        bf16* land = land_of(s);
+        for (int j = lane; j < npieces; j += 32) {
+          const int p = pstart + 8 * j;
+          const bool in = p >= 0 && p < L;
+#pragma unroll
+          for (int ch = warp; ch < CG; ch += WARPS) {
+            const bool v = in && c0 + ch < c_in;
+            cp_async16(land + (ch * g.lpc + j) * 8, v ? xn + (c0 + ch) * L + p : xn, v ? 16 : 0);
+          }
+        }
+      }
+      stage_w<FLIP>(wbuf + (s % WBUFS) * WSLICE, w_all, c0, c_in, c_out, o0, vec_w, tid);
+    }
+    cp_async_commit();
+  };
+
+  // Per-lane fragment offsets.  A (a tap's slice): m-tile mi, this k-group's
+  // k-step.  ldmatrix.x4 matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7,
+  // k 8-15), (m 8-15, k 8-15); lane l gives row l & 7 of matrix l >> 3.
+  int a_off[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (FLIP) {  // rows are k: row 16kg + 8(l >> 4) + (l & 7), m at 16mi + 8((l >> 3) & 1)
+      const int k = 16 * kg + 8 * (lane >> 4) + (lane & 7);
+      a_off[mi] = wall_at(k, 16 * mi + 8 * ((lane >> 3) & 1));
+    } else {     // rows are m: row 16mi + (l & 15), k at 16kg + 8(l >> 4)
+      a_off[mi] = wall_at(16 * mi + (lane & 15), 16 * kg + 8 * (lane >> 4));
+    }
+  }
+  // B: this warp's n-tiles are wn + WN*j, j < nvalid; pair p is j = 2p and
+  // 2p+1: lane l gives pixel l & 7 of n-tile 2p + (l >> 4), channels 8((l >>
+  // 3) & 1) of the k-step.  boff[p]: that pixel's tap (0, 0) in xs (lanes
+  // past the tile read pixel lane & 7 of the first n-tile, or 0, in banks
+  // of their own; their sums are not stored).
+  const int nvalid = wn < g.nt ? (g.nt - wn + WN - 1) / WN : 0;
+  int boff[NTW / 2];
+#pragma unroll
+  for (int p = 0; p < NTW / 2; ++p) {
+    int q = (wn + WN * (2 * p + (lane >> 4))) * 8 + (lane & 7);
+    if (q >= g.npix) q = (lane & 7) < g.npix ? lane & 7 : 0;
+    const int r = (int)(((unsigned)q * (unsigned)g.wd_mul) >> WD_SHIFT);
+    boff[p] = (r * g.swp + q - r * g.wd) * CP + 16 * kg + 8 * ((lane >> 3) & 1);
+  }
+
+  float acc[2][NTW][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  if (g.vec_x) {  // the halo columns; the stages rewrite every other pixel read
+    uint32_t* z = reinterpret_cast<uint32_t*>(xs);
+    for (int e = tid; e < (g.rows + 2) * CP; e += THREADS) {
+      const int r = e / CP, word = e % (CP / 2), right = e % CP >= CP / 2;
+      z[(r * g.swp + (right ? W + 1 : 0)) * (CP / 2) + word] = 0u;
+    }
+  }
+  issue(0);
+  issue(1);
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait_prior();
+    __syncthreads();  // stage s has landed; the block is done with xs
+    if (g.vec_x) {
+      // land -> xs: warp w takes pieces w, w+8, ...; one ldmatrix.x4.trans
+      // on the piece's 32 channel rows gives lane (gq, q) channels 8m+2q,
+      // 8m+2q+1 (m = 0..3) of the piece's pixel gq
+      const bf16* land = land_of(s);
+      const int gq = lane >> 2, q = lane & 3;
+      for (int j = warp; j < npieces; j += WARPS) {
+        uint32_t v[4];
+        ldmatrix_x4_trans(v, land + (lane * g.lpc + j) * 8);
+        const int Q = pstart - lo + 8 * j + gq;  // pixel of the band's rows
+        if (Q >= 0 && Q < span) {
+          const int r = (int)(((unsigned)Q * (unsigned)g.wd_mul) >> WD_SHIFT);
+          uint32_t* dst =
+              reinterpret_cast<uint32_t*>(xs + (r * g.swp + Q - r * W + 1) * CP + 2 * q);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) dst[4 * m] = v[m];
+        }
+      }
+    } else {
+      const int r2 = g.rows + 2, cols = g.wd + 2, c0 = s * CG;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      for (int e = tid; e < CG * r2 * cols; e += THREADS) {
+        const int ch = e % CG, rs = e / CG;
+        const int sc = rs % cols, r = rs / cols;
+        const int gy = y0 - 1 + r, gx = x0 - 1 + sc;
+        const bool in = c0 + ch < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        xs[(r * g.swp + sc) * CP + ch] = in ? xn[(c0 + ch) * L + gy * W + gx] : zero;
+      }
+    }
+    __syncthreads();  // xs holds stage s; its landing buffer is free
+    issue(s + 2);
+
+    const bf16* wsl = wbuf + (s % WBUFS) * WSLICE;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (FLIP)
+          ldmatrix_x4_trans(a[mi], wsl + t * 32 * WROW + a_off[mi]);
+        else
+          ldmatrix_x4(a[mi], wsl + t * 32 * WROW + a_off[mi]);
+      }
+      const bf16* xt = xs + ((t / 3) * g.swp + t % 3) * CP;
+#pragma unroll
+      for (int p = 0; p < NTW / 2; ++p) {
+        if (2 * p < nvalid) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, xt + boff[p]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_acc(acc[mi][2 * p], a[mi], bb[0], bb[1]);
+          if (2 * p + 1 < nvalid) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) mma_acc(acc[mi][2 * p + 1], a[mi], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // The second k-group's sums through the wall buffers (every copy has
+  // landed: the groups committed after the last stage are empty), added by
+  // the first in a fixed order.  acc[mi][j]: output channels 16mi + gq (e <
+  // 2) and + 8 (e >= 2) of the block, pixels 2q and 2q+1 of n-tile wn + WN*j
+  // (the m16n8 accumulator layout).
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem) + wn * (NTW * 2 * 4 * 32) + lane;
+  if (kg == 1) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      if (j < nvalid)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[((j * 2 + mi) * 4 + e) * 32] = acc[mi][j][e];
+  }
+  __syncthreads();
+  if (kg == 1) return;
+  const int gq = lane >> 2, q = lane & 3;
+  const int rv = min(g.rows, H - y0);  // rows of the tile inside the image
+  const bool pairs = g.vec_x && (y0 * W) % 2 == 0;  // 4-byte aligned bf16 pairs
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    if (j >= nvalid) continue;
+    const int tp = (wn + WN * j) * 8 + 2 * q;  // the pair's first pixel of the tile
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = o0 + 16 * mi + gq + 8 * h;
+        if (o >= c_out) continue;
+        const float v0 = acc[mi][j][2 * h] + red[((j * 2 + mi) * 4 + 2 * h) * 32];
+        const float v1 = acc[mi][j][2 * h + 1] + red[((j * 2 + mi) * 4 + 2 * h + 1) * 32];
+        bf16* on = outn + o * L;
+        if (g.vec_x) {  // the tile's rows are the plane's pixels y0*W ..
+          const int lim = rv * W;
+          const int at = y0 * W + tp;
+          if (pairs && tp + 1 < lim) {
+            *reinterpret_cast<__nv_bfloat162*>(on + at) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (tp < lim) on[at] = __float2bfloat16_rn(v0);
+            if (tp + 1 < lim) on[at + 1] = __float2bfloat16_rn(v1);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pq = tp + e;
+            const int r = (int)(((unsigned)pq * (unsigned)g.wd_mul) >> WD_SHIFT);
+            const int xx = pq - r * g.wd;
+            if (pq < g.npix && r < rv && x0 + xx < W)
+              on[(y0 + r) * W + x0 + xx] = __float2bfloat16_rn(e ? v1 : v0);
+          }
+        }
+      }
+  }
+}
+
+// Allows the kernel SMEM_MOST bytes of dynamic shared memory, once for each
+// device (the attribute is kept per context).
+template <bool FLIP>
+cudaError_t allow_smem() {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(conv3x3_nl_mma_kernel<FLIP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <bool FLIP>
+cudaError_t launch_flip(const bf16* x, const bf16* w_all, bf16* out, int c_in, int c_out,
+                        int h, int w, const Geometry& g, int vec_w, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<FLIP>();
+  if (err != cudaSuccess) return err;
+  conv3x3_nl_mma_kernel<FLIP><<<dim3(g.tiles, g.mz), THREADS, g.smem, stream>>>(
+      x, w_all, out, c_in, c_out, h, w, g, vec_w);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w_all, void* out, int n, int c_in, int c_out,
+                   int h, int w, int flip, cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const Geometry g = geometry(n, c_out, h, w, aligned(x) && aligned(out));
+  if (g.smem > SMEM_MOST || g.tiles < 1) return cudaErrorInvalidConfiguration;
+  const int vec_w = (flip ? c_out : c_in) % 8 == 0 && aligned(w_all);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* wp = static_cast<const bf16*>(w_all);
+  bf16* op = static_cast<bf16*>(out);
+  if (flip) return launch_flip<true>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
+  return launch_flip<false>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
-// x: (n, c_in, h*w), w_all: (c_out, 9*c_in) tap-major, out: (n, c_out, h*w),
-// all contiguous on the current device, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1).  Returns a cudaError_t as int.
+// x: (n, c_in, h*w), out: (n, c_out, h*w), w_all: (c_out, 9*c_in) tap-major
+// (flip = 0), or the forward's wall (c_in, 9*c_out) read flipped and
+// transposed (flip = 1: the input gradient of that forward), all contiguous
+// on the current device, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
+// bf16 runs on the tensor cores, f32 on the CUDA cores.  Returns a
+// cudaError_t as int.
 int conv3x3_nl(const void* x, const void* w_all, void* out, int n, int c_in, int c_out,
-               int h, int w, int is_bf16, void* stream) {
+               int h, int w, int flip, int is_bf16, void* stream) {
   if (!valid(n, c_in, c_out, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16>(x, w_all, out, n, c_in, c_out, h, w, s)
-              : launch_fwd<float>(x, w_all, out, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch(x, w_all, out, n, c_in, c_out, h, w, flip, s)
+              : launch_fwd_f32(x, w_all, out, n, c_in, c_out, h, w, flip, s);
   return static_cast<int>(err);
 }
 

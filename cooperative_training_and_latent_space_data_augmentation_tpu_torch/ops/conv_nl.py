@@ -24,8 +24,9 @@ reference the kernel is held against on the card):
 
 * :func:`conv3x3_nl` (K5, ``csrc/conv3x3_nl.cu``), plain
   :func:`conv3x3_nl_plain`;
-* :func:`conv3x3_nl_dx`: K5 on dy with :func:`..conv_chw.flip_wall`,
-  counted apart from the forward;
+* :func:`conv3x3_nl_dx`: K5 on dy with the flipped wall, counted apart
+  from the forward; the kernel reads the flipped wall out of the unflipped
+  one (``flip = 1``), the plain version takes :func:`..conv_chw.flip_wall`;
 * :func:`conv3x3_nl_dw` (K5dw, ``csrc/conv3x3_nl.cu``), plain
   :func:`conv3x3_nl_dw_plain`.
 
@@ -113,20 +114,32 @@ def _check_map(name: str, t: torch.Tensor, H: int, W: int, what: str):
         raise ValueError(f"{name}: {what} {tuple(t.shape)} is not (N, C, {H}*{W})")
 
 
-def _check_conv(name: str, x: torch.Tensor, w_all: torch.Tensor, H: int, W: int):
-    """x (N, C_in, H*W) and w_all (C_out, 9*C_in) with eligible channels."""
+def _check_conv(name: str, x: torch.Tensor, w_all: torch.Tensor, H: int, W: int,
+                flip: bool = False) -> int:
+    """x (N, C_in, H*W) and w_all (C_out, 9*C_in), or with ``flip`` the
+    forward's wall (C_in, 9*C_out) of the conv whose input gradient this
+    is, with channels that pass the NL rule.  Returns C_out."""
     _check(name, H, W, x, w_all)
     _check_map(name, x, H, W, "x")
     c_in = x.shape[1]
-    if w_all.dim() != 2 or w_all.shape[1] != 9 * c_in:
-        raise ValueError(f"{name}: w_all {tuple(w_all.shape)} is not (C_out, {9 * c_in})")
-    if not eligible_channels_nl(c_in, w_all.shape[0]):
-        raise ValueError(f"{name}: {c_in} -> {w_all.shape[0]} channels fail the NL rule "
+    if flip:
+        ok = w_all.dim() == 2 and w_all.shape[0] == c_in and w_all.shape[1] % 9 == 0
+        c_out = w_all.shape[1] // 9 if ok else 0
+        want = f"({c_in}, 9*C_out)"
+    else:
+        ok = w_all.dim() == 2 and w_all.shape[1] == 9 * c_in
+        c_out = w_all.shape[0] if ok else 0
+        want = f"(C_out, {9 * c_in})"
+    if not ok:
+        raise ValueError(f"{name}: w_all {tuple(w_all.shape)} is not {want}")
+    if not eligible_channels_nl(c_in, c_out):
+        raise ValueError(f"{name}: {c_in} -> {c_out} channels fail the NL rule "
                          f"(min >= {NL_MIN_CH}, {NL_LANE} <= max <= {NL_MAX_CH})")
+    return c_out
 
 
 _SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
-    "conv3x3_nl": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "conv3x3_nl": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "conv3x3_nl_dw": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "conv3x3_nl_dw_workspace": [ctypes.c_int] * 5,
 }
@@ -141,12 +154,12 @@ def _launch(name: str, what: str, ref: torch.Tensor, *args) -> None:
                    int(ref.dtype == torch.bfloat16))
 
 
-def _launch_k5(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Tensor:
+def _launch_k5(x: torch.Tensor, w_all: torch.Tensor, c_out: int, H: int, W: int,
+               flip: bool) -> torch.Tensor:
     n, c_in, L = x.shape
-    c_out = w_all.shape[0]
     out = torch.empty((n, c_out, L), dtype=x.dtype, device=x.device)
-    _launch("conv3x3_nl", f"x {tuple(x.shape)}, C_out {c_out}", x, x.data_ptr(),
-            w_all.data_ptr(), out.data_ptr(), n, c_in, c_out, H, W)
+    _launch("conv3x3_nl", f"x {tuple(x.shape)}, C_out {c_out}, flip {int(flip)}", x,
+            x.data_ptr(), w_all.data_ptr(), out.data_ptr(), n, c_in, c_out, H, W, int(flip))
     return out
 
 
@@ -158,10 +171,10 @@ def conv3x3_nl(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Te
 
     On a CUDA tensor this launches K5 and adds one to
     ``conv3x3_nl.launches``; on a CPU tensor it runs the plain version."""
-    _check_conv("conv3x3_nl", x, w_all, H, W)
+    c_out = _check_conv("conv3x3_nl", x, w_all, H, W)
     if x.device.type == "cpu":
         return conv3x3_nl_plain(x, w_all, H, W)
-    out = _launch_k5(x, w_all, H, W)
+    out = _launch_k5(x, w_all, c_out, H, W, flip=False)
     conv3x3_nl.launches += 1
     return out
 
@@ -175,20 +188,19 @@ def conv3x3_nl_dx(dy: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torc
     transposed wall (the JAX package's ``_nl_fwd_dispatch(dy,
     _flip_w(w))``), whose C_out -> C_in passes the NL rule too.
 
-    On a CUDA tensor this launches K5 and adds one to
-    ``conv3x3_nl_dx.launches`` (not to the forward's count); on a CPU
-    tensor it runs :func:`conv3x3_nl_plain` on the flipped wall."""
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
-        flip_wall,
-    )
-
-    if w_all.dim() != 2 or w_all.shape[1] % 9 or w_all.shape[1] < 9:
-        raise ValueError(f"conv3x3_nl_dx: w_all {tuple(w_all.shape)} is not (C_out, 9*C_in)")
-    w_flip = flip_wall(w_all).contiguous()
-    _check_conv("conv3x3_nl_dx", dy, w_flip, H, W)
+    On a CUDA tensor this launches K5 with ``flip = 1``, which reads the
+    flipped wall's element (i, t*C_out + o) from ``w_all[o, (8-t)*C_in + i]``
+    (no flipped copy is made), and adds one to ``conv3x3_nl_dx.launches``
+    (not to the forward's count); on a CPU tensor it runs
+    :func:`conv3x3_nl_plain` on :func:`..conv_chw.flip_wall`."""
+    c_in = _check_conv("conv3x3_nl_dx", dy, w_all, H, W, flip=True)
     if dy.device.type == "cpu":
-        return conv3x3_nl_plain(dy, w_flip, H, W)
-    out = _launch_k5(dy, w_flip, H, W)
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
+            flip_wall,
+        )
+
+        return conv3x3_nl_plain(dy, flip_wall(w_all).contiguous(), H, W)
+    out = _launch_k5(dy, w_all, c_in, H, W, flip=True)
     conv3x3_nl_dx.launches += 1
     return out
 

@@ -41,8 +41,10 @@ TOP = 12                # kernels listed by device time
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "conv3x3_nl_dw" in name:
+        return "K5dw conv3x3_nl_dw"
     if "conv3x3_nl" in name:
-        return "K5 conv3x3_nl (forward, dx and dw)"
+        return "K5 conv3x3_nl (forward and dx)"
     if "conv3x3_b8" in name:
         return "K6 conv3x3_b8 (forward, dx and dw)"
     if "conv3x3s2" in name:

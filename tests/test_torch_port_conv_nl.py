@@ -7,7 +7,9 @@ view of NCHW is held against them through a transpose in the test.
 
 On the CPU the wrappers run their plain versions; the kernels are held
 against those on the card (tests/test_torch_port_cuda.py and
-chip_smoke.py).  Also here: the channel rule against JAX's
+chip_smoke.py).  The dx kernel reads the flipped wall out of the unflipped
+one; that index map, written as a plain gather, is held against JAX's dx
+here too.  Also here: the channel rule against JAX's
 ``_eligible_channels_nl``, the routing of every conv of the five
 subnetworks under ``conv_nl`` against the NL ``pallas_call``s in JAX's own
 trace (4 an encoder pass, 1 a decoder pass, none in the code decoupler),
@@ -113,6 +115,40 @@ def test_plain_k5dx_matches_pallas_kernel(n, h, c_in, c_out, dtype):
     got = conv_nl.conv3x3_nl_dx(_chw(dy, tdt), _wall(w_hwio, tdt), h, h)
     assert got.dtype == tdt and got.shape == (n, c_in, h * h)
     np.testing.assert_allclose(_nhwc(got, h), want, rtol=0, atol=_atol(want, dtype))
+
+
+def _dx_folded_flip(dy, w_all, H, W):
+    """K5dx as the kernel computes it with ``flip = 1``, in plain PyTorch: no
+    flipped wall is built; the A operand's element (i, t, o) (output
+    channel i, tap t, reduction channel o) is gathered from the flat
+    unflipped wall at ``o*9*C_in + (8-t)*C_in + i``, the address the
+    kernel's wall staging reads, and the product runs over dy's tap
+    matrix."""
+    c_out, k = w_all.shape
+    c_in = k // 9
+    i = torch.arange(c_in).view(c_in, 1, 1)
+    t = torch.arange(9).view(1, 9, 1)
+    o = torch.arange(c_out).view(1, 1, c_out)
+    a = w_all.reshape(-1)[o * 9 * c_in + (8 - t) * c_in + i].reshape(c_in, 9 * c_out)
+    n, _, L = dy.shape
+    out = torch.matmul(conv_nl.tap_matrix(dy, H, W), a.float().t())  # (N*H*W, C_in)
+    return out.reshape(n, L, c_in).permute(0, 2, 1).contiguous().to(dy.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,c_in,c_out", SHAPES)
+def test_folded_flip_index_map_matches_pallas_dx(n, h, c_in, c_out, dtype):
+    """The dx kernel's folded flip, w_all[o, (8-t)*C_in + i] with o as the
+    reduction, against JAX's ``_nl_fwd_dispatch(dy, _flip_w(w))``; and equal
+    to the CPU path's product on ``flip_wall`` (the same matrix)."""
+    _, w_hwio, dy = _inputs(n, h, c_in, c_out, seed=4)
+    want = _np(jconv._nl_fwd_dispatch(_j(dy, dtype), jconv._flip_w(_j(w_hwio, dtype)), True))
+    tdt = getattr(torch, dtype)
+    dyt, wall = _chw(dy, tdt), _wall(w_hwio, tdt)
+    got = _dx_folded_flip(dyt, wall, h, h)
+    assert got.dtype == tdt and got.shape == (n, c_in, h * h)
+    np.testing.assert_allclose(_nhwc(got, h), want, rtol=0, atol=_atol(want, dtype))
+    assert torch.equal(got, conv_nl.conv3x3_nl_dx(dyt, wall, h, h))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -344,11 +380,12 @@ def test_kernel_binding_declares_pointer_arguments(monkeypatch):
         ("conv3x3_nl", "labs"), ("conv3x3_nl_dw", "llabs"),
         ("conv3x3_nl_dw_workspace", "atoi"))})
     monkeypatch.setattr(kernels, "load", lambda name: fake)
-    for name, n_ptr in (("conv3x3_nl", 3), ("conv3x3_nl_dw", 4)):
+    # conv3x3_nl: n, c_in, c_out, h, w, flip, is_bf16; conv3x3_nl_dw: no flip
+    for name, n_ptr, n_int in (("conv3x3_nl", 3, 7), ("conv3x3_nl_dw", 4, 6)):
         fn = conv_nl._fn(name)
         assert fn.restype is ctypes.c_int
         assert fn.argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
-        assert fn.argtypes[n_ptr:-1] == [ctypes.c_int] * 6
+        assert fn.argtypes[n_ptr:-1] == [ctypes.c_int] * n_int
         assert fn.argtypes[-1] is ctypes.c_void_p
     ws = conv_nl._fn("conv3x3_nl_dw_workspace")
     assert ws.restype is ctypes.c_longlong and ws.argtypes == [ctypes.c_int] * 5

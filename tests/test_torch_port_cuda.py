@@ -416,11 +416,19 @@ def test_train_mode_predict_on_card_leaves_buffers(cuda):
 # batch, and edges: C_in not a multiple of the 32-channel step (and 9*C_in
 # not a multiple of the 64-row dw tile), C_out not a multiple of the
 # 64-column tile, tiles that cross images (12x12 = 144 pixels, 2.25 tiles),
-# non-square images, the largest channel count, one pixel
+# non-square images, the largest channel count, one pixel.  Then edges of
+# the tensor-core forward's tiling: bands that do not divide H (13x13, 24x7,
+# H*W not a multiple of 8 at 13x13, so x is staged element-wise; 24x7 lands
+# whole rows of odd width, whose 8-pixel groups cross rows), channel stages
+# of 32 that do not divide C_in (96 fits, 200 leaves 8; for dx C_out 136
+# leaves 8), C_out slices of 32 that do not divide 136, C_out 256, rows too
+# wide to land (W 300: column windows), and the serving batch N = 160 at 24^2
 NL_SHAPES = [
     (20, 64, 128, 24, 24), (20, 128, 128, 24, 24), (20, 128, 128, 12, 12),
     (20, 128, 64, 24, 24), (3, 72, 136, 7, 11), (2, 100, 200, 5, 3), (2, 256, 64, 6, 6),
     (3, 64, 128, 1, 1),
+    (2, 96, 136, 13, 13), (3, 200, 256, 24, 7), (2, 128, 96, 13, 13), (1, 64, 128, 3, 300),
+    (160, 128, 128, 24, 24), (160, 64, 128, 24, 24), (160, 128, 128, 12, 12),
 ]
 
 
@@ -436,11 +444,15 @@ def _nl_inputs(cuda, n, c_in, c_out, h, w, dt, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c_in,c_out,h,w", NL_SHAPES)
 def test_k5_and_k5dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
+    """Forward and dx against the plain version, each launched twice: the
+    two launches agree bit for bit (no atomics, a fixed order of sums)."""
     dt = getattr(torch, dtype)
     x, dy, w_all = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 5)
     got = conv_nl.conv3x3_nl(x, w_all, h, w)
+    again = conv_nl.conv3x3_nl(x, w_all, h, w)
     want = conv_nl.conv3x3_nl_plain(x, w_all, h, w)
     got_dx = conv_nl.conv3x3_nl_dx(dy, w_all, h, w)
+    again_dx = conv_nl.conv3x3_nl_dx(dy, w_all, h, w)
     want_dx = conv_nl.conv3x3_nl_plain(dy, conv_chw.flip_wall(w_all).contiguous(), h, w)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (n, c_out, h * w)
@@ -451,6 +463,26 @@ def test_k5_and_k5dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
         # f32 accumulation); f32: FMAs in another order
         atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
         torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
+    assert torch.equal(got, again) and torch.equal(got_dx, again_dx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
+    """On the card conv3x3_nl_dx folds the flip into the kernel's wall
+    reads: no flipped copy of the wall is built."""
+    dt = getattr(torch, dtype)
+    _, dy, w_all = _nl_inputs(cuda, 2, 64, 128, 24, 24, dt, 7)
+    want = conv_nl.conv3x3_nl_plain(dy, conv_chw.flip_wall(w_all).contiguous(), 24, 24)
+
+    def refuse(_w):
+        raise AssertionError("flip_wall called on the card")
+
+    monkeypatch.setattr(conv_chw, "flip_wall", refuse)
+    got = conv_nl.conv3x3_nl_dx(dy, w_all, 24, 24)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
