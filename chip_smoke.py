@@ -21,8 +21,9 @@ Phases, each printing its seconds when it ends:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
-   ``csrc/``, one process per source, all started together; K1 and K5's
-   tensor-core kernel must report 0 spill bytes;
+   ``csrc/``, one process per source, all started together; K1 and the
+   tensor-core kernels of K5 and K5dw must report 0 spill bytes (and the
+   latter two at most 128 registers);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
@@ -36,8 +37,8 @@ Phases, each printing its seconds when it ends:
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
-   for K1, K1 dx, K2, K5, K5dx and K5dw and their cuDNN calls also the
-   device time alone
+   for K1, K1 dx, K2, K4, K4dx, K4dw, K5, K5dx, K5dw, K6, K6dx and K6dw
+   (K4's at batch 20) and their cuDNN calls also the device time alone
    (``device_ms``, ``library_device_ms``: ``torch.profiler``'s kernel
    durations, without the host time the events hold);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
@@ -76,8 +77,8 @@ Phases, each printing its seconds when it ends:
    before and read just after; it must launch K6, K6dx and K6dw.
 
 At the end it prints, per kernel, its launches and times per random step
-(per bench pass for K6), and tables of K2, K1, K1 dx, K5 and K5 dx by shape
-(K5's launches from the ``conv_nl`` train phase):
+(per bench pass for K6), and tables of K2, K1, K1 dx, K5, K5 dx and K5dw by
+shape (K5's launches from the ``conv_nl`` train phase):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
 per-step totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
@@ -196,6 +197,18 @@ def device_ms(fn, torch, flush, keep, tries=3):
         if durations:
             return sum(statistics.median(d) * len(d) for d in durations.values()) / REPS / 1e3
     return None
+
+
+def registers_of(log, kernel):
+    """The most registers ptxas gave a function whose mangled name holds
+    ``kernel`` (``-Xptxas -v``), or None if the log names none."""
+    most = None
+    for part in log.split("Function properties for ")[1:]:
+        name = part.split(None, 1)[0] if part.strip() else ""
+        m = re.search(r"Used (\d+) registers", part)
+        if kernel in name and m:
+            most = max(most or 0, int(m.group(1)))
+    return most
 
 
 def spill_lines(log, kernel=""):
@@ -795,12 +808,17 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 and K5's tensor-core kernel are built to fit 128 registers a
-        # thread: they must not spill
-        for lib, kernel in (("conv3x3_chw", ""), ("conv3x3_nl", "conv3x3_nl_mma_kernel")):
-            spills = spill_lines(built.get(lib, {}).get("log", ""), kernel)
+        # K1 and the tensor-core kernels of K5 and K5dw are built to fit 128
+        # registers a thread (two blocks an SM): they must not spill
+        for lib, kernel in (("conv3x3_chw", ""), ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
+                            ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel")):
+            log = built.get(lib, {}).get("log", "")
+            spills = spill_lines(log, kernel)
             if spills:
                 raise AssertionError(f"{lib} spills registers: {spills}")
+            regs = registers_of(log, kernel) if kernel else None
+            if regs is not None and regs > 128:
+                raise AssertionError(f"{lib}: {kernel} uses {regs} registers, more than 128")
         for name in kernels.SOURCES:
             kernels.load(name)
 
@@ -834,7 +852,7 @@ def main():
         nl_rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
                    for which, name in (("fwd", "conv3x3_nl_mma_kernel"),
                                        ("dx", "conv3x3_nl_mma_kernel"),
-                                       ("dw", "conv3x3_nl_dw_partial"))}
+                                       ("dw", "conv3x3_nl_dw_mma_kernel"))}
 
         def k1(which, shape, n, dtype, timed=True):
             device = (rows[which], flush_names) if timed and dtype == "bfloat16" else None
@@ -863,10 +881,13 @@ def main():
                                        flush if soft else None)
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
-        # shapes, timed in bf16 at the training and the serving batch,
-        # checked in f32 at the training batch
+        # shapes, timed in bf16 at the training and the serving batch (device
+        # times at the training batch), checked in f32 at the training batch
+        s2_row = (_group("void (anonymous namespace)::conv3x3s2_fwd_kernel<1>()"), flush_names)
         s2_recs = {(which, n): {sh: check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
-                                               n, "bfloat16", flush) for sh in S2_SHAPES}
+                                               n, "bfloat16", flush,
+                                               s2_row if n == TRAIN_BATCH else None)
+                                for sh in S2_SHAPES}
                    for which in ("fwd", "dx", "dw") for n in (TRAIN_BATCH, SERVE_BATCH)}
         s2_f32 = {which: [check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
                                      TRAIN_BATCH, "float32") for sh in S2_SHAPES]
@@ -885,10 +906,12 @@ def main():
                             for sh in NL_SHAPES for n, dt in nl_checks[which]]
                     for which in ("fwd", "dx", "dw")}
         # K6, K6dx and K6dw at the five stages of bench_b8_conv, timed in
-        # bf16 at its batch, and one stage checked in f32
+        # bf16 at its batch (with device times), and one stage checked in f32
         b8_shapes = [(ci, co, h, h) for h, ci, co in bench_b8_conv.STAGES]
+        b8_row = (_group("void (anonymous namespace)::conv3x3_b8_kernel<1>()"), flush_names)
         b8_recs = {which: {sh: check_conv(torch, F, conv_chw, conv_b8, "b8", which, sh,
-                                          TRAIN_BATCH, "bfloat16", flush) for sh in b8_shapes}
+                                          TRAIN_BATCH, "bfloat16", flush, b8_row)
+                           for sh in b8_shapes}
                    for which in ("fwd", "dx", "dw")}
         b8_f32 = {which: [check_conv(torch, F, conv_chw, conv_b8, "b8", which, b8_shapes[0],
                                      TRAIN_BATCH, "float32")] for which in ("fwd", "dx", "dw")}
@@ -1148,14 +1171,15 @@ def main():
               f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
               f"{records[-1]['library_ms']} device {records[-1]['device_ms']} library "
               f"device {records[-1]['library_device_ms']}", flush=True)
-    # K2, K1, K1 dx, K5 and K5 dx by shape: launches per random step (the
-    # default configuration's, conv_nl's for K5) beside the kernels phase's
-    # times at N = 20, bf16
+    # K2, K1, K1 dx, K5, K5 dx and K5dw by shape: launches per random step
+    # (the default configuration's, conv_nl's for K5) beside the kernels
+    # phase's times at N = 20, bf16
     for name, label, library in (("conv3x3_chw_dw", "K2", "conv2d_weight"),
                                  ("conv3x3_chw", "K1", "F.conv2d"),
                                  ("conv3x3_chw_dx", "K1 dx", "conv2d_input"),
                                  ("conv3x3_nl", "K5", "F.conv2d"),
-                                 ("conv3x3_nl_dx", "K5 dx", "conv2d_input")):
+                                 ("conv3x3_nl_dx", "K5 dx", "conv2d_input"),
+                                 ("conv3x3_nl_dw", "K5dw", "conv2d_weight")):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library)
     print(smi)

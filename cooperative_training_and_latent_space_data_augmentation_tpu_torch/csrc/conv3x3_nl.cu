@@ -80,20 +80,62 @@
 // and 32 f32 accumulators a thread, and stages gathered 64 x 32 tiles of P
 // and of the wall per step of 32 (flip = 1 reads the wall flipped).
 //
-// K5dw: rows are the 9*C_in wall rows, columns output channels; the
-// reduction walks pixels in 64 x 64 tiles of mma.sync (bf16) or f32 FMAs.
-// Hopper's blocks run in no order, so the TPU kernel's accumulation across
-// its grid becomes two passes with a fixed summation order and no float
-// atomics: pixels are cut into slabs (their number depends on the shapes
-// only), each block writes the partial sum of its slab to a workspace slot
-// of its own, and a second kernel adds the slots in slot order.  Two
-// launches agree bit for bit.
+// What bounds K5dw: the same products as K5 (bound by operations on the
+// tensor cores: 3.4 us at 128->128 @ 24^2, batch 20), with the pixels as
+// the reduction and a small output, (9*C_in, C_out) in f32.
+//
+// K5dw in bf16: an implicit GEMM on the tensor cores (tc::
+// conv3x3_nl_dw_mma_kernel), dw (9*C_in x C_out) = P^T (9*C_in x pixels) .
+// dY (pixels x C_out), with M = 16 input channels of one tap, N = 8 output
+// channels, a k-step = 16 pixels:
+//
+//   * A block owns 32 input channels x 32 output channels x all 9 taps
+//     (its tile: two m-tiles, four n-tiles, nine taps) and a slab of units,
+//     a unit being a band of whole rows of one image (a column window where
+//     rows are too wide).  For each unit it stages x's band with a one-row
+//     halo and zero side columns channel-innermost, as K5 does (the same
+//     flat-run landing and ldmatrix.x4.trans pass), and dy's band as it
+//     lands: 32 channel rows of the band's flat pixel run (odd pitches of
+//     16-byte pieces, so the 8 rows an ldmatrix reads fall in 8 distinct
+//     bank groups).  Both land by cp.async two units ahead (two x landing
+//     buffers, three dy buffers).  Bands are a multiple of 8 / gcd(W, 8)
+//     rows, so each starts at a 16-byte piece of the plane.
+//   * 6 warps = 3 kernel rows x 2 m-tiles.  For each k-step a warp loads B
+//     (dy, four n-tiles) by two ldmatrix.x4 and, for each of its three taps,
+//     A by one ldmatrix.x4.trans at the tap's offset into the staged x tile
+//     (a lane gives the address of its own pixel, so k-steps may cross
+//     rows): 5 fragment loads for 12 products, 48 accumulators.  The taps'
+//     edge masks are the tile's zeros; k-step pixels past the band read dy
+//     zeros (cp.async with a source size of 0).
+//   * The grid is about one wave of two blocks an SM (at most 264 blocks:
+//     16 slabs x 16 tiles at 128->128 @ 24^2, 30 x 8 at 64 channels on a
+//     side, 10 x 16 at 12^2, batch 20; at most 128 registers a thread).
+//     The slabs of a tile pair up into thread-block clusters of 2: at the
+//     end each block puts its sums in shared memory, and each block of a
+//     pair adds half of the tile over the pair in rank order, through
+//     distributed shared memory, and writes it to the pair's workspace
+//     slot (8 slots at 128->128 @ 24^2, 5 at 12^2, 15 at 64 channels;
+//     straight into dw where a launch has one slot).  Clusters of 4 or 8
+//     would halve the slots again, but at these grids they do not all fit
+//     the card at once, and the rest runs as a second wave.
+//
+// f32 K5dw stays on the CUDA cores in full f32: a block owns a 64 x 64
+// tile of (wall rows x C_out), gathers 32-pixel steps of P and dY, and sums
+// a slab of pixels (about 528 blocks in all).
+//
+// Both: Hopper's blocks run in no order, so the TPU kernel's accumulation
+// across its grid becomes two passes with a fixed summation order and no
+// float atomics: pixels are cut into slabs (their number depends on the
+// shapes only), each block (bf16: each cluster) writes the partial sum of
+// its slab to a workspace slot of its own, and a second kernel adds the
+// slots in slot order.  Two launches agree bit for bit.
 //
 // C interface (bound with ctypes): conv3x3_nl(...) and conv3x3_nl_dw(...)
 // launch on the given stream, allocate nothing, do not synchronise, and
 // return cudaGetLastError() of the launches (0 on success);
 // conv3x3_nl_dw_workspace(...) gives the workspace size in floats.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,68 +144,20 @@
 
 namespace {
 
+// f32 (CUDA cores)
 constexpr int BM = 64;   // rows of a block's tile
 constexpr int BN = 64;   // columns of a block's tile
 constexpr int KK = 32;   // reduction depth of one staged step
+constexpr int RS = KK + 4;  // staged row: the reduction index contiguous, padded
 constexpr int NT = 128;  // threads: 4 warps, 2 x 2 over the tile
 constexpr long long TARGET_BLOCKS = 528;  // K5dw: about four blocks per SM
-
-// Staged rows: the reduction index contiguous, padded so that the 8 rows a
-// fragment load touches fall in distinct banks.
-template <typename T> struct Stage;
-template <> struct Stage<float> { static constexpr int RS = KK + 4; };
-template <> struct Stage<__nv_bfloat16> { static constexpr int RS = KK + 8; };
-
-__device__ __forceinline__ float zero_of(float) { return 0.f; }
-__device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) {
-  return __float2bfloat16_rn(0.f);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One staged step of this warp's 32 x 32 part: acc += A . B^T with A the
 // (BM, KK) tile As[r * RS + k] and B the (BN, KK) tile Bs[c * RS + k].
 // acc[mi][ni][e]: rows wr + 16*mi + g (+8 for e >= 2), columns
-// wc + 8*ni + 2*q + (e & 1), with g = lane / 4, q = lane % 4 (the
-// m16n8 accumulator layout).
-__device__ __forceinline__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                                     float (&acc)[2][4][4], int wr, int wc, int lane) {
-  constexpr int RS = Stage<__nv_bfloat16>::RS;
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < KK; k0 += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p = As + (wr + 16 * mi + g) * RS + k0 + 2 * q;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * RS);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * RS + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* p = Bs + (wc + 8 * ni + g) * RS + k0 + 2 * q;
-      b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-      b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
+// wc + 8*ni + 2*q + (e & 1), with g = lane / 4, q = lane % 4.
 __device__ __forceinline__ void step(const float* As, const float* Bs,
                                      float (&acc)[2][4][4], int wr, int wc, int lane) {
-  constexpr int RS = Stage<float>::RS;
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll 4
   for (int k = 0; k < KK; ++k) {
@@ -194,21 +188,19 @@ __device__ __forceinline__ void step(const float* As, const float* Bs,
 // K5 in f32.  Grid (ceil(M / BM), ceil(C_out / BN)).  Thread tid stages
 // pixel row tid % BM of the P tile, input channels tid / BM + 2*s of the
 // step.  flip = 1: w_all is (C_in, 9*C_out), read flipped and transposed.
-template <typename T>
 __global__ void __launch_bounds__(NT)
-conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
-                  T* __restrict__ out, int n_img, int c_in, int c_out, int H, int W,
+conv3x3_nl_kernel(const float* __restrict__ x, const float* __restrict__ w_all,
+                  float* __restrict__ out, int n_img, int c_in, int c_out, int H, int W,
                   int flip) {
-  constexpr int RS = Stage<T>::RS;
-  __shared__ __align__(16) T As[BM * RS];
-  __shared__ __align__(16) T Bs[BN * RS];
+  __shared__ __align__(16) float As[BM * RS];
+  __shared__ __align__(16) float Bs[BN * RS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
   const int L = H * W;
   const long long M = (long long)n_img * L;
   const long long m0 = (long long)blockIdx.x * BM;
   const int o0 = blockIdx.y * BN;
-  const T zero = zero_of(T());
+  const float zero = 0.f;
 
   const int ar = tid % BM, aj = tid / BM;
   const long long m = m0 + ar;
@@ -219,7 +211,7 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
     py = p / W;
     px = p - py * W;
   }
-  const T* xn = x + (long long)img * c_in * L;
+  const float* xn = x + (long long)img * c_in * L;
 
   float acc[2][4][4];
 #pragma unroll
@@ -232,7 +224,7 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
   for (int t = 0; t < 9; ++t) {
     const int sy = py + t / 3 - 1, sx = px + t % 3 - 1;
     const bool valid = m < M && sy >= 0 && sy < H && sx >= 0 && sx < W;
-    const T* xs = xn + sy * W + sx;
+    const float* xs = xn + sy * W + sx;
     for (int c0 = 0; c0 < c_in; c0 += KK) {
       __syncthreads();  // the previous step's tiles are no longer read
 #pragma unroll 4
@@ -242,7 +234,7 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
       }
       for (int e = tid; e < BN * KK; e += NT) {
         const int o = e / KK, j = e % KK;
-        T v = zero;
+        float v = zero;
         if (o0 + o < c_out && c0 + j < c_in)
           v = flip ? w_all[(long long)(c0 + j) * 9 * c_out + (8 - t) * c_out + o0 + o]
                    : w_all[(long long)(o0 + o) * 9 * c_in + t * c_in + c0 + j];
@@ -262,13 +254,13 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
       if (mm >= M) continue;
       const int n = (int)(mm / L);
       const int p = (int)(mm - (long long)n * L);
-      T* on = out + (long long)n * c_out * L + p;
+      float* on = out + (long long)n * c_out * L + p;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int o = o0 + wc + 8 * ni + 2 * q + e;
-          if (o < c_out) store_from_f32(on + (long long)o * L, acc[mi][ni][2 * h + e]);
+          if (o < c_out) on[(long long)o * L] = acc[mi][ni][2 * h + e];
         }
     }
 }
@@ -277,14 +269,12 @@ conv3x3_nl_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
 // block's (BM, BN) tile of dw summed over the pixels [slab * z, min(M,
 // slab * (z+1))), written to workspace slot z.  Thread tid stages pixel
 // tid % KK of the step for wall rows (or output channels) tid / KK + 4*s.
-template <typename T>
 __global__ void __launch_bounds__(NT)
-conv3x3_nl_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
+conv3x3_nl_dw_partial(const float* __restrict__ x, const float* __restrict__ dy,
                       float* __restrict__ ws, int n_img, int c_in, int c_out, int H,
                       int W, long long slab) {
-  constexpr int RS = Stage<T>::RS;
-  __shared__ __align__(16) T As[BM * RS];
-  __shared__ __align__(16) T Bs[BN * RS];
+  __shared__ __align__(16) float As[BM * RS];
+  __shared__ __align__(16) float Bs[BN * RS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
   const int L = H * W;
@@ -294,7 +284,7 @@ conv3x3_nl_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
   const int o0 = blockIdx.y * BN;
   const long long s0 = slab * blockIdx.z;
   const long long s1 = min(M, s0 + slab);
-  const T zero = zero_of(T());
+  const float zero = 0.f;
   const int pm = tid % KK, pr = tid / KK;
 
   float acc[2][4][4];
@@ -315,14 +305,14 @@ conv3x3_nl_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
       py = p / W;
       px = p - py * W;
     }
-    const T* xn = x + (long long)img * c_in * L;
-    const T* dn = dy + (long long)img * c_out * L + p;
+    const float* xn = x + (long long)img * c_in * L;
+    const float* dn = dy + (long long)img * c_out * L + p;
     __syncthreads();  // the previous step's tiles are no longer read
 #pragma unroll 4
     for (int s = 0; s < BM / 4; ++s) {
       const int r = pr + 4 * s;
       const int k = k0 + r;
-      T v = zero;
+      float v = zero;
       if (in_m && k < K) {
         const int t = k / c_in;
         const int i = k - t * c_in;
@@ -402,26 +392,32 @@ cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n, i
                            int c_out, int h, int w, int flip, cudaStream_t stream) {
   const long long M = (long long)n * h * w;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (c_out + BN - 1) / BN);
-  conv3x3_nl_kernel<float><<<grid, NT, 0, stream>>>(
+  conv3x3_nl_kernel<<<grid, NT, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w_all), static_cast<float*>(out),
       n, c_in, c_out, h, w, flip);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int n, int c_in,
-                      int c_out, int h, int w, cudaStream_t stream) {
-  const Slabs s = slabs(n, c_in, c_out, h, w);
-  const dim3 grid((9 * c_in + BM - 1) / BM, (c_out + BN - 1) / BN, s.parts);
-  conv3x3_nl_dw_partial<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), ws, n, c_in, c_out, h, w, s.slab);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// Adds the `parts` workspace slots of a K5dw launch into out.
+cudaError_t launch_dw_reduce(const float* ws, float* out, int parts, int c_in, int c_out,
+                             cudaStream_t stream) {
   const long long k = 9LL * c_in * c_out;
   const int threads = 256;
   conv3x3_nl_dw_reduce<<<(unsigned)((k + threads - 1) / threads), threads, 0, stream>>>(
-      ws, out, s.parts, k);
+      ws, out, parts, k);
   return cudaGetLastError();
+}
+
+cudaError_t launch_dw_f32(const void* x, const void* dy, float* ws, float* out, int n,
+                          int c_in, int c_out, int h, int w, cudaStream_t stream) {
+  const Slabs s = slabs(n, c_in, c_out, h, w);
+  const dim3 grid((9 * c_in + BM - 1) / BM, (c_out + BN - 1) / BN, s.parts);
+  conv3x3_nl_dw_partial<<<grid, NT, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), ws, n, c_in, c_out, h, w,
+      s.slab);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dw_reduce(ws, out, s.parts, c_in, c_out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -467,15 +463,25 @@ struct Geometry {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The pixel tile's pitch for windows of wd columns: a zero column on each
+// side, and wd + 8 where 8-pixel groups cross rows (wd % 8 != 0), so the 8
+// pixels of an ldmatrix still fall in 8 distinct bank groups.
+inline int tile_pitch(int wd) { return wd % 8 == 0 ? wd + 2 : wd + 8; }
+
+// 16-byte pieces of a landing buffer's channel row for bands of `rows` rows
+// of W pixels: a band's run starts at (y0-1)*W rounded down to 8 and spans
+// (rows+2)*W pixels.  Odd, so the 8 rows an ldmatrix reads fall in 8
+// distinct bank groups.
+inline int run_pitch(int rows, int W) { return ((rows + 2) * W + 14) / 8 | 1; }
+
 void layout(Geometry& g, int W) {
   const int r2 = g.rows + 2;
   g.npix = g.rows * g.wd;
   g.nt = ceil_div(g.npix, 8);
-  g.swp = g.wd % 8 == 0 ? g.wd + 2 : g.wd + 8;  // see the note at the top
+  g.swp = tile_pitch(g.wd);
   g.xs_off = WBUFS * WSLICE * 2;
   g.land_off = g.xs_off + r2 * g.swp * CP * 2;
-  // a band's run starts at (y0-1)*W rounded down to 8 and spans r2*W pixels
-  g.lpc = g.vec_x ? ((r2 * W + 14) / 8) | 1 : 0;
+  g.lpc = g.vec_x ? run_pitch(g.rows, W) : 0;
   g.land_bytes = CG * g.lpc * 16;
   g.smem = g.land_off + 2 * g.land_bytes;
 }
@@ -543,6 +549,92 @@ __device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Staging a band of x channel-innermost, for K5 and K5dw.  A band's rows
+// y0-1 .. y0+rows (a one-row halo) are the plane's pixels [lo, lo + span),
+// contiguous in CHW.  vec (H*W % 8 == 0, x 16-byte aligned): they land as
+// 16-byte pieces from pstart (lo rounded down to 8), each wholly in or out
+// of the plane, and an ldmatrix.x4.trans pass turns them into the tile
+// xs, pixel (r, s) of the band's rows at (r*swp + s + 1)*CP; else they are
+// staged element by element.
+struct Run {
+  int lo, pstart, span, npieces;
+};
+
+__device__ __forceinline__ Run band_run(int y0, int rows, int W) {
+  Run r;
+  r.lo = (y0 - 1) * W;
+  r.pstart = r.lo >= 0 ? r.lo / 8 * 8 : -((7 - r.lo) / 8 * 8);
+  r.span = (rows + 2) * W;
+  r.npieces = (r.lo + r.span + 7 - r.pstart) / 8;
+  return r;
+}
+
+// cp.async of the run's pieces of CG channel rows: channel ch from xc +
+// ch*L (zero for ch >= nch and outside the plane) to piece row ch of land
+// (lpc pieces a row).  Warp w of NW lands rows w, w + NW, ...; lanes walk
+// the pieces.
+template <int NW>
+__device__ __forceinline__ void land_run(bf16* land, const bf16* xc, int nch, const Run& r,
+                                         int L, int lpc, int warp, int lane) {
+  for (int j = lane; j < r.npieces; j += 32) {
+    const int p = r.pstart + 8 * j;
+    const bool in = p >= 0 && p < L;
+#pragma unroll
+    for (int ch = warp; ch < CG; ch += NW) {
+      const bool v = in && ch < nch;
+      cp_async16(land + (ch * lpc + j) * 8, v ? xc + ch * L + p : xc, v ? 16 : 0);
+    }
+  }
+}
+
+// land -> xs: warp w of NW takes pieces w, w + NW, ...; one
+// ldmatrix.x4.trans on a piece's 32 channel rows gives lane (gq, q)
+// channels 8m+2q, 8m+2q+1 (m = 0..3) of the piece's pixel gq.
+template <int NW>
+__device__ __forceinline__ void turn_run(bf16* xs, const bf16* land, const Run& r, int W,
+                                         int swp, int lpc, int wd_mul, int warp, int lane) {
+  const int gq = lane >> 2, q = lane & 3;
+  for (int j = warp; j < r.npieces; j += NW) {
+    uint32_t v[4];
+    ldmatrix_x4_trans(v, land + (lane * lpc + j) * 8);
+    const int Q = r.pstart - r.lo + 8 * j + gq;  // pixel of the band's rows
+    if (Q >= 0 && Q < r.span) {
+      const int row = (int)(((unsigned)Q * (unsigned)wd_mul) >> WD_SHIFT);
+      uint32_t* dst =
+          reinterpret_cast<uint32_t*>(xs + (row * swp + Q - row * W + 1) * CP + 2 * q);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) dst[4 * m] = v[m];
+    }
+  }
+}
+
+// vec: the zero columns on each side of a tile of r2 rows; the passes above
+// rewrite every other pixel a tap reads.
+template <int NT_>
+__device__ __forceinline__ void zero_side_columns(bf16* xs, int r2, int swp, int W, int tid) {
+  uint32_t* z = reinterpret_cast<uint32_t*>(xs);
+  for (int e = tid; e < r2 * CP; e += NT_) {
+    const int r = e / CP, word = e % (CP / 2), right = e % CP >= CP / 2;
+    z[(r * swp + (right ? W + 1 : 0)) * (CP / 2) + word] = 0u;
+  }
+}
+
+// Element by element: rows y0-1 .. y0+rows, columns x0-1 .. x0+wd of CG
+// channels from xc (zero for ch >= nch and outside the image) into xs.
+template <int NT_>
+__device__ __forceinline__ void stage_band(bf16* xs, const bf16* xc, int nch, int y0, int x0,
+                                           int rows, int wd, int swp, int H, int W, int tid) {
+  const int r2 = rows + 2, cols = wd + 2, L = H * W;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int e = tid; e < CG * r2 * cols; e += NT_) {
+    const int ch = e % CG, rs = e / CG;
+    const int sc = rs % cols, r = rs / cols;
+    const int gy = y0 - 1 + r, gx = x0 - 1 + sc;
+    const bool in = ch < nch && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    xs[(r * swp + sc) * CP + ch] = in ? xc[ch * L + gy * W + gx] : zero;
+  }
 }
 
 // Element e (0..31) of wall row r (0 .. 9*32-1) in a slice: 16-byte unit
@@ -613,34 +705,16 @@ conv3x3_nl_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all
   bf16* outn = out + (long long)n * c_out * L;
   const int stages = (c_in + CG - 1) / CG;
 
-  // vec_x: the band's rows y0-1 .. y0+rows are the plane's pixels [lo, lo +
-  // (rows+2)*W); pieces of 8 from pstart (lo rounded down to 8), in or out
-  // of the plane as a whole (H*W % 8 == 0)
-  const int lo = (y0 - 1) * W;
-  const int pstart = lo >= 0 ? lo / 8 * 8 : -((7 - lo) / 8 * 8);
-  const int span = (g.rows + 2) * W;
-  const int npieces = (lo + span + 7 - pstart) / 8;
+  const Run run = band_run(y0, g.rows, W);
   auto land_of = [&](int s) {
     return reinterpret_cast<bf16*>(smem + g.land_off + (s & 1) * g.land_bytes);
   };
-  // Stage s's x pieces (warp w lands channel rows w, w+8, ...; lanes walk
-  // the pieces) and its wall slice: one commit group, empty past the last
-  // stage.
+  // Stage s's x pieces (vec_x) and its wall slice: one commit group, empty
+  // past the last stage.
   auto issue = [&](int s) {
     if (s < stages) {
       const int c0 = s * CG;
-      if (g.vec_x) {
-        bf16* land = land_of(s);
-        for (int j = lane; j < npieces; j += 32) {
-          const int p = pstart + 8 * j;
-          const bool in = p >= 0 && p < L;
-#pragma unroll
-          for (int ch = warp; ch < CG; ch += WARPS) {
-            const bool v = in && c0 + ch < c_in;
-            cp_async16(land + (ch * g.lpc + j) * 8, v ? xn + (c0 + ch) * L + p : xn, v ? 16 : 0);
-          }
-        }
-      }
+      if (g.vec_x) land_run<WARPS>(land_of(s), xn + c0 * L, c_in - c0, run, L, g.lpc, warp, lane);
       stage_w<FLIP>(wbuf + (s % WBUFS) * WSLICE, w_all, c0, c_in, c_out, o0, vec_w, tid);
     }
     cp_async_commit();
@@ -682,47 +756,17 @@ conv3x3_nl_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
 
-  if (g.vec_x) {  // the halo columns; the stages rewrite every other pixel read
-    uint32_t* z = reinterpret_cast<uint32_t*>(xs);
-    for (int e = tid; e < (g.rows + 2) * CP; e += THREADS) {
-      const int r = e / CP, word = e % (CP / 2), right = e % CP >= CP / 2;
-      z[(r * g.swp + (right ? W + 1 : 0)) * (CP / 2) + word] = 0u;
-    }
-  }
+  if (g.vec_x) zero_side_columns<THREADS>(xs, g.rows + 2, g.swp, W, tid);
   issue(0);
   issue(1);
   for (int s = 0; s < stages; ++s) {
     cp_async_wait_prior();
     __syncthreads();  // stage s has landed; the block is done with xs
-    if (g.vec_x) {
-      // land -> xs: warp w takes pieces w, w+8, ...; one ldmatrix.x4.trans
-      // on the piece's 32 channel rows gives lane (gq, q) channels 8m+2q,
-      // 8m+2q+1 (m = 0..3) of the piece's pixel gq
-      const bf16* land = land_of(s);
-      const int gq = lane >> 2, q = lane & 3;
-      for (int j = warp; j < npieces; j += WARPS) {
-        uint32_t v[4];
-        ldmatrix_x4_trans(v, land + (lane * g.lpc + j) * 8);
-        const int Q = pstart - lo + 8 * j + gq;  // pixel of the band's rows
-        if (Q >= 0 && Q < span) {
-          const int r = (int)(((unsigned)Q * (unsigned)g.wd_mul) >> WD_SHIFT);
-          uint32_t* dst =
-              reinterpret_cast<uint32_t*>(xs + (r * g.swp + Q - r * W + 1) * CP + 2 * q);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) dst[4 * m] = v[m];
-        }
-      }
-    } else {
-      const int r2 = g.rows + 2, cols = g.wd + 2, c0 = s * CG;
-      const bf16 zero = __float2bfloat16_rn(0.f);
-      for (int e = tid; e < CG * r2 * cols; e += THREADS) {
-        const int ch = e % CG, rs = e / CG;
-        const int sc = rs % cols, r = rs / cols;
-        const int gy = y0 - 1 + r, gx = x0 - 1 + sc;
-        const bool in = c0 + ch < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
-        xs[(r * g.swp + sc) * CP + ch] = in ? xn[(c0 + ch) * L + gy * W + gx] : zero;
-      }
-    }
+    if (g.vec_x)
+      turn_run<WARPS>(xs, land_of(s), run, W, g.swp, g.lpc, g.wd_mul, warp, lane);
+    else
+      stage_band<THREADS>(xs, xn + s * CG * L, c_in - s * CG, y0, x0, g.rows, g.wd, g.swp, H,
+                          W, tid);
     __syncthreads();  // xs holds stage s; its landing buffer is free
     issue(s + 2);
 
@@ -811,9 +855,9 @@ conv3x3_nl_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all
   }
 }
 
-// Allows the kernel SMEM_MOST bytes of dynamic shared memory, once for each
+// Allows `Kernel` SMEM_MOST bytes of dynamic shared memory, once for each
 // device (the attribute is kept per context).
-template <bool FLIP>
+template <auto Kernel>
 cudaError_t allow_smem() {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<bool> done[MAX_DEVICES];
@@ -821,8 +865,7 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(conv3x3_nl_mma_kernel<FLIP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
   return err;
 }
@@ -830,16 +873,17 @@ cudaError_t allow_smem() {
 template <bool FLIP>
 cudaError_t launch_flip(const bf16* x, const bf16* w_all, bf16* out, int c_in, int c_out,
                         int h, int w, const Geometry& g, int vec_w, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<FLIP>();
+  const cudaError_t err = allow_smem<conv3x3_nl_mma_kernel<FLIP>>();
   if (err != cudaSuccess) return err;
   conv3x3_nl_mma_kernel<FLIP><<<dim3(g.tiles, g.mz), THREADS, g.smem, stream>>>(
       x, w_all, out, c_in, c_out, h, w, g, vec_w);
   return cudaGetLastError();
 }
 
+inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 cudaError_t launch(const void* x, const void* w_all, void* out, int n, int c_in, int c_out,
                    int h, int w, int flip, cudaStream_t stream) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const Geometry g = geometry(n, c_out, h, w, aligned(x) && aligned(out));
   if (g.smem > SMEM_MOST || g.tiles < 1) return cudaErrorInvalidConfiguration;
   const int vec_w = (flip ? c_out : c_in) % 8 == 0 && aligned(w_all);
@@ -848,6 +892,309 @@ cudaError_t launch(const void* x, const void* w_all, void* out, int n, int c_in,
   bf16* op = static_cast<bf16*>(out);
   if (flip) return launch_flip<true>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
   return launch_flip<false>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K5dw in bf16: tensor cores (see the note at the top).
+
+namespace cg = cooperative_groups;
+
+constexpr int DW_WARPS = 6;                // 3 kernel rows x 2 m-tiles
+constexpr int DW_THREADS = 32 * DW_WARPS;
+constexpr int DW_C = 32;                   // input and output channels of a block's tile
+constexpr int DW_MAX_PIX = 256;            // most pixels of a band
+constexpr int DW_BUFS = 3;                 // dy buffers in flight or in use
+constexpr int DW_CLUSTER = 2;              // most blocks of a cluster (see the note at the top)
+constexpr int DW_RS = DW_C + 8;            // floats a row of the sums: float2 stores, no conflicts
+constexpr int DW_RED_BYTES = 9 * DW_C * DW_RS * 4;
+static_assert(DW_C == CG, "x lands as K5 lands it, 32 channel rows a piece");
+
+// How a K5dw launch is cut.  A unit is a band of `rows` rows of a window of
+// `wd` columns of one image (wd == W unless rows are too wide to stage):
+// `ncw` windows across a row, `bands` down the image, `units` in all.  A
+// tile is 32 input x 32 output channels (`ig` tiles across C_in, `tiles` in
+// all: grid.y); the `slabs` blocks of a tile (grid.x) take `slab` units
+// each, in clusters of `cl` blocks whose sums go to one of `slots`
+// workspace slots.  vec: x and dy land by cp.async (as Geometry's vec_x);
+// swp, lpc, wd_mul as in Geometry.  dy lands in DW_BUFS buffers of 32
+// channel rows of `lpd` 16-byte pieces (odd; the first 2 * ceil(rows * wd /
+// 16) hold the band's k-steps).  Shared memory: the dy buffers, the pixel
+// tile xs at xs_off and two x landing buffers at land_off, or at the end
+// the block's sums (DW_RED_BYTES).
+struct DwGeometry {
+  int ig, tiles, wd, ncw, rows, bands, units, slab, slabs, cl, slots;
+  int vec, swp, lpc, lpd, wd_mul;
+  int dy_bytes, xs_off, land_off, land_bytes, smem;  // bytes
+};
+
+void dw_layout(DwGeometry& g, int W) {
+  const int r2 = g.rows + 2;
+  g.swp = tile_pitch(g.wd);
+  g.lpd = 2 * ceil_div(g.rows * g.wd, 16) + 1;
+  g.dy_bytes = DW_C * g.lpd * 16;
+  g.xs_off = DW_BUFS * g.dy_bytes;
+  g.land_off = g.xs_off + r2 * g.swp * CP * 2;
+  g.lpc = g.vec ? run_pitch(g.rows, W) : 0;
+  g.land_bytes = CG * g.lpc * 16;
+  g.smem = g.land_off + 2 * g.land_bytes;
+  if (g.smem < DW_RED_BYTES) g.smem = DW_RED_BYTES;
+  g.wd_mul = (1 << WD_SHIFT) / g.wd + 1;  // exact for q * wd < 2^20
+}
+
+// The cut that gives the busiest block the least work (its units' k-steps,
+// plus a share for each unit's halo and set-up), over band heights that
+// fit shared memory and, where x and dy land by cp.async, start every band
+// at a 16-byte piece of the plane (a multiple of 8 / gcd(W, 8) rows, or the
+// whole image); element-wise staging where no such band fits.  The grid is
+// one wave of two blocks an SM.  Shapes and alignment only, so the
+// summation order is the same on every card.  slabs == 0: no cut fits.
+DwGeometry dw_geometry(int n, int c_in, int c_out, int h, int w, bool aligned_xy) {
+  DwGeometry best{};
+  long long best_cost = -1;
+  const int ig = ceil_div(c_in, DW_C);
+  const int tiles = ig * ceil_div(c_out, DW_C);
+  const int target = tiles >= 2 * SMS ? 1 : 2 * SMS / tiles;
+  for (int vec = aligned_xy && (long long)h * w % 8 == 0; vec >= 0 && best_cost < 0; --vec) {
+    DwGeometry g{};
+    g.ig = ig;
+    g.tiles = tiles;
+    g.vec = vec;
+    g.ncw = vec || w <= MAX_WIN ? 1 : ceil_div(w, MAX_WIN);
+    g.wd = ceil_div(w, g.ncw);
+    const int unit_rows = vec ? 8 / (w % 8 == 0 ? 8 : w % 4 == 0 ? 4 : w % 2 == 0 ? 2 : 1) : 1;
+    for (int k = 1;; ++k) {
+      g.rows = k * unit_rows < h ? k * unit_rows : h;
+      if (g.rows * g.wd > DW_MAX_PIX) break;
+      dw_layout(g, w);
+      g.bands = ceil_div(h, g.rows);
+      const long long units = (long long)n * g.bands * g.ncw;
+      if (g.smem <= SMEM_MOST && units <= 0x7fffffffLL) {
+        g.units = (int)units;
+        const int s0 = g.units < target ? g.units : target;
+        g.cl = 1;
+        while (2 * g.cl <= s0 && 2 * g.cl <= DW_CLUSTER) g.cl *= 2;
+        g.slab = ceil_div(g.units, s0 / g.cl * g.cl);
+        g.slabs = ceil_div(ceil_div(g.units, g.slab), g.cl) * g.cl;
+        g.slots = g.slabs / g.cl;
+        const long long cost =
+            (long long)g.slab * (ceil_div(g.rows * g.wd, 16) * 16 + g.wd / 2 + 64);
+        if (best_cost < 0 || cost < best_cost) {
+          best = g;
+          best_cost = cost;
+        }
+      }
+      if (g.rows == h) break;
+    }
+  }
+  return best;
+}
+
+// Grid (slabs, tiles) in clusters of g.cl blocks along x; DW_THREADS
+// threads, at most 128 registers each (two blocks an SM).  Block (z, tile)
+// sums its tile of dw over units [z * slab, min(units, (z+1) * slab)); the
+// blocks of a cluster add their sums into slot z / cl of ws, (9*c_in,
+// c_out) floats a slot, row t*c_in + i.
+__global__ void __maxnreg__(128)
+conv3x3_nl_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                         float* __restrict__ ws, int c_in, int c_out, int H, int W,
+                         DwGeometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem + g.xs_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ki = warp >> 1, mh = warp & 1;  // kernel row, m-tile (16 input channels)
+  const int i0 = (blockIdx.y % g.ig) * DW_C, o0 = (blockIdx.y / g.ig) * DW_C;
+  const int L = H * W;  // offsets inside one image fit 32 bits (valid())
+  const int u0 = blockIdx.x * g.slab;
+  const int stages = max(0, min(g.units - u0, g.slab));
+  const int per_image = g.bands * g.ncw;
+  const int npix = g.rows * g.wd;
+
+  // unit u0 + s: its image and the first row and column of its band
+  auto unit = [&](int s, int& img, int& y0, int& x0) {
+    const int u = u0 + s;
+    img = u / per_image;
+    const int b = u - img * per_image;
+    const int band = b / g.ncw;
+    y0 = band * g.rows;
+    x0 = (b - band * g.ncw) * g.wd;
+  };
+  auto dy_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + (s % DW_BUFS) * g.dy_bytes);
+  };
+  auto land_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + g.land_off + (s & 1) * g.land_bytes);
+  };
+  // vec: unit s's x band (land_run) and its dy band (pieces of the plane's
+  // pixels from y0*W, zero past the band or the plane; warp w lands channel
+  // rows w, w+6, ..., lanes walk the pieces): one commit group, empty past
+  // the last unit and for element-wise staging.
+  auto issue = [&](int s) {
+    if (g.vec && s < stages) {
+      int img, y0, x0;
+      unit(s, img, y0, x0);
+      const bf16* dn = dy + ((long long)img * c_out + o0) * L;
+      land_run<DW_WARPS>(land_of(s), x + ((long long)img * c_in + i0) * L, c_in - i0,
+                         band_run(y0, g.rows, W), L, g.lpc, warp, lane);
+      bf16* dl = dy_of(s);
+      for (int j = lane; j < g.lpd - 1; j += 32) {
+        const int p = y0 * W + 8 * j;
+        const bool in = 8 * j < npix && p < L;
+        for (int ch = warp; ch < DW_C; ch += DW_WARPS) {
+          const bool v = in && o0 + ch < c_out;
+          cp_async16(dl + (ch * g.lpd + j) * 8, v ? dn + ch * L + p : dy, v ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // A (x at one tap; ldmatrix.x4.trans, rows are pixels): lane l gives pixel
+  // jl = (l & 7) + 8(l >> 4) of the k-step, input channels a_ch .. +7 (the
+  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k
+  // 8-15)).  B (dy; ldmatrix.x4, rows are output channels): lane l gives
+  // channel jl of n-tiles 0-1 (+16: n-tiles 2-3), pixels 8((l >> 3) & 1) ..
+  // +7 of the k-step.
+  const int jl = (lane & 7) + 8 * (lane >> 4);
+  const int a_ch = 16 * mh + 8 * ((lane >> 3) & 1);
+  const int b_off = (jl * g.lpd + ((lane >> 3) & 1)) * 8;
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[kj][nt][e] = 0.f;
+
+  if (g.vec) zero_side_columns<DW_THREADS>(xs, g.rows + 2, g.swp, W, tid);
+  issue(0);
+  issue(1);
+  for (int s = 0; s < stages; ++s) {
+    int img, y0, x0;
+    unit(s, img, y0, x0);
+    bf16* dl = dy_of(s);
+    cp_async_wait_prior();
+    __syncthreads();  // unit s has landed; the block is done with xs and unit s-1's dy
+    if (g.vec) {
+      turn_run<DW_WARPS>(xs, land_of(s), band_run(y0, g.rows, W), W, g.swp, g.lpc, g.wd_mul,
+                         warp, lane);
+    } else {
+      stage_band<DW_THREADS>(xs, x + ((long long)img * c_in + i0) * L, c_in - i0, y0, x0,
+                             g.rows, g.wd, g.swp, H, W, tid);
+      const bf16* dn = dy + ((long long)img * c_out + o0) * L;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      const int nd = (g.lpd - 1) * 8;
+      for (int e = tid; e < DW_C * nd; e += DW_THREADS) {
+        const int j = e % nd, ch = e / nd;
+        const int r = j / g.wd, sc = j - r * g.wd;
+        const bool in = o0 + ch < c_out && j < npix && y0 + r < H && x0 + sc < W;
+        dl[ch * g.lpd * 8 + j] = in ? dn[ch * L + (y0 + r) * W + x0 + sc] : zero;
+      }
+    }
+    __syncthreads();  // xs holds unit s; its landing buffer is free
+    issue(s + 2);
+
+    // k-steps of 16 of the band's pixels j (row-major in the band) that lie
+    // in the image; a lane's pixel past the band reads pixel (l & 7) or 0 of
+    // x (distinct rows for the ldmatrix) against dy's zeros
+    const int nks = (min(g.rows, H - y0) * g.wd + 15) / 16;
+    for (int ks = 0; ks < nks; ++ks) {
+      int j = 16 * ks + jl;
+      if (j >= npix) j = (lane & 7) < npix ? lane & 7 : 0;
+      const int r = (int)(((unsigned)j * (unsigned)g.wd_mul) >> WD_SHIFT);
+      const bf16* xa = xs + ((r + ki) * g.swp + j - r * g.wd) * CP + a_ch;
+      uint32_t b0[4], b1[4];
+      ldmatrix_x4(b0, dl + b_off + 16 * ks);
+      ldmatrix_x4(b1, dl + b_off + 16 * ks + 16 * g.lpd * 8);
+#pragma unroll
+      for (int kj = 0; kj < 3; ++kj) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, xa + kj * CP);
+        mma_acc(acc[kj][0], a, b0[0], b0[1]);
+        mma_acc(acc[kj][1], a, b0[2], b0[3]);
+        mma_acc(acc[kj][2], a, b1[0], b1[1]);
+        mma_acc(acc[kj][3], a, b1[2], b1[3]);
+      }
+    }
+  }
+
+  // The block's sums into shared memory (every copy has landed: the groups
+  // committed after the last unit are empty), rows (t, i) of the tile:
+  // acc[kj][nt]: tap 3ki + kj, input channels 16mh + gq (e < 2) and + 8 (e
+  // >= 2), output channels 8nt + 2q + (e & 1) (the m16n8 accumulator
+  // layout).  Then block `rank` of the cluster adds rows [rank * part, (rank
+  // + 1) * part) of the tile over the cluster's blocks in rank order,
+  // through distributed shared memory, and stores them in the slot.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  {
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              red + ((3 * ki + kj) * DW_C + 16 * mh + gq + 8 * h) * DW_RS + 8 * nt + 2 * q) =
+              make_float2(acc[kj][nt][2 * h], acc[kj][nt][2 * h + 1]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block of the cluster holds its sums
+  const int rank = (int)cluster.block_rank();
+  const int part = 9 * DW_C / g.cl;
+  float* slot = ws + (long long)(blockIdx.x / g.cl) * 9 * c_in * c_out;
+  for (int e = tid; e < part * (DW_C / 4); e += DW_THREADS) {
+    const int row = rank * part + e / (DW_C / 4), col = 4 * (e % (DW_C / 4));
+    float4 v[DW_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < DW_CLUSTER; ++k)
+      if (k < g.cl)
+        v[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, k) + row * DW_RS +
+                                                col);
+    float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int k = 1; k < DW_CLUSTER; ++k)
+      if (k < g.cl) {
+        sum[0] += v[k].x;
+        sum[1] += v[k].y;
+        sum[2] += v[k].z;
+        sum[3] += v[k].w;
+      }
+    const int t = row / DW_C, i = i0 + row % DW_C;
+    if (i < c_in)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (o0 + col + c < c_out) slot[((long long)t * c_in + i) * c_out + o0 + col + c] = sum[c];
+  }
+  cluster.sync();  // the other blocks have read this block's sums
+}
+
+cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int n, int c_in,
+                      int c_out, int h, int w, cudaStream_t stream) {
+  const DwGeometry g = dw_geometry(n, c_in, c_out, h, w, aligned(x) && aligned(dy));
+  if (g.slabs < 1 || g.tiles > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t err = allow_smem<conv3x3_nl_dw_mma_kernel>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.slabs, g.tiles);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = g.cl;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv3x3_nl_dw_mma_kernel, static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(dy), g.slots > 1 ? ws : out, c_in, c_out,
+                           h, w, g);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || g.slots == 1) return err;
+  return launch_dw_reduce(ws, out, g.slots, c_in, c_out, stream);
 }
 
 }  // namespace tc
@@ -872,10 +1219,17 @@ int conv3x3_nl(const void* x, const void* w_all, void* out, int n, int c_in, int
   return static_cast<int>(err);
 }
 
-// Floats of workspace conv3x3_nl_dw needs for these shapes (0 if invalid).
+// Floats of workspace conv3x3_nl_dw needs for these shapes in either dtype
+// (0 if invalid): the most slots of the f32 route and of the bf16 route,
+// staged either way.
 long long conv3x3_nl_dw_workspace(int n, int c_in, int c_out, int h, int w) {
   if (!valid(n, c_in, c_out, h, w)) return 0;
-  return (long long)slabs(n, c_in, c_out, h, w).parts * 9 * c_in * c_out;
+  long long parts = slabs(n, c_in, c_out, h, w).parts;
+  for (int aligned_xy = 0; aligned_xy < 2; ++aligned_xy) {
+    const int slots = tc::dw_geometry(n, c_in, c_out, h, w, aligned_xy).slots;
+    if (slots > parts) parts = slots;
+  }
+  return parts * 9 * c_in * c_out;
 }
 
 // x: (n, c_in, h*w), dy: (n, c_out, h*w), both contiguous on the current
@@ -889,8 +1243,8 @@ int conv3x3_nl_dw(const void* x, const void* dy, void* ws, void* out, int n, int
   float* wsp = static_cast<float*>(ws);
   float* op = static_cast<float*>(out);
   const cudaError_t err =
-      is_bf16 ? launch_dw<__nv_bfloat16>(x, dy, wsp, op, n, c_in, c_out, h, w, s)
-              : launch_dw<float>(x, dy, wsp, op, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch_dw(x, dy, wsp, op, n, c_in, c_out, h, w, s)
+              : launch_dw_f32(x, dy, wsp, op, n, c_in, c_out, h, w, s);
   return static_cast<int>(err);
 }
 

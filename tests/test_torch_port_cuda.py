@@ -485,8 +485,21 @@ def test_k5dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+# the tensor-core K5dw's tiling where x and dy land by cp.async: bands that
+# do not divide H (15 rows as 8 + 7, 14 as 8 + 6, 15 as bands of 2),
+# k-steps that cross rows (W 20, 12, 8) or end half past a band (bands of
+# 216 and 24 pixels), 32-channel tiles that do not divide C_in 72 and 200 or
+# C_out 72, 96 and 136, short bands at N = 3 and 1; and element-wise staging:
+# rows too wide to land (W 300 at H*W % 8 == 0: column windows), an odd
+# pixel count (N*H*W = 363)
+DW_SHAPES = [
+    (20, 128, 72, 15, 16), (20, 72, 136, 14, 20), (20, 200, 136, 18, 24), (20, 64, 128, 9, 8),
+    (3, 72, 128, 20, 12), (1, 128, 72, 15, 16), (2, 64, 128, 8, 300), (3, 136, 96, 11, 11),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c_in,c_out,h,w", NL_SHAPES)
+@pytest.mark.parametrize("n,c_in,c_out,h,w", NL_SHAPES + DW_SHAPES)
 def test_k5dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
     dt = getattr(torch, dtype)
     x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 6)
@@ -499,6 +512,47 @@ def test_k5dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, 
     # another order
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [(20, 128, 128, 24, 24), (3, 72, 128, 20, 12)])
+def test_k5dw_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
+    """x and dy that start 2 bytes past a 16-byte boundary: the kernel
+    stages them element by element and gives the same sums."""
+    dt = getattr(torch, dtype)
+    x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 9)
+    xu = torch.empty(x.numel() + 1, dtype=dt, device=cuda)[1:].view(x.shape)
+    dyu = torch.empty(dy.numel() + 1, dtype=dt, device=cuda)[1:].view(dy.shape)
+    xu.copy_(x)
+    dyu.copy_(dy)
+    got = conv_nl.conv3x3_nl_dw(xu, dyu, h, w)
+    want = conv_nl.conv3x3_nl_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, conv_nl.conv3x3_nl_dw(xu, dyu, h, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [
+    (20, 64, 128, 24, 24), (20, 128, 128, 12, 12), (160, 128, 128, 24, 24), (3, 72, 128, 20, 12),
+    (2, 64, 128, 8, 300),
+])
+def test_k5dw_stays_inside_its_workspace(cuda, n, c_in, c_out, h, w, dtype):
+    """The C function through the port's binding, with the workspace it
+    reports for these shapes plus a tail of sentinels: the sums are right
+    and the tail is untouched, for either dtype's route."""
+    dt = getattr(torch, dtype)
+    x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 10)
+    size = conv_nl._fn("conv3x3_nl_dw_workspace")(n, c_in, c_out, h, w)
+    assert size >= 9 * c_in * c_out
+    work = torch.full((size + 4096,), 1234.5, dtype=torch.float32, device=cuda)
+    out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=cuda)
+    conv_nl._launch("conv3x3_nl_dw", "sentinel test", x, x.data_ptr(), dy.data_ptr(),
+                    work.data_ptr(), out.data_ptr(), n, c_in, c_out, h, w)
+    want = conv_nl.conv3x3_nl_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert bool((work[size:] == 1234.5).all())
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
 def test_k5_rejects_bad_input_without_fallback(cuda):

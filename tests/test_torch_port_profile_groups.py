@@ -26,11 +26,13 @@ ROWS = {  # source -> {kernel -> the start of its row's label}
     "conv3x3s2.cu": {"conv3x3s2_fwd_kernel": "K4 ", "conv3x3s2_dx_kernel": "K4 ",
                      "conv3x3s2_dw_partial_kernel": "K4 ", "conv3x3s2_dw_reduce_kernel": "K4 "},
     "conv3x3_nl.cu": {"conv3x3_nl_kernel": "K5 ", "conv3x3_nl_mma_kernel": "K5 ",
-                      "conv3x3_nl_dw_partial": "K5dw ", "conv3x3_nl_dw_reduce": "K5dw "},
+                      "conv3x3_nl_dw_partial": "K5dw ", "conv3x3_nl_dw_mma_kernel": "K5dw ",
+                      "conv3x3_nl_dw_reduce": "K5dw "},
     "conv3x3_b8.cu": {"conv3x3_b8_kernel": "K6 ", "conv3x3_b8_dw_partial": "K6 ",
                       "conv3x3_b8_dw_reduce": "K6 "},
 }
-GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
+GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__(?:launch_bounds|maxnreg)__\s*\([^)]*\)\s*)?(\w+)\s*\(")
 
 
 def test_every_source_has_a_row():

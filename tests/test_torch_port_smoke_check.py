@@ -226,3 +226,32 @@ def test_check_conv_reaches_every_kind(kind, shape, which):
     mod = {"chw": conv_chw, "s2": conv_s2, "nl": conv_nl, "b8": conv_b8}[kind]
     rec = chip_smoke.check_conv(shim, F, conv_chw, mod, kind, which, shape, 2, "float32")
     assert rec["ok"] and rec["max_abs_err"] == 0.0 and rec["shape"] == [2, *shape]
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2tc24conv3x3_nl_dw_mma_kernelEPKvS1_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc24conv3x3_nl_dw_mma_kernelEPKvS1_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2tc21conv3x3_nl_mma_kernelILb1EEEvPKv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc21conv3x3_nl_mma_kernelILb1EEEvPKv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z21conv3x3_nl_dw_partialPKfS0_Pfiiiiix' for 'sm_90a'
+ptxas info    : Function properties for _Z21conv3x3_nl_dw_partialPKfS0_Pfiiiiix
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel,regs,spills", [
+    ("conv3x3_nl_dw_mma_kernel", 118, 0), ("conv3x3_nl_mma_kernel", 128, 1),
+    ("conv3x3_nl_dw_partial", 200, 0), ("conv3x3_b8_kernel", None, 0), ("", 200, 1),
+])
+def test_build_checks_read_each_kernel_of_the_log(kernel, regs, spills):
+    """The build phase's register and spill checks read ptxas's report of
+    the functions whose mangled name holds ``kernel``, and only those (the
+    forward's name is not a part of K5dw's)."""
+    assert chip_smoke.registers_of(PTXAS_LOG, kernel) == regs
+    assert len(chip_smoke.spill_lines(PTXAS_LOG, kernel)) == spills
