@@ -22,8 +22,8 @@ Phases, each printing its seconds when it ends:
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
    ``csrc/``, one process per source, all started together; K1 and the
-   tensor-core kernels of K5 and K5dw must report 0 spill bytes (and the
-   latter two at most 128 registers);
+   tensor-core kernels of K5, K5dw and K6 must report 0 spill bytes (and
+   the latter three at most 128 registers);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
@@ -32,15 +32,16 @@ Phases, each printing its seconds when it ends:
    batch 20 f32; K5, K5dx and K5dw at the four large-channel shapes, batch
    20 and 160, bf16, and batch 20 f32 (K5 and K5dx also batch 160 f32); K6,
    K6dx and K6dw at the five
-   stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage), with the
+   stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage; K6 and
+   K6dx also launched twice, bitwise equal), with the
    tolerance stated; median times from CUDA events
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
    for K1, K1 dx, K2, K4, K4dx, K4dw, K5, K5dx, K5dw, K6, K6dx and K6dw
-   (K4's at batch 20) and their cuDNN calls also the device time alone
-   (``device_ms``, ``library_device_ms``: ``torch.profiler``'s kernel
-   durations, without the host time the events hold);
+   (K4's at batch 20) and their cuDNN calls, and for K3, also the device
+   time alone (``device_ms``, ``library_device_ms``: ``torch.profiler``'s
+   kernel durations, without the host time the events hold);
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
    then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
    with the launch counts set to 0 just before each route and read just
@@ -81,8 +82,10 @@ At the end it prints, per kernel, its launches and times per random step
 shape (K5's launches from the ``conv_nl`` train phase):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
-per-step totals.  The last lines are the card's ``nvidia-smi`` line, one JSON
-object with a record per kernel, and ``{"ok": true, "device": {...}}``,
+per-step totals; and K6 and K6 dx by stage of ``bench_b8_conv`` the same
+per bench pass, beside K1's (K1 dx's) device ms at the same shape.  The
+last lines are the card's ``nvidia-smi`` line, one JSON object with a
+record per kernel, and ``{"ok": true, "device": {...}}``,
 printed only when every phase passed.  Any failure exits non-zero.
 Without a CUDA device, or without the port's package beside this file, it
 exits non-zero before printing any result.
@@ -345,11 +348,12 @@ def bf16_tol(torch, scale):
     return 2.0 ** (int(torch.tensor(max(scale, 1e-30)).log2().floor().item()) - 7)
 
 
-def check_k3(torch, pmask, n, d, soft, flush=None):
+def check_k3(torch, pmask, n, d, soft, flush=None, row=None):
     """K3 against its plain version (the sort-based threshold) on one
     (N, D) saliency with ties planted, at p in {0, 0.2, 0.5}: equal
     masks.  With ``flush`` also its times; no single PyTorch call computes
-    this function, so there is no library time."""
+    this function, so there is no library time.  With ``row`` (the
+    profiler's row of K3's kernel) also its device time (:func:`device_ms`)."""
     gen = torch.Generator(device="cuda").manual_seed(d + int(soft))
     sal = torch.randn((n, d), generator=gen, device="cuda")
     sal[:, 1] = sal[:, 2]                        # a tie
@@ -374,8 +378,16 @@ def check_k3(torch, pmask, n, d, soft, flush=None):
     plain_ms = time_ms(lambda: pmask.percentile_mask_plain(sal, p, vals), torch, flush)
     b, by = bound((3 * n * d + 1) * 4, float(n * d * d), "float32")
     rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by)
-    print(f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null bound_ms {b:.6f} ({by})",
-          flush=True)
+    line = f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null bound_ms {b:.6f} ({by})"
+    if row is not None:
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+            _group,
+        )
+
+        rec["device_ms"] = device_ms(lambda: pmask.percentile_mask(sal, p, vals), torch, flush,
+                                     lambda name: _group(name) == row)
+        line += f" device_ms {fmt(rec['device_ms'], 6)}"
+    print(line, flush=True)
     return rec
 
 
@@ -398,7 +410,8 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
     conv).  Forward and dx: bf16 within one ulp of scale (one rounding of
     nearly the same f32 sum), f32 within 1e-5 of scale (another summation
     order); dw (f32 out, the same exact products summed in another order)
-    within 1e-5 of scale, and two launches bit for bit equal.  With
+    within 1e-5 of scale, and two launches bit for bit equal (K6 and K6dx
+    too: one mma chain per output, no atomics).  With
     ``flush`` also its times and cuDNN's conv, input gradient or weight
     gradient, and the bound.  With ``device`` (the profiler's row of this
     kind's kernel, and the flush kernel's names) also the device times of
@@ -439,11 +452,12 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
     tol = bf16_tol(torch, scale) if dtype_name == "bfloat16" and which != "dw" \
         else 1e-5 * scale
     same = bool(torch.equal(got, again))
+    repeat = which == "dw" or kind == "b8"  # launches held to be bitwise equal
     rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
-           "tol": tol, "ok": err <= tol and (same or which != "dw")}
+           "tol": tol, "ok": err <= tol and (same or not repeat)}
     label = labels[("fwd", "dx", "dw").index(which)]
     print(f"  {label} {dtype_name} N={n} {c_in}->{c_out} @ {h}x{w}: max_abs_err {err:.3g} "
-          f"(tol {tol:.3g})" + (f", two launches bitwise equal: {same}" if which == "dw"
+          f"(tol {tol:.3g})" + (f", two launches bitwise equal: {same}" if repeat
                                 else ""), end="" if flush is not None else "\n", flush=True)
     del got, again, want
     if flush is None:
@@ -742,19 +756,25 @@ def per_call(calls, recs, key):
     return sum(calls[sh] * recs[sh][key] for sh in calls)
 
 
-def by_shape(calls, recs, total, label, library):
+def by_shape(calls, recs, total, label, library, unit="random step", beside=None):
     """Print one kernel's table by shape (forward C_in->C_out @ HxW) and its
-    per-step totals."""
-    print(f"  {label} by shape (C_in->C_out @ HxW: launches per random step, ms, device ms, "
-          f"cuDNN {library} ms, cuDNN device ms, bound ms):", flush=True)
+    totals per ``unit``; ``beside`` is (label, records by shape) of another
+    kernel computing the same function, whose device ms is printed too."""
+    other = f", {beside[0]} device ms" if beside else ""
+    print(f"  {label} by shape (C_in->C_out @ HxW: launches per {unit}, ms, device ms, "
+          f"cuDNN {library} ms, cuDNN device ms{other}, bound ms):", flush=True)
     for sh in sorted(calls, key=lambda s: (-s[2], s[0], s[1])):
         r = recs[sh]
+        col = f"{fmt(beside[1][sh].get('device_ms'))}, " if beside else ""
         print(f"    {sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]}: {calls[sh]:.1f}, {r['ms']:.4f}, "
               f"{fmt(r.get('device_ms'))}, {r['library_ms']:.4f}, "
-              f"{fmt(r.get('library_device_ms'))}, {r['bound_ms']:.4f}", flush=True)
-    print(f"  {label} per random step: {total['ms']:.4f} ms, device {fmt(total['device_ms'])} "
-          f"ms; cuDNN {library} at the same shapes {total['library_ms']:.4f} ms, device "
-          f"{fmt(total['library_device_ms'])} ms; bound {total['bound_ms']:.4f} ms", flush=True)
+              f"{fmt(r.get('library_device_ms'))}, {col}{r['bound_ms']:.4f}", flush=True)
+    line = (f"  {label} per {unit}: {total['ms']:.4f} ms, device {fmt(total['device_ms'])} "
+            f"ms; cuDNN {library} at the same shapes {total['library_ms']:.4f} ms, device "
+            f"{fmt(total['library_device_ms'])} ms")
+    if beside:
+        line += f"; {beside[0]} device {fmt(per_call(calls, beside[1], 'device_ms'))} ms"
+    print(f"{line}; bound {total['bound_ms']:.4f} ms", flush=True)
 
 
 def main():
@@ -808,10 +828,11 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 and the tensor-core kernels of K5 and K5dw are built to fit 128
-        # registers a thread (two blocks an SM): they must not spill
+        # K1 and the tensor-core kernels of K5, K5dw and K6 are built to fit
+        # 128 registers a thread (two blocks an SM): they must not spill
         for lib, kernel in (("conv3x3_chw", ""), ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
-                            ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel")):
+                            ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel"),
+                            ("conv3x3_b8", "conv3x3_b8_mma_kernel")):
             log = built.get(lib, {}).get("log", "")
             spills = spill_lines(log, kernel)
             if spills:
@@ -877,8 +898,9 @@ def main():
         dx_f32 = k1("dx", (16, 16, 192, 192), TRAIN_BATCH, "float32")
         dw_recs = {s: k1("dw", s, TRAIN_BATCH, "bfloat16") for s in order}
         dw_f32 = k1("dw", (16, 16, 192, 192), TRAIN_BATCH, "float32")
+        k3_row = _group("void (anonymous namespace)::percentile_mask_kernel()")
         k3_recs = {(d, soft): check_k3(torch, pmask, TRAIN_BATCH, d, soft,
-                                       flush if soft else None)
+                                       flush if soft else None, k3_row)
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
         # shapes, timed in bf16 at the training and the serving batch (device
@@ -1182,6 +1204,14 @@ def main():
                                  ("conv3x3_nl_dw", "K5dw", "conv2d_weight")):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library)
+    # K6 and K6 dx by stage of bench_b8_conv: one launch each per bench pass
+    # beside K1's (K1 dx's) device time at the same shape from the kernels
+    # phase (every bench stage is a K1 shape of the main path with C_in > 1)
+    for name, label, library, beside in (("conv3x3_b8", "K6", "F.conv2d", ("K1", recs)),
+                                         ("conv3x3_b8_dx", "K6 dx", "conv2d_input",
+                                          ("K1 dx", dx_recs))):
+        by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
+                 library, "bench pass", beside)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

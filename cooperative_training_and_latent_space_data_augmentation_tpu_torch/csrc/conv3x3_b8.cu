@@ -22,38 +22,82 @@
 //                                        * dy[n, o, y*W + x],   t = 3*ki + kj
 //
 // with out-of-image taps reading zero, f32 accumulation, the forward rounded
-// once to the input type at the store and dw returned in f32.
+// once to the input type at the store and dw returned in f32.  K6's input
+// gradient is the forward on the flipped, transposed wall; with flip = 1
+// the forward reads that wall out of the unflipped one,
+// w'[i, t*C_out + o] = w_all[o, (8-t)*C_in + i], so no flipped copy is made.
 //
 // What bounds them on the H100: at the B8 bench's stages (16..64 channels,
-// 192^2..48^2, batch 20) the bytes (input read once, output written once)
-// take longer at 3.35 TB/s than the MACs on the tensor cores, so the ideal
-// kernels are bound by bytes.  These run the MACs on the CUDA cores in f32
-// (67 TFLOP/s), which makes them bound by operations there; the tensor cores
-// are later work.
+// 192^2..48^2, batch 20) an output pixel carries 2*9*C_in*C_out operations
+// on 2*(C_in + C_out) bytes, at most 288 operations a byte, under the
+// card's 295 for bf16 on the tensor cores: the ideal kernel is bound by
+// bytes (16->16 @ 192^2: 47.2 MB, 14.1 us).  On the CUDA cores in f32 the
+// five stages' products alone take at least 0.2 ms (13.6 GFLOP at 67
+// TFLOP/s).
 //
-// What the design does about it: the counterpart of the TPU's output
-// blocking on CUDA cores is register blocking.  P' and the 30-wide wall are
-// never built.
+// K6 in bf16: an implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16
+// in, f32 out), out (C_out x pixels) = wall (C_out x 9*C_in) . P, with M =
+// 16 output channels, N = 8 neighbouring pixels of one row (the TPU
+// kernel's pixel block, which the gate keeps inside a row and 16-byte
+// aligned) and a k-step = 16 input channels of one tap.  P' is never built:
 //
-//   * K6: a thread owns 8 consecutive output pixels of one row and 8 output
-//     channels: 64 f32 sums in registers.  For each input channel it loads
-//     the 3 x 10 input window once (30 loads for 72 taps, against 9 loads a
-//     pixel for a thread that owns one pixel) and the channel's 9 x 8
-//     weights from shared memory (the same address for the whole warp), and
-//     does 576 FMAs.  A block is 32 pixel blocks (one a lane) by all output
-//     groups (one a warp), so the warps of a block read the same windows
-//     and share them in L1.
-//   * K6dw: a thread owns one input channel and 8 output channels over all
-//     9 taps: 72 f32 sums.  For each pixel block it loads the channel's
-//     3 x 10 window and takes the 8 x 8 dy values from a tile staged in
-//     shared memory, and does 576 FMAs; the fold over the window columns is
-//     implicit, since each tap's sum is kept apart.  Hopper's blocks run in
-//     no order, so the TPU kernel's sequential accumulation over images
-//     becomes two passes with a fixed summation order and no float atomics:
-//     each block sums one slab of pixel blocks of one image into a
-//     workspace slot of its own, and a second kernel adds the slots in slot
-//     order.  The slabs depend on the shapes only; two launches agree bit
-//     for bit.
+//   * A tile is a band of whole rows of one column window (at most 8 pixel
+//     blocks wide with one m-tile a warp, 6 with two; wider rows are cut
+//     into windows of balanced widths).  A block owns every output channel
+//     of its tiles and walks a run of them, each in stages of 16 input
+//     channels, so x is read from device memory once for all nine taps and
+//     all of C_out.  Its warps are m-groups x rows: warp (mg, r) owns row r
+//     of the band, every pixel block of the window, and m-tiles 2*mg, 2*mg+1
+//     (one m-tile a warp where C_out <= 16).  Bands are cut (with heights
+//     differing by at most one row) until the grid holds about two blocks an
+//     SM; the walk covers the rest.
+//   * Staging: for each stage the band's rows with a one-row halo, and a
+//     16-byte piece of halo on each side of the window, land by 16-byte
+//     cp.async in CHW order (16 channel rows, odd pitch in pieces) two
+//     stages ahead, into three landing buffers, with one barrier a stage.
+//     Pieces outside the image and channels past C_in land as zeros
+//     (source size 0), so the product loop has no masks.
+//   * No transposing pass: the products read the landing buffer itself.  A
+//     fragment register of B holds two neighbouring channels of one pixel,
+//     which ldmatrix.x4.trans gives straight from the channel rows of two
+//     pieces: the centre taps (kj = 1) of two pixel blocks.  A one-pixel tap
+//     shift would break ldmatrix's 16-byte alignment, so the side taps are
+//     the centre fragments moved one pixel across the lanes: lane (g, q)
+//     takes pixel g - 1 from lane (g - 1, q), and pixel -1 from lane (7, q)
+//     of the block on the left (kj = 2 alike, to the right), one shuffle a
+//     register.  A warp loads each staged row's pieces once a kernel row
+//     (its window plus the two halo pieces) and shifts them, instead of
+//     nine loads of shifted copies.
+//   * The wall stays in shared memory for the block's life, its slices of
+//     16 input channels landed by cp.async with the first two stages: 9
+//     taps x C_out rows of 32 bytes, the two 16-byte halves of a row
+//     swapped on every fourth row, so the 8 rows an ldmatrix reads fall in 8
+//     distinct bank groups without padding (at most 72 KB, at 64 -> 64).
+//     flip = 1 lands rows of the unflipped wall, (8-t)*C_out + o for input
+//     channel c0 + k, as rows k of 16 output channels in each m-tile's
+//     block (swizzled alike) and takes A by ldmatrix.x4.trans: the flip is
+//     in the addresses.
+//   * Each lane's accumulator pair is two neighbouring pixels of one output
+//     channel: it is stored straight from the registers as one bf16 pair,
+//     four lanes to a pixel block.  One mma chain per output, no atomics:
+//     two launches agree bit for bit.
+//
+// f32 stays on the CUDA cores in full f32 (no TF32: the port's f32 convs are
+// full f32): a thread owns 8 consecutive output pixels of one row and 8
+// output channels, 64 sums in registers, and for each input channel loads
+// the 3 x 10 input window once and the channel's 9 x 8 weights from shared
+// memory (flip = 1 stages them from the unflipped wall).
+//
+// K6dw (CUDA cores, both types): a thread owns one input channel and 8
+// output channels over all 9 taps: 72 f32 sums.  For each pixel block it
+// loads the channel's 3 x 10 window and takes the 8 x 8 dy values from a
+// tile staged in shared memory, and does 576 FMAs; the fold over the window
+// columns is implicit, since each tap's sum is kept apart.  Hopper's blocks
+// run in no order, so the TPU kernel's sequential accumulation over images
+// becomes two passes with a fixed summation order and no float atomics:
+// each block sums one slab of pixel blocks of one image into a workspace
+// slot of its own, and a second kernel adds the slots in slot order.  The
+// slabs depend on the shapes only; two launches agree bit for bit.
 //
 // C interface (bound with ctypes): conv3x3_b8(...) and conv3x3_b8_dw(...)
 // launch on the given stream, allocate nothing, do not synchronise, and
@@ -62,14 +106,17 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int B = 8;        // output pixels a thread owns along a row
 constexpr int OG = 8;       // output channels a thread owns
 constexpr int MAX_C = 64;   // most channels on either side
-constexpr int PB = 32;      // K6: pixel blocks per block, one a lane
-constexpr int CK = 16;      // K6: input channels whose weights are staged at once
+constexpr int PB = 32;      // K6 f32: pixel blocks per block, one a lane
+constexpr int CK = 16;      // K6 f32: input channels whose weights are staged at once
 constexpr int TP = 8;       // K6dw: pixel blocks of dy staged at once
 constexpr int DW_THREADS = 256;                // K6dw: most threads a block
 constexpr long long DW_TARGET_THREADS = 65536;  // K6dw: about 16 warps an SM
@@ -82,15 +129,6 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store8(float* p, const float (&v)[B]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[B]) {
-  unsigned u[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    u[k] = *reinterpret_cast<const unsigned*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
 }
 
 // The 3 x 10 window of channel plane xc around the pixel block (y, x0 .. x0+7):
@@ -111,11 +149,11 @@ __device__ __forceinline__ void load_window(const T* xc, int y, int x0, int H, i
   }
 }
 
-// K6.  Grid (ceil(H*W/8 / PB), N), blockDim PB * ceil(C_out / OG).
-template <typename T>
+// K6 in f32.  Grid (ceil(H*W/8 / PB), N), blockDim PB * ceil(C_out / OG).
+// flip = 1: w_all is (C_in, 9*C_out), read flipped and transposed.
 __global__ void __launch_bounds__(PB * MAX_C / OG)
-conv3x3_b8_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
-                  T* __restrict__ out, int c_in, int c_out, int H, int W) {
+conv3x3_b8_kernel(const float* __restrict__ x, const float* __restrict__ w_all,
+                  float* __restrict__ out, int c_in, int c_out, int H, int W, int flip) {
   __shared__ __align__(16) float s_w[CK][9][MAX_C];
   const int tid = threadIdx.x;
   const int lane = tid % PB;
@@ -127,7 +165,7 @@ conv3x3_b8_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
   const int y = active ? pb / wb : 0;
   const int x0 = active ? (pb - y * wb) * B : 0;
   const long long L = (long long)H * W;
-  const T* xn = x + (long long)blockIdx.y * c_in * L;
+  const float* xn = x + (long long)blockIdx.y * c_in * L;
 
   float acc[B][OG];
 #pragma unroll
@@ -143,7 +181,9 @@ conv3x3_b8_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
       const int t = (e / cob) % 9;
       const int o = e % cob;
       float v = 0.f;
-      if (ci < ck && o < c_out) v = load_f32(w_all + (long long)o * 9 * c_in + t * c_in + c0 + ci);
+      if (ci < ck && o < c_out)
+        v = flip ? load_f32(w_all + (long long)(c0 + ci) * 9 * c_out + (8 - t) * c_out + o)
+                 : load_f32(w_all + (long long)o * 9 * c_in + t * c_in + c0 + ci);
       s_w[ci][t][o] = v;
     }
     __syncthreads();
@@ -167,7 +207,7 @@ conv3x3_b8_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
   }
 
   if (!active) return;
-  T* on = out + (long long)blockIdx.y * c_out * L + (long long)y * W + x0;
+  float* on = out + (long long)blockIdx.y * c_out * L + (long long)y * W + x0;
 #pragma unroll
   for (int o = 0; o < OG; ++o) {
     if (o0 + o >= c_out) break;
@@ -177,6 +217,418 @@ conv3x3_b8_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
     store8(on + (long long)(o0 + o) * L, v);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K6 in bf16: tensor cores (see the note at the top).
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int CG = 16;            // input channels a stage
+constexpr int MAX_WARPS = 8;
+constexpr int NLAND = 3;          // landing buffers: stages s+1 and s+2 land while s is read
+constexpr int SMS = 132;          // SMs of an H100
+constexpr int SLOTS = 2 * SMS;    // blocks the card holds at once by design
+constexpr int SMEM_MOST = 113 * 1024;  // so that two blocks fit an SM
+// pixel blocks (n-tiles) a warp owns along its row: 8 with one m-tile, 6
+// with two (32 or 48 accumulators, so that the kernel fits 128 registers)
+__host__ __device__ constexpr int ncmax(int mw) { return mw == 1 ? 8 : 6; }
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+inline int log2_lanes(int per_row) {
+  int k = 0;
+  while (k < 5 && (1 << k) < per_row) ++k;
+  return k;
+}
+
+// How the work is cut, and the shared memory of a block.  C_out is `mt`
+// m-tiles of 16, `mw` a warp, in `mz` m-groups; the wall's slices hold `op`
+// = 16*mw*mz rows.  An image row is w8 = W/8 pixel blocks in `ncw` windows
+// of at most cpr; a window column is `nb` bands of at most `rows` rows; `tiles`
+// = N * nb * ncw, walked in runs of `per` by `blocks` blocks of `warps` =
+// mz * rows warps, each tile in `groups` stages.  Band b starts at row
+// b*bq + min(b, br) and has bq rows, one more for b < br (bq = H / nb, br =
+// H % nb); window k alike with wq = w8 / ncw and wr = w8 % ncw.  Landing buffer: 16
+// channel rows of pitch `lpc` pieces (odd), each (rows + 2) staged rows of
+// `lp` pieces, cpr + 2 rounded up to even (so a pair of pieces read by one
+// ldmatrix never leaves its staged row); `lsh`: log2 of the lanes that
+// land one staged row.
+struct Geometry {
+  int mw, mz, op, groups, ncw, nb, rows, tiles, per, blocks, warps;
+  int bq, br, wq, wr, lp, lpc, lsh;
+  int land_off, land_bytes, smem;  // bytes
+};
+
+// Returns false where the shapes overflow the kernel's int offsets.
+bool geometry(int n, int c_in, int c_out, int h, int w, Geometry& g) {
+  const int mt = ceil_div(c_out, 16);
+  g.mw = mt == 1 ? 1 : 2;
+  g.mz = ceil_div(mt, g.mw);
+  g.op = 16 * g.mw * g.mz;
+  g.groups = ceil_div(c_in, CG);
+  const int w8 = w / 8;
+  g.ncw = ceil_div(w8, ncmax(g.mw));
+  const int cpr = ceil_div(w8, g.ncw);
+  const int rmax = MAX_WARPS / g.mz;
+  g.nb = ceil_div(h, rmax);
+  const long long cols = (long long)n * g.ncw;
+  // more, shorter bands (their heights differing by at most a row) while the
+  // tiles would not fill the card's blocks
+  if (cols * g.nb < SLOTS) {
+    const long long more = SLOTS / cols;
+    if (more > g.nb) g.nb = (int)(more < h ? more : h);
+  }
+  if (cols * g.nb > 0x7fffffffLL) return false;
+  g.rows = ceil_div(h, g.nb);
+  g.bq = h / g.nb;
+  g.br = h % g.nb;
+  g.wq = w8 / g.ncw;
+  g.wr = w8 % g.ncw;
+  g.warps = g.mz * g.rows;
+  g.tiles = (int)(cols * g.nb);
+  g.lp = (cpr + 3) & ~1;
+  g.lpc = ((g.rows + 2) * g.lp) | 1;
+  g.lsh = log2_lanes(g.lp);
+  g.land_off = g.groups * 9 * g.op * 32;
+  g.land_bytes = CG * g.lpc * 16;
+  g.smem = g.land_off + NLAND * g.land_bytes;
+  // as many blocks as the SMs hold at once (by shared memory, registers at
+  // the 128 a thread the kernel is built for, and warps), all with `per`
+  // tiles but the last
+  const int fits[] = {(228 * 1024) / (g.smem + 1024), 65536 / (32 * g.warps * 128),
+                      64 / g.warps};
+  int fit = 1;
+  while (fit < fits[0] && fit < fits[1] && fit < fits[2]) ++fit;
+  g.per = ceil_div(g.tiles, SMS * fit);
+  g.blocks = ceil_div(g.tiles, g.per);
+  return true;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or 16 zero bytes when bytes == 0 (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ldmatrix at a shared-memory byte address (32 bits: the product loop keeps
+// its addresses in one register each)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+
+// d += a . b; m16n8k16, bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Wall slice element (o, k) of a tap (output channel o, input channel k),
+// in elements from the tap's start; each m-tile of 16 output channels is a
+// block of 256 elements.  flip = 0: row o of 16 input channels (A rows,
+// ldmatrix); flip = 1: in each m-tile's block, row k of its 16 output
+// channels (A columns, ldmatrix.trans).  Rows are 32 bytes, their two
+// 16-byte halves swapped where bit 2 of the row is set, so the 8 rows an
+// ldmatrix reads at one half fall in 8 distinct bank groups.
+__device__ __forceinline__ int wall_at(int o, int k, bool flip) {
+  if (!flip) return o * 16 + 8 * ((k >> 3) ^ ((o >> 2) & 1)) + (k & 7);
+  return (o >> 4) * 256 + k * 16 + 8 * (((o >> 3) & 1) ^ ((k >> 2) & 1)) + (o & 7);
+}
+
+// Wall slice of input channels c0 .. c0+15 for output channels 0 .. op-1,
+// tap t at t*op*16, zero past C_in and C_out:
+//   flip = 0: A[o][k] = w_all[o*9*c_in + t*c_in + c0+k] (rows o: ldmatrix);
+//   flip = 1: A[o][k] = w_all[(c0+k)*9*c_out + (8-t)*c_out + o] (w_all is
+//             the forward's wall, (c_in, 9*c_out); rows k: ldmatrix.trans).
+// vec: the 16-byte units of those rows are aligned (c_in, or c_out for
+// flip, a multiple of 8, w_all 16-byte aligned), one cp.async each; else
+// element by element.  Once a block, before the main loop.
+template <bool FLIP>
+__device__ __forceinline__ void stage_w(bf16* ws, const bf16* w_all, int c0, int c_in,
+                                        int c_out, int op, int vec, int tid, int nthr) {
+  const int tap = op * 16;
+  if (vec) {
+    const int units = FLIP ? op >> 3 : 2;    // 16-byte units a row
+    const int nrows = FLIP ? 16 : op;        // rows a tap
+    for (int e = tid; e < 9 * nrows * units; e += nthr) {
+      const int u = e % units, tr = e / units, row = tr % nrows, t = tr / nrows;
+      const int o = FLIP ? 8 * u : row, k = FLIP ? row : 8 * u;
+      const bool in = o < c_out && c0 + k < c_in;
+      const bf16* src = FLIP ? w_all + ((long long)(c0 + k) * 9 + 8 - t) * c_out + o
+                             : w_all + ((long long)o * 9 + t) * c_in + c0 + k;
+      cp_async16(ws + t * tap + wall_at(o, k, FLIP), in ? src : w_all, in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int e = tid; e < 9 * op * CG; e += nthr) {
+      const int k = e % CG, to = e / CG, o = to % op, t = to / op;
+      bf16 v = zero;
+      if (o < c_out && c0 + k < c_in)
+        v = FLIP ? w_all[((long long)(c0 + k) * 9 + 8 - t) * c_out + o]
+                 : w_all[((long long)o * 9 + t) * c_in + c0 + k];
+      ws[t * tap + wall_at(o, k, FLIP)] = v;
+    }
+  }
+}
+
+// Land channels c0 .. c0+15 of rows y0-1 .. y0+hb, columns x0-8 .. x0+8*wk+7
+// (the window's wk pixel blocks and a halo piece on each side), as 16-byte
+// pieces: piece j of staged row r of channel ch at (ch*lpc + r*lp + j)*8,
+// zero outside the image and past C_in.  A group of 2^lsh lanes lands a
+// staged row, one piece a lane, for the 16 channels in turn.  W % 8 == 0
+// and x 16-byte aligned, so a piece is in or out as a whole.
+__device__ __forceinline__ void land_x(bf16* land, const bf16* xn, int c0, int c_in, int H,
+                                       int W, int L, int y0, int hb, int x0, int wk,
+                                       const Geometry& g, int warp, int lane) {
+  const int per = 32 >> g.lsh, j = lane & ((1 << g.lsh) - 1);
+  if (j >= wk + 2) return;
+  const int gx = x0 - 8 + 8 * j;
+  const bool col_in = gx >= 0 && gx < W;
+  const int nch = min(CG, c_in - c0);
+  for (int r = warp * per + (lane >> g.lsh); r < hb + 2; r += g.warps * per) {
+    const int gy = y0 - 1 + r;
+    const bool in = col_in && gy >= 0 && gy < H;
+    const bf16* src = in ? xn + (long long)c0 * L + (long long)gy * W + gx : xn;
+    bf16* dst = land + (r * g.lp + j) * 8;
+#pragma unroll
+    for (int ch = 0; ch < CG; ++ch) {
+      const bool v = in && ch < nch;
+      cp_async16(dst, v ? src : xn, v ? 16 : 0);
+      src += in ? L : 0;
+      dst += g.lpc * 8;
+    }
+  }
+}
+
+// Grid (blocks); 32 * g.warps threads.  vec_w: see stage_w.
+template <int MW, bool FLIP>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 2)
+conv3x3_b8_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all,
+                      bf16* __restrict__ out, int c_in, int c_out, int H, int W, Geometry g,
+                      int vec_w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NC = ncmax(MW);
+  bf16* wall = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int mg = warp / g.rows, r = warp - mg * g.rows;  // m-group, row of the band
+  const int gq = lane >> 2, q = lane & 3;
+  const int t_first = blockIdx.x * g.per;
+  const int stages = (min(g.tiles, t_first + g.per) - t_first) * g.groups;
+  const int L = H * W;  // offsets inside one image fit 32 bits (valid())
+  const int tap = g.op * 16;  // elements of one tap of a wall slice
+  auto land_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + g.land_off + (s % NLAND) * g.land_bytes);
+  };
+  // Stage s is channel group gi of tile t_first + s / groups: image n, band
+  // rows y0 .. y0+hb-1, window columns x0 .. x0+8*wk-1.
+  auto origin = [&](int s, int& n, int& y0, int& hb, int& x0, int& wk, int& gi) {
+    const int k = s / g.groups, t = t_first + k, per_image = g.nb * g.ncw;
+    gi = s - k * g.groups;
+    n = t / per_image;
+    const int b = t - n * per_image, band = b / g.ncw, win = b - band * g.ncw;
+    y0 = band * g.bq + min(band, g.br);
+    hb = g.bq + (band < g.br);
+    x0 = 8 * (win * g.wq + min(win, g.wr));
+    wk = g.wq + (win < g.wr);
+  };
+  // Stage s's pieces into landing buffer s % NLAND (none past the last
+  // stage).
+  auto land = [&](int s) {
+    if (s < stages) {
+      int n, y0, hb, x0, wk, gi;
+      origin(s, n, y0, hb, x0, wk, gi);
+      land_x(land_of(s), x + (long long)n * c_in * L, gi * CG, c_in, H, W, L, y0, hb, x0, wk,
+             g, warp, lane);
+    }
+  };
+
+  // Shared byte addresses of this lane's ldmatrix rows.  A (tap 0 of slice
+  // 0), m-tile mg*MW (m-tile mg*MW + m is 512*m bytes on): ldmatrix.x4
+  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k
+  // 8-15); lane l gives row l & 7 of matrix l >> 3.  B (piece 0 of the band
+  // row's staged row 0 in landing buffer 0): channel row (l & 7) + 8((l >>
+  // 3) & 1) of piece l >> 4 of a pair, so b[0], b[1] are the first piece's
+  // fragment, b[2], b[3] the second's.
+  const uint32_t smem_s = smem_addr(smem);
+  const int o0 = 16 * mg * MW;
+  const int a_row = FLIP ? wall_at(o0 + 8 * ((lane >> 3) & 1), (lane & 7) + 8 * (lane >> 4), true)
+                         : wall_at(o0 + (lane & 15), 8 * (lane >> 4), false);
+  const uint32_t a_s = smem_s + 2 * a_row;
+  const int b_row = ((lane & 7) + 8 * ((lane >> 3) & 1)) * g.lpc + r * g.lp + (lane >> 4);
+  const uint32_t b_s = smem_s + g.land_off + 16 * b_row;
+  const uint32_t tap2 = 2 * tap, row2 = 16 * g.lp;  // bytes of a tap's slice, a staged row
+
+  float acc[MW][NC][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+
+  // Commit groups: stage 0's pieces and the wall's first slice; stage 1's
+  // pieces and the other slices (so the main loop stages no wall); then one
+  // a stage, empty past the last.
+  land(0);
+  stage_w<FLIP>(wall, w_all, 0, c_in, c_out, g.op, vec_w, tid, nthr);
+  cp_async_commit();
+  land(1);
+  for (int gi = 1; gi < g.groups; ++gi)
+    stage_w<FLIP>(wall + gi * 9 * tap, w_all, gi * CG, c_in, c_out, g.op, vec_w, tid, nthr);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    int n, y0, hb, x0, wk, gi;
+    origin(s, n, y0, hb, x0, wk, gi);
+    cp_async_wait_prior();
+    __syncthreads();  // stage s has landed; every warp is done with stage s-1
+    land(s + 2);      // into stage s-1's landing buffer
+    cp_async_commit();
+
+    if (r < hb) {
+      const uint32_t lrow = b_s + (s % NLAND) * g.land_bytes;
+      const uint32_t wsl = gi * 9 * tap2;
+#pragma unroll
+      for (int ki = 0; ki < 3; ++ki) {
+        // pieces 0 .. wk+1 of staged row r + ki: piece c + 1 is pixel block
+        // c's centre tap, pieces c and c + 2 its neighbours
+        uint32_t P[NC + 2][2];
+        const uint32_t prow = lrow + ki * row2;
+#pragma unroll
+        for (int p = 0; p < (NC + 2) / 2; ++p) {
+          if (2 * p < wk + 2) {
+            uint32_t v[4];
+            ldmatrix_x4_trans(v, prow + 32 * p);
+            P[2 * p][0] = v[0];
+            P[2 * p][1] = v[1];
+            P[2 * p + 1][0] = v[2];
+            P[2 * p + 1][1] = v[3];
+          } else {
+            P[2 * p][0] = P[2 * p][1] = P[2 * p + 1][0] = P[2 * p + 1][1] = 0u;
+          }
+        }
+#pragma unroll
+        for (int kj = 0; kj < 3; ++kj) {
+          const int t = 3 * ki + kj;
+          uint32_t a[MW][4];
+#pragma unroll
+          for (int m = 0; m < MW; ++m) {
+            if (FLIP)
+              ldmatrix_x4_trans(a[m], a_s + wsl + t * tap2 + 512 * m);
+            else
+              ldmatrix_x4(a[m], a_s + wsl + t * tap2 + 512 * m);
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            if (c < wk) {
+              uint32_t b0 = P[c + 1][0], b1 = P[c + 1][1];
+              if (kj == 0) {  // pixel g - 1: from lane g - 1, or lane 7 of block c - 1
+                b0 = __shfl_sync(0xffffffffu, gq == 7 ? P[c][0] : b0, (lane + 28) & 31);
+                b1 = __shfl_sync(0xffffffffu, gq == 7 ? P[c][1] : b1, (lane + 28) & 31);
+              } else if (kj == 2) {  // pixel g + 1: from lane g + 1, or lane 0 of block c + 1
+                b0 = __shfl_sync(0xffffffffu, gq == 0 ? P[c + 2][0] : b0, (lane + 4) & 31);
+                b1 = __shfl_sync(0xffffffffu, gq == 0 ? P[c + 2][1] : b1, (lane + 4) & 31);
+              }
+#pragma unroll
+              for (int m = 0; m < MW; ++m) mma_acc(acc[m][c], a[m], b0, b1);
+            }
+          }
+        }
+      }
+    }
+    if (gi + 1 < g.groups) continue;
+
+    // The tile's last stage: acc[m][c] holds output channels 16(mg*MW + m)
+    // + gq (e < 2) and + 8 (e >= 2), pixels 2q and 2q+1 of pixel block c
+    // (the m16n8 accumulator layout), stored as bf16 pairs.
+    if (r < hb) {
+      bf16* on = out + (long long)n * c_out * L + (y0 + r) * W + x0 + 2 * q;
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = 16 * (mg * MW + m) + gq + 8 * h;
+          if (o < c_out) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+              if (c < wk)
+                *reinterpret_cast<__nv_bfloat162*>(on + o * L + 8 * c) =
+                    __floats2bfloat162_rn(acc[m][c][2 * h], acc[m][c][2 * h + 1]);
+          }
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+  }
+}
+
+// Allows `Kernel` SMEM_MOST bytes of dynamic shared memory, once for each
+// device (the attribute is kept per context).
+template <auto Kernel>
+cudaError_t allow_smem() {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int MW, bool FLIP>
+cudaError_t launch_k(const bf16* x, const bf16* w_all, bf16* out, int c_in, int c_out, int h,
+                     int w, const Geometry& g, int vec_w, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<conv3x3_b8_mma_kernel<MW, FLIP>>();
+  if (err != cudaSuccess) return err;
+  conv3x3_b8_mma_kernel<MW, FLIP><<<g.blocks, 32 * g.warps, g.smem, stream>>>(
+      x, w_all, out, c_in, c_out, h, w, g, vec_w);
+  return cudaGetLastError();
+}
+
+inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch(const void* x, const void* w_all, void* out, int n, int c_in, int c_out,
+                   int h, int w, int flip, cudaStream_t stream) {
+  Geometry g;
+  if (!geometry(n, c_in, c_out, h, w, g) || g.smem > SMEM_MOST)
+    return cudaErrorInvalidConfiguration;
+  if (!aligned(x) || !aligned(out)) return cudaErrorInvalidValue;
+  const int vec_w = (flip ? c_out : c_in) % 8 == 0 && aligned(w_all);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* wp = static_cast<const bf16*>(w_all);
+  bf16* op = static_cast<bf16*>(out);
+  if (g.mw == 1)
+    return flip ? launch_k<1, true>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream)
+                : launch_k<1, false>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
+  return flip ? launch_k<2, true>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream)
+              : launch_k<2, false>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
+}
+
+}  // namespace tc
 
 // How K6dw cuts the work: input channels in groups of `cig` (one thread
 // each, times `ng` output groups), the pixel blocks of an image in slabs of
@@ -301,15 +753,15 @@ bool valid(int n, int c_in, int c_out, int h, int w) {
          (long long)c_out * h * w <= 0x7fffffffLL;
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w_all, void* out, int n, int c_in,
-                       int c_out, int h, int w, cudaStream_t stream) {
+cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n, int c_in,
+                           int c_out, int h, int w, int flip, cudaStream_t stream) {
   const long long nblocks = (long long)h * (w / B);
   const dim3 grid((unsigned)((nblocks + PB - 1) / PB), n);
   const int threads = PB * ((c_out + OG - 1) / OG);
-  conv3x3_b8_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_all), static_cast<T*>(out), c_in,
-      c_out, h, w);
+  conv3x3_b8_kernel<<<grid, threads, 0, stream>>>(static_cast<const float*>(x),
+                                                  static_cast<const float*>(w_all),
+                                                  static_cast<float*>(out), c_in, c_out, h,
+                                                  w, flip);
   return cudaGetLastError();
 }
 
@@ -333,16 +785,18 @@ cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int 
 
 extern "C" {
 
-// x: (n, c_in, h*w), w_all: (c_out, 9*c_in) tap-major, out: (n, c_out, h*w),
-// all contiguous on the current device, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1).  Returns a cudaError_t as int.
+// x: (n, c_in, h*w); w_all: (c_out, 9*c_in) tap-major (flip = 0), or the
+// forward's wall (c_in, 9*c_out) read flipped and transposed (flip = 1: the
+// input gradient of that forward); out: (n, c_out, h*w); all contiguous on
+// the current device, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1; x
+// and out 16-byte aligned).  Returns a cudaError_t as int.
 int conv3x3_b8(const void* x, const void* w_all, void* out, int n, int c_in, int c_out,
-               int h, int w, int is_bf16, void* stream) {
+               int h, int w, int flip, int is_bf16, void* stream) {
   if (!valid(n, c_in, c_out, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16>(x, w_all, out, n, c_in, c_out, h, w, s)
-              : launch_fwd<float>(x, w_all, out, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch(x, w_all, out, n, c_in, c_out, h, w, flip, s)
+              : launch_fwd_f32(x, w_all, out, n, c_in, c_out, h, w, flip, s);
   return static_cast<int>(err);
 }
 

@@ -12,8 +12,9 @@ group, ``out'(HW/8, 8*C_out) = P'(HW/8, 30*C_in) @ W'(30*C_in, 8*C_out)``, so
 that a 16-channel conv fills the MXU's lanes.  The plain versions here
 compute exactly that blocked formulation (so the CPU tests hold the
 blocking and the fold against JAX); the CUDA kernels compute the same
-function by register blocking instead (``csrc/conv3x3_b8.cu``).  The
-``custom_partitioning`` wrappers have no counterpart.
+function without P' (``csrc/conv3x3_b8.cu``): K6 in bf16 as an implicit
+GEMM on the tensor cores, K6 in f32 and K6dw by register blocking on the
+CUDA cores.  The ``custom_partitioning`` wrappers have no counterpart.
 
 Each kernel has a wrapper that on a CUDA tensor launches the kernel (or
 raises) and adds one to its ``launches`` count, and on a CPU tensor runs
@@ -21,6 +22,8 @@ the plain version:
 
 * :func:`conv3x3_b8` (K6), plain :func:`conv3x3_b8_plain`;
 * :func:`conv3x3_b8_dx`: K6 on dy with the flipped wall, counted apart;
+  the kernel reads the flipped wall out of the unflipped one (``flip =
+  1``), the plain version takes :func:`..conv_chw.flip_wall`;
 * :func:`conv3x3_b8_dw` (K6dw), plain :func:`conv3x3_b8_dw_plain`.
 
 Layouts are the port's, as for K1: x (N, C, H*W), weights in K1's wall form
@@ -159,16 +162,19 @@ def _check_wall(name: str, w_all: torch.Tensor):
 
 
 def _check_conv(name: str, a: torch.Tensor, w_all: torch.Tensor, H: int, W: int,
-                fwd: torch.Tensor):
-    """a (N, w_all's C_in, H*W) and w_all a wall; the forward conv is that
-    of the wall ``fwd`` (w_all itself, or the wall it was flipped from)."""
+                flip: bool = False) -> int:
+    """w_all is the forward conv's wall (C_out, 9*C_in) and the forward
+    passes the gate; a is its input (N, C_in, H*W), or with ``flip`` its
+    output gradient (N, C_out, H*W).  Returns the channels of the result."""
     _check_wall(name, w_all)
-    _check(name, H, W, fwd.shape[1] // 9, fwd.shape[0], a, w_all)
-    _check_map(name, a, w_all.shape[1] // 9, H * W, "input")
+    c_out, c_in = w_all.shape[0], w_all.shape[1] // 9
+    _check(name, H, W, c_in, c_out, a, w_all)
+    _check_map(name, a, c_out if flip else c_in, H * W, "input")
+    return c_in if flip else c_out
 
 
 _SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
-    "conv3x3_b8": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "conv3x3_b8": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "conv3x3_b8_dw": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "conv3x3_b8_dw_workspace": [ctypes.c_int] * 5,
 }
@@ -183,12 +189,17 @@ def _launch(name: str, what: str, ref: torch.Tensor, *args) -> None:
                    int(ref.dtype == torch.bfloat16))
 
 
-def _launch_k6(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Tensor:
+def _launch_k6(x: torch.Tensor, w_all: torch.Tensor, c_out: int, H: int, W: int,
+               flip: bool) -> torch.Tensor:
+    """K6 on x with the wall w_all (``flip``: the forward's wall, read
+    flipped and transposed).  The bf16 kernel lands x in 16-byte pieces, so
+    x must start on a 16-byte boundary there."""
     n, c_in, L = x.shape
-    c_out = w_all.shape[0]
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("conv3x3_b8: a bfloat16 input must start 16-byte aligned")
     out = torch.empty((n, c_out, L), dtype=x.dtype, device=x.device)
-    _launch("conv3x3_b8", f"x {tuple(x.shape)}, C_out {c_out}", x, x.data_ptr(),
-            w_all.data_ptr(), out.data_ptr(), n, c_in, c_out, H, W)
+    _launch("conv3x3_b8", f"x {tuple(x.shape)}, C_out {c_out}, flip {int(flip)}", x,
+            x.data_ptr(), w_all.data_ptr(), out.data_ptr(), n, c_in, c_out, H, W, int(flip))
     return out
 
 
@@ -200,10 +211,10 @@ def conv3x3_b8(x: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torch.Te
 
     On a CUDA tensor this launches K6 and adds one to
     ``conv3x3_b8.launches``; on a CPU tensor it runs the plain version."""
-    _check_conv("conv3x3_b8", x, w_all, H, W, w_all)
+    c_out = _check_conv("conv3x3_b8", x, w_all, H, W)
     if x.device.type == "cpu":
         return conv3x3_b8_plain(x, w_all, H, W)
-    out = _launch_k6(x, w_all, H, W)
+    out = _launch_k6(x, w_all, c_out, H, W, flip=False)
     conv3x3_b8.launches += 1
     return out
 
@@ -217,15 +228,15 @@ def conv3x3_b8_dx(dy: torch.Tensor, w_all: torch.Tensor, H: int, W: int) -> torc
     transposed wall (the JAX package's ``_b8_fwd_dispatch(dy,
     _flip_w(w))``).  The gate is the forward conv's.
 
-    On a CUDA tensor this launches K6 and adds one to
-    ``conv3x3_b8_dx.launches`` (not to the forward's count); on a CPU
-    tensor it runs :func:`conv3x3_b8_plain` on the flipped wall."""
-    _check_wall("conv3x3_b8_dx", w_all)
-    w_flip = flip_wall(w_all).contiguous()
-    _check_conv("conv3x3_b8_dx", dy, w_flip, H, W, w_all)
+    On a CUDA tensor this launches K6 with ``flip = 1``, which reads the
+    flipped wall's element (i, t*C_out + o) from ``w_all[o, (8-t)*C_in + i]``
+    (no flipped copy is made), and adds one to ``conv3x3_b8_dx.launches``
+    (not to the forward's count); on a CPU tensor it runs
+    :func:`conv3x3_b8_plain` on :func:`..conv_chw.flip_wall`."""
+    c_in = _check_conv("conv3x3_b8_dx", dy, w_all, H, W, flip=True)
     if dy.device.type == "cpu":
-        return conv3x3_b8_plain(dy, w_flip, H, W)
-    out = _launch_k6(dy, w_flip, H, W)
+        return conv3x3_b8_plain(dy, flip_wall(w_all).contiguous(), H, W)
+    out = _launch_k6(dy, w_all, c_in, H, W, flip=True)
     conv3x3_b8_dx.launches += 1
     return out
 

@@ -256,11 +256,12 @@ def test_kernel_binding_declares_pointer_arguments(monkeypatch):
         ("conv3x3_b8", "labs"), ("conv3x3_b8_dw", "llabs"),
         ("conv3x3_b8_dw_workspace", "atoi"))})
     monkeypatch.setattr(kernels, "load", lambda name: fake)
-    for name, n_ptr in (("conv3x3_b8", 3), ("conv3x3_b8_dw", 4)):
+    # conv3x3_b8: n, c_in, c_out, h, w, flip, is_bf16; conv3x3_b8_dw: no flip
+    for name, n_ptr, n_int in (("conv3x3_b8", 3, 7), ("conv3x3_b8_dw", 4, 6)):
         fn = conv_b8._fn(name)
         assert fn.restype is ctypes.c_int
         assert fn.argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
-        assert fn.argtypes[n_ptr:-1] == [ctypes.c_int] * 6
+        assert fn.argtypes[n_ptr:-1] == [ctypes.c_int] * n_int
         assert fn.argtypes[-1] is ctypes.c_void_p
     ws = conv_b8._fn("conv3x3_b8_dw_workspace")
     assert ws.restype is ctypes.c_longlong and ws.argtypes == [ctypes.c_int] * 5

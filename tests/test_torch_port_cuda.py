@@ -3,8 +3,8 @@ stride-2 K4, K4dx and K4dw, the large-channel K5 (forward and dx) and
 K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
-multiple of 32, ties), the fixed summation order of K2, K4dw, K5dw and
-K6dw, the input checks (no fallback), the launch counts, and the predictor
+multiple of 32, ties), the fixed summation order of K2, K4dw, K5, K5dw, K6
+and K6dw, the input checks (no fallback), the launch counts, and the predictor
 and the train step on the card against the CPU, with the default route,
 with ``conv_s2=True`` and with ``conv_nl=True``.
 
@@ -635,14 +635,33 @@ B8_SHAPES = [
 ]
 
 
+# K6 and K6dx where the tensor-core kernel's tiling is cut unevenly: bands
+# of unequal height (48^2 at N = 20 in 13 bands of 4 and 3 rows; 37 rows in
+# 13 bands of 3 and 2; 27 rows in 7 bands of 4 and 3 with two tiles a block;
+# 21 rows at odd N = 33), odd N, W = 8 (one pixel block a row), W = 520
+# (column windows of 5 to 8 blocks), C_in 8, 24, 40 and 12 (partial stages
+# of 16; 12 also stages the wall element by element, and so does the dx of
+# 12 and 13 channels), C_out 1, 13 and 56 (partial m-tiles), and dx's C_in
+# of 1, 13 and 56 (the forward's C_out)
+B8_EDGE_SHAPES = [
+    (3, 8, 1, 11, 8), (5, 24, 13, 13, 16), (2, 40, 56, 9, 520), (1, 8, 64, 7, 520),
+    (3, 64, 13, 19, 40), (7, 16, 56, 5, 8), (2, 12, 20, 6, 16), (20, 24, 40, 48, 48),
+    (4, 56, 24, 17, 64), (20, 8, 16, 37, 16), (64, 24, 40, 27, 16), (33, 16, 8, 21, 64),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES)
+@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES + B8_EDGE_SHAPES)
 def test_k6_and_k6dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
+    """Forward and dx against the plain version, each launched twice: the
+    two launches agree bit for bit (one mma chain per output, no atomics)."""
     dt = getattr(torch, dtype)
     x, dy, w_all = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 7)
     got = conv_b8.conv3x3_b8(x, w_all, h, w)
+    again = conv_b8.conv3x3_b8(x, w_all, h, w)
     want = conv_b8.conv3x3_b8_plain(x, w_all, h, w)
     got_dx = conv_b8.conv3x3_b8_dx(dy, w_all, h, w)
+    again_dx = conv_b8.conv3x3_b8_dx(dy, w_all, h, w)
     want_dx = conv_b8.conv3x3_b8_plain(dy, conv_chw.flip_wall(w_all).contiguous(), h, w)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (n, c_out, h * w)
@@ -651,6 +670,51 @@ def test_k6_and_k6dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
         scale = wt.float().abs().max().item()
         atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
         torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
+    assert torch.equal(got, again) and torch.equal(got_dx, again_dx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
+    """On the card conv3x3_b8_dx folds the flip into the kernel's wall
+    reads: it builds no flipped copy of the wall, and one call launches one
+    kernel, K6's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        _group,
+    )
+
+    dt = getattr(torch, dtype)
+    _, dy, w_all = _nl_inputs(cuda, 3, 24, 40, 12, 16, dt, 9)
+    want = conv_b8.conv3x3_b8_plain(dy, conv_chw.flip_wall(w_all).contiguous(), 12, 16)
+    conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16)  # built and loaded before the trace
+
+    def refuse(_w):
+        raise AssertionError("flip_wall called on the card")
+
+    monkeypatch.setattr(conv_chw, "flip_wall", refuse)
+    monkeypatch.setattr(conv_b8, "flip_wall", refuse)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and _group(names[0]).startswith("K6 "), names
+    scale = want.float().abs().max().item()
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_k6_refuses_an_unaligned_bf16_input(cuda):
+    """The tensor-core K6 lands x in 16-byte pieces: a bf16 x that starts 2
+    bytes past a 16-byte boundary is refused, not run another way."""
+    x = torch.randn(2 * 8 * 64 + 1, device=cuda).to(torch.bfloat16)[1:].view(2, 8, 64)
+    w_all = torch.randn(16, 72, device=cuda).to(torch.bfloat16)
+    before = conv_b8.conv3x3_b8.launches
+    with pytest.raises(ValueError):
+        conv_b8.conv3x3_b8(x, w_all, 8, 8)
+    assert conv_b8.conv3x3_b8.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -28,8 +28,8 @@ ROWS = {  # source -> {kernel -> the start of its row's label}
     "conv3x3_nl.cu": {"conv3x3_nl_kernel": "K5 ", "conv3x3_nl_mma_kernel": "K5 ",
                       "conv3x3_nl_dw_partial": "K5dw ", "conv3x3_nl_dw_mma_kernel": "K5dw ",
                       "conv3x3_nl_dw_reduce": "K5dw "},
-    "conv3x3_b8.cu": {"conv3x3_b8_kernel": "K6 ", "conv3x3_b8_dw_partial": "K6 ",
-                      "conv3x3_b8_dw_reduce": "K6 "},
+    "conv3x3_b8.cu": {"conv3x3_b8_kernel": "K6 ", "conv3x3_b8_mma_kernel": "K6 ",
+                      "conv3x3_b8_dw_partial": "K6 ", "conv3x3_b8_dw_reduce": "K6 "},
 }
 GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__(?:launch_bounds|maxnreg)__\s*\([^)]*\)\s*)?(\w+)\s*\(")
