@@ -22,14 +22,14 @@ Phases, each printing its seconds when it ends:
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
    ``csrc/``, one process per source, all started together; K1 and the
-   tensor-core kernels of K5, K5dw and K6 must report 0 spill bytes (and
-   the latter three at most 128 registers);
+   tensor-core kernels of K4dw, K5, K5dw and K6 must report 0 spill bytes
+   (and the latter four at most 128 registers);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
    and (20, 144), hard and soft, ties planted; K4, K4dx and K4dw at
    16->16 on 192x192 and 32->32 on 96x96, batch 20 and 160, bf16, and
-   batch 20 f32; K5, K5dx and K5dw at the four large-channel shapes, batch
+   batch 20 f32, K4dw's two launches bitwise equal; K5, K5dx and K5dw at the four large-channel shapes, batch
    20 and 160, bf16, and batch 20 f32 (K5 and K5dx also batch 160 f32); K6,
    K6dx and K6dw at the five
    stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage; K6 and
@@ -41,7 +41,8 @@ Phases, each printing its seconds when it ends:
    for K1, K1 dx, K2, K4, K4dx, K4dw, K5, K5dx, K5dw, K6, K6dx and K6dw
    (K4's at batch 20) and their cuDNN calls, and for K3, also the device
    time alone (``device_ms``, ``library_device_ms``: ``torch.profiler``'s
-   kernel durations, without the host time the events hold);
+   kernel durations, without the host time the events hold), and for bf16
+   K4dw at batch 20 that of its partial-sum and its reduce kernel apart;
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
    then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
    with the launch counts set to 0 just before each route and read just
@@ -78,8 +79,9 @@ Phases, each printing its seconds when it ends:
    before and read just after; it must launch K6, K6dx and K6dw.
 
 At the end it prints, per kernel, its launches and times per random step
-(per bench pass for K6), and tables of K2, K1, K1 dx, K5, K5 dx and K5dw by
-shape (K5's launches from the ``conv_nl`` train phase):
+(per bench pass for K6), and tables of K2, K1, K1 dx, K4, K4 dx, K4dw, K5,
+K5 dx and K5dw by shape (K4's launches from the ``conv_s2`` train phase,
+K5's from the ``conv_nl`` one; K4dw's partial and reduce apart):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
 per-step totals; and K6 and K6 dx by stage of ``bench_b8_conv`` the same
@@ -400,7 +402,7 @@ CONV_KINDS = {  # kind -> (wrapper name in its module, stride, labels of fwd, dx
 
 
 def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush=None,
-               device=None):
+               device=None, split=()):
     """One conv kernel of ``kind`` (``CONV_KINDS``; ``mod`` is the module of
     its wrappers): the forward (``which`` "fwd"), the input gradient ("dx")
     or the weight gradient ("dw") against its plain version at one forward
@@ -415,7 +417,10 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
     ``flush`` also its times and cuDNN's conv, input gradient or weight
     gradient, and the bound.  With ``device`` (the profiler's row of this
     kind's kernel, and the flush kernel's names) also the device times of
-    the kernel and the library call (:func:`device_ms`)."""
+    the kernel and the library call (:func:`device_ms`), and with ``split``
+    ((label, a substring of kernel names), ...) the device time of the
+    kernel's launches whose name holds each substring, under
+    ``rec["split_device_ms"][label]``."""
     name, stride, labels = CONV_KINDS[kind]
     c_in, c_out, h, w = shape
     ho, wo = h // stride, w // stride
@@ -484,6 +489,12 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
                                                  lambda name: name not in flush_names)
         line += f" device_ms {fmt(rec['device_ms'])} library_device_ms " \
                 f"{fmt(rec['library_device_ms'])}"
+        rec["split_device_ms"] = {
+            label: device_ms(fn, torch, flush,
+                             lambda name, part=part: _group(name) == row and part in name)
+            for label, part in split}
+        line += "".join(f" {label}_device_ms {fmt(v)}"
+                        for label, v in rec["split_device_ms"].items())
     print(line, flush=True)
     return rec
 
@@ -828,9 +839,10 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 and the tensor-core kernels of K5, K5dw and K6 are built to fit
-        # 128 registers a thread (two blocks an SM): they must not spill
-        for lib, kernel in (("conv3x3_chw", ""), ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
+        # K1 and the tensor-core kernels of K4dw, K5, K5dw and K6 are built
+        # to fit 128 registers a thread (two blocks an SM): they must not spill
+        for lib, kernel in (("conv3x3_chw", ""), ("conv3x3s2", "conv3x3s2_dw_mma_kernel"),
+                            ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
                             ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel"),
                             ("conv3x3_b8", "conv3x3_b8_mma_kernel")):
             log = built.get(lib, {}).get("log", "")
@@ -904,12 +916,17 @@ def main():
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
         # shapes, timed in bf16 at the training and the serving batch (device
-        # times at the training batch), checked in f32 at the training batch
-        s2_row = (_group("void (anonymous namespace)::conv3x3s2_fwd_kernel<1>()"), flush_names)
-        s2_recs = {(which, n): {sh: check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
-                                               n, "bfloat16", flush,
-                                               s2_row if n == TRAIN_BATCH else None)
-                                for sh in S2_SHAPES}
+        # times at the training batch, K4dw's partial sums and reduce also
+        # apart), checked in f32 at the training batch
+        s2_rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
+                   for which, name in (("fwd", "conv3x3s2_fwd_kernel"),
+                                       ("dx", "conv3x3s2_dx_kernel"),
+                                       ("dw", "tc::conv3x3s2_dw_mma_kernel"))}
+        dw_split = (("partial", "conv3x3s2_dw_mma_kernel"), ("reduce", "conv3x3s2_dw_reduce"))
+        s2_recs = {(which, n): {sh: check_conv(
+            torch, F, conv_chw, conv_s2, "s2", which, sh, n, "bfloat16", flush,
+            (s2_rows[which], flush_names) if n == TRAIN_BATCH else None,
+            dw_split if which == "dw" and n == TRAIN_BATCH else ()) for sh in S2_SHAPES}
                    for which in ("fwd", "dx", "dw") for n in (TRAIN_BATCH, SERVE_BATCH)}
         s2_f32 = {which: [check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
                                      TRAIN_BATCH, "float32") for sh in S2_SHAPES]
@@ -1193,17 +1210,29 @@ def main():
               f"{records[-1]['plain_ms']:.4f} bound {records[-1]['bound_ms']:.6f} library "
               f"{records[-1]['library_ms']} device {records[-1]['device_ms']} library "
               f"device {records[-1]['library_device_ms']}", flush=True)
-    # K2, K1, K1 dx, K5, K5 dx and K5dw by shape: launches per random step
-    # (the default configuration's, conv_nl's for K5) beside the kernels
-    # phase's times at N = 20, bf16
+    # K2, K1, K1 dx, K4, K4 dx, K4dw, K5, K5 dx and K5dw by shape: launches
+    # per random step (the default configuration's, conv_s2's for K4,
+    # conv_nl's for K5) beside the kernels phase's times at N = 20, bf16
     for name, label, library in (("conv3x3_chw_dw", "K2", "conv2d_weight"),
                                  ("conv3x3_chw", "K1", "F.conv2d"),
                                  ("conv3x3_chw_dx", "K1 dx", "conv2d_input"),
+                                 ("conv3x3s2", "K4", "F.conv2d stride 2"),
+                                 ("conv3x3s2_dx", "K4 dx", "conv2d_input stride 2"),
+                                 ("conv3x3s2_dw", "K4dw", "conv2d_weight stride 2"),
                                  ("conv3x3_nl", "K5", "F.conv2d"),
                                  ("conv3x3_nl_dx", "K5 dx", "conv2d_input"),
                                  ("conv3x3_nl_dw", "K5dw", "conv2d_weight")):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library)
+    # K4dw's two kernels apart: the partial sums and the slots' reduce
+    k4dw = per_step["conv3x3s2_dw"]
+    for label, _ in dw_split:
+        per = {sh: {"device_ms": timed["conv3x3s2_dw"][sh]["split_device_ms"][label]}
+               for sh in k4dw}
+        print(f"  K4dw {label} device ms by shape: " + ", ".join(
+            f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {fmt(per[sh]['device_ms'])}"
+            for sh in sorted(k4dw, key=lambda s: -s[2]))
+            + f"; per random step {fmt(per_call(k4dw, per, 'device_ms'))}", flush=True)
     # K6 and K6 dx by stage of bench_b8_conv: one launch each per bench pass
     # beside K1's (K1 dx's) device time at the same shape from the kernels
     # phase (every bench stage is a K1 shape of the main path with C_in > 1)

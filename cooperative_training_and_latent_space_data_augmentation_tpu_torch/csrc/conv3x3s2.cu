@@ -23,9 +23,10 @@
 //
 // What bounds them on the H100: at the main path's shapes (16->16 on 192^2,
 // 32->32 on 96^2) each moves a few MB and does 2*9*C_in*C_out MACs per
-// output pixel; on the tensor cores the bytes would bound them.  This first
-// design runs the MACs on the CUDA cores in f32 (67 TFLOP/s peak), so it is
-// bound by operations there; mma/wgmma is later work.
+// output pixel; on the tensor cores the bytes bound them (K4dw at batch 20:
+// 29.5 MB, 8.8 us, and 14.7 MB, 4.4 us).  K4 and K4dx, and K4dw's f32 path,
+// run the MACs on the CUDA cores in f32 (67 TFLOP/s peak), so they are
+// bound by operations there; K4dw's bf16 path runs them on the tensor cores.
 //
 // What the designs do about it:
 //
@@ -44,21 +45,71 @@
 //   (odd, even) by two, (odd, odd) by four.  grid.z covers images and groups
 //   of 16 input channels; the output channels are staged CK at a time.
 //
-//   K4dw is K2's design (csrc/conv3x3_chw_dw.cu) on the stride-2 windows:
-//   a block owns one image, one run of output sub-tiles ("chunk") and up to
-//   16 input channels; a thread owns one input channel and four output
-//   channels and keeps their 9 taps' 36 sums in registers.  It writes its
-//   partial (9*C_in, C_out) block to a workspace slot of its own, (image,
-//   chunk), and conv3x3s2_dw_reduce_kernel adds the slots in order.  No
-//   float atomics: two runs agree bit for bit, and the partition depends
-//   on the shapes only, so the rounding is the same on every card.
+//   K4dw, bf16 (tc::conv3x3s2_dw_mma_kernel): an implicit GEMM on the
+//   tensor cores (mma.sync m16n8k16, bf16 in, f32 out), dw^T (C_out x
+//   9*C_in) = dy (C_out x output pixels) . P^T, with the output pixels as
+//   the reduction; P is never built.
+//
+//   * A unit is a band of whole output rows (heights differing by at most
+//     one row, split on the host as q, rem) of a window of at most 96
+//     output columns of one image.  A block owns 16 input channels (grid.y
+//     covers the rest), every output channel and a run of consecutive
+//     units; about two blocks an SM in all.  For each unit it stages the
+//     2R+1 input rows of an R-row band, for all 9 taps at once, and the
+//     band's dy rows, by 16-byte cp.async two stages deep: unit s+1 is in
+//     flight while the warps multiply unit s.  A staged x row starts 8
+//     elements left of input column 2*c0 (a zero piece at the image's left
+//     edge gives column -1); a zero row gives row -1 above the image (an
+//     even H needs none below); each dy row is padded to a multiple of 16
+//     pixels with zeros, so no k-step crosses a row.  Rows that are not
+//     16-byte aligned (W/2 % 8 != 0, or an operand that starts off a
+//     16-byte boundary) are staged element by element into the same layout.
+//   * Stride 2 without a relayout: word W[c] of a staged row holds the
+//     bf16 pair (x[2c], x[2c+1]).  Output pixels p and p+1 (one B register)
+//     read columns 2p+kj-1 and 2p+kj+1: the low halves of W[p] and W[p+1]
+//     (kj = 1), their high halves (kj = 2), or the high halves of W[p-1] and
+//     W[p] (kj = 0).  p is even, so two aligned 8-byte loads, (W[p-2],
+//     W[p-1]) and (W[p], W[p+1]), and three __byte_perm give one B register
+//     of all three taps of a kernel row.
+//   * Warp (h, ki), 6 of them, owns kernel row ki and input channels
+//     8h..8h+7: three n-tiles (kj = 0, 1, 2) by every 16-channel m-tile of
+//     C_out.  A (dy) comes by ldmatrix.x4.  The x channel pitch is 16 mod 64
+//     elements, so the 8-byte loads of each half-warp hit 32 distinct
+//     banks; the dy pitch is an odd multiple of 8 elements, so the rows of
+//     an ldmatrix fall in distinct 16-byte groups.
+//   * Accuracy as in K2: each mma chain is at most two k-steps (one with
+//     four m-tiles, C_out > 32, to fit 128 registers), and its result is
+//     added to the warp's accumulators with an f32 add.
+//   * The blocks run in thread-block clusters of 2: at the end each block
+//     puts its sums in shared memory, and each block of a pair adds half
+//     of them over the pair in rank order, through distributed shared
+//     memory, into the pair's workspace slot (132 slots at 16->16 @ 192^2,
+//     66 at 32->32 @ 96^2, batch 20; straight into dw where a launch has
+//     one slot).
+//
+//   K4dw, f32: K2's CUDA-core design (csrc/conv3x3_chw_dw.cu) on the
+//   stride-2 windows, full f32: a block owns one image, one run of output
+//   sub-tiles ("chunk") and up to 16 input channels; a thread owns one
+//   input channel and four output channels and keeps their 9 taps' 36 sums
+//   in registers, and the block writes them to a workspace slot of its own,
+//   (image, chunk).
+//
+//   Both K4dw paths: conv3x3s2_dw_reduce_kernel adds the workspace slots in
+//   a fixed order (RUNS interleaved runs of slots, then the runs' sums in
+//   turn), with many blocks.  No float atomics: two runs agree bit for bit,
+//   and the partition depends on the shapes only, so the rounding is the
+//   same on every card.
 //
 // C interface (bound with ctypes): each launcher runs on the given stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError() of
 // its launches (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -252,7 +303,7 @@ conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
   }
 }
 
-// ---------------------------------------------------------------- K4dw
+// ------------------------------------------------------- K4dw, f32 (CUDA cores)
 
 constexpr int CI_T = 16;          // input channels per block; grid.z covers the rest
 constexpr int PIX = 64;           // most output pixels in one staged sub-tile
@@ -285,9 +336,9 @@ Geometry geometry(int n, int c_in, int h, int w) {
 // COB: C_out rounded up to the bucket the sums are kept for (16, 32 or 64).
 // A thread owns input channel i0 + tid / (COB/4) and output channels
 // 4*(tid % (COB/4)) .. +3; sums for o >= C_out see dy = 0 and are not stored.
-template <typename T, int COB>
+template <int COB>
 __global__ void __launch_bounds__(CI_T * COB / 4)
-conv3x3s2_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+conv3x3s2_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                             float* __restrict__ ws, int c_in, int c_out, int H,
                             int W, Geometry g) {
   constexpr int NT = CI_T * COB / 4;
@@ -305,8 +356,8 @@ conv3x3s2_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int i = i0 + il;
   const long long L = (long long)H * W;
   const long long L4 = (long long)H2 * W2;
-  const T* xn = x + (long long)n * c_in * L;
-  const T* dyn = dy + (long long)n * c_out * L4;
+  const float* xn = x + (long long)n * c_in * L;
+  const float* dyn = dy + (long long)n * c_out * L4;
   const int th = g.th, tw = g.tw;
   const int sh = 2 * th + 1, sw = 2 * tw + 1;
 
@@ -390,17 +441,527 @@ conv3x3s2_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// out[e] = sum over the workspace slots p = 0 .. parts-1 of ws[p][e], in
-// slot order.
-__global__ void conv3x3s2_dw_reduce_kernel(const float* __restrict__ ws,
-                                           float* __restrict__ out, int parts,
-                                           long long k) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= k) return;
+constexpr int RUNS = 16;  // interleaved runs of slots in the reduce
+
+// Pass 2 of both K4dw paths.  out[e] = sum over the workspace slots p = 0
+// .. parts-1 of ws[p][e] in a fixed order: thread row j of a (32, RUNS)
+// block adds slots j, j + RUNS, ... in turn, then row 0 adds the RUNS rows'
+// sums in row order.
+__global__ void __launch_bounds__(32 * RUNS)
+conv3x3s2_dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int parts,
+                           long long k) {
+  __shared__ float part[RUNS][32];
+  const long long e = (long long)blockIdx.x * 32 + threadIdx.x;
   float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += ws[(long long)p * k + e];
-  out[e] = s;
+  if (e < k) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += RUNS) s += ws[(long long)p * k + e];
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < k) {
+    float total = part[0][threadIdx.x];
+#pragma unroll
+    for (int j = 1; j < RUNS; ++j) total += part[j][threadIdx.x];
+    out[e] = total;
+  }
 }
+
+cudaError_t launch_reduce(const float* ws, float* out, int parts, int c_in, int c_out,
+                          cudaStream_t stream) {
+  const long long k = 9LL * c_in * c_out;
+  conv3x3s2_dw_reduce_kernel<<<(unsigned)((k + 31) / 32), dim3(32, RUNS), 0, stream>>>(
+      ws, out, parts, k);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- K4dw, bf16 (mma)
+
+namespace tc {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+
+constexpr int CG = 16;             // input channels a block; grid.y covers the rest
+constexpr int NWARP = 6;           // warp (h, ki) = (warp / 3, warp % 3)
+constexpr int NTH = 32 * NWARP;
+constexpr int WD_MAX = 96;         // most output columns of a window
+constexpr int XPAD = 8;            // staged x element j holds input column 2*c0 - XPAD + j
+constexpr int SMS = 132;           // SMs of an H100
+constexpr int SMEM_MOST = 113 * 1024;  // so that two blocks fit an SM
+constexpr int CLUSTER = 2;         // blocks of a cluster (see the note at the top)
+
+__host__ __device__ constexpr int red_pitch(int mt) { return 16 * mt + 4; }  // floats a row
+constexpr int red_bytes(int mt) { return 9 * CG * red_pitch(mt) * 4; }
+
+// How a launch is cut.  C_out is `mt` m-tiles of 16.  An output row is
+// `ncw` windows of `wd` columns (a multiple of 16; the last may be
+// shorter); the H/2 output rows of an image are `nb` bands, band b starting
+// at row b*bq + min(b, br) with bq rows, one more for b < br, at most
+// `rows`.  A unit is (image, band, window), `units` in all, walked in
+// runs by `blocks` blocks (grid.x) for each of `groups` groups of 16 input
+// channels (grid.y): block k takes uq units, one more for k < ur, from unit
+// k*uq + min(k, ur).  Clusters of `cl` blocks along x share one of `slots`
+// workspace slots.  A stage holds x as 16 channel rows of pitch `sx`, each
+// r2 = 2*rows + 1 staged rows of `wx` = 2*wd + XPAD elements, then dy as
+// 16*mt channels of pitch `sd`, each `rows` rows of `wd` pixels; `stage`
+// elements in all.  Landing by cp.async: lanes 2^lsh_x land one x row (2^lsh_d
+// one dy row); a thread's landing rows advance by (dch, drr) channels and
+// rows a step.
+struct Geometry {
+  int mt, wd, wx, ncw, rows, nb, bq, br, r2;
+  int units, blocks, uq, ur, cl, slots, groups;
+  int sx, sd, stage, lsh_x, lsh_d, dch_x, drr_x, dch_d, drr_d;
+  int smem;  // bytes
+};
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+inline int round_up(int a, int m) { return ceil_div(a, m) * m; }
+// The smallest v >= a with v % m == r (0 <= r < m).
+inline int round_up_to(int a, int m, int r) { return a + ((r - a % m) % m + m) % m; }
+inline int log2_lanes(int per_row) {
+  int s = 0;
+  while (s < 5 && (1 << s) < per_row) ++s;
+  return s;
+}
+
+// The band height whose busiest block stages the fewest bytes (plus a
+// share for each unit's set-up), over heights whose two stages fit
+// SMEM_MOST; the grid is about one wave of two blocks an SM.  Shapes only,
+// so the summation order is the same on every card.  units == 0: no cut.
+Geometry geometry(int n, int c_in, int c_out, int h, int w) {
+  const int h2 = h / 2, w2 = w / 2;
+  Geometry best{};
+  long long best_cost = -1;
+  Geometry g{};
+  g.mt = c_out <= 16 ? 1 : (c_out <= 32 ? 2 : 4);
+  g.ncw = ceil_div(w2, WD_MAX);
+  g.wd = round_up(ceil_div(w2, g.ncw), 16);
+  g.wx = 2 * g.wd + XPAD;
+  g.groups = ceil_div(c_in, CG);
+  const int target = g.groups >= 2 * SMS ? 1 : 2 * SMS / g.groups;
+  const int cg_bytes = 2 * (c_in < CG ? c_in : CG);
+  for (int r = 1; r <= h2; ++r) {
+    g.nb = ceil_div(h2, r);
+    g.rows = ceil_div(h2, g.nb);
+    if (g.rows != r) continue;  // the same cut as a lower height
+    g.r2 = 2 * g.rows + 1;
+    g.sx = round_up_to(g.r2 * g.wx, 64, 16);
+    g.sd = round_up_to(g.rows * g.wd, 16, 8);
+    g.stage = CG * g.sx + 16 * g.mt * g.sd;
+    g.smem = 2 * 2 * g.stage > red_bytes(g.mt) ? 2 * 2 * g.stage : red_bytes(g.mt);
+    if (g.smem > SMEM_MOST) break;
+    const long long units = (long long)n * g.nb * g.ncw;
+    if (units > 0x7fffffffLL) break;
+    g.units = (int)units;
+    g.blocks = g.units < target ? g.units : target;
+    if (g.blocks >= CLUSTER) g.blocks -= g.blocks % CLUSTER;
+    const long long cost = (long long)ceil_div(g.units, g.blocks) *
+                           ((long long)cg_bytes * g.r2 * g.wx + 2LL * c_out * g.rows * g.wd + 4096);
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  if (best_cost < 0) return Geometry{};
+  g = best;
+  g.bq = h2 / g.nb;
+  g.br = h2 % g.nb;
+  g.uq = g.units / g.blocks;
+  g.ur = g.units % g.blocks;
+  g.cl = g.blocks >= CLUSTER ? CLUSTER : 1;
+  g.slots = g.blocks / g.cl;
+  g.lsh_x = log2_lanes(g.wx / 8);
+  g.lsh_d = log2_lanes(g.wd / 8);
+  const int step_x = NWARP * (32 >> g.lsh_x), step_d = NWARP * (32 >> g.lsh_d);
+  g.dch_x = step_x / g.r2;
+  g.drr_x = step_x % g.r2;
+  g.dch_d = step_d / g.rows;
+  g.drr_d = step_d % g.rows;
+  return g;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or 16 zero bytes when bytes == 0 (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(smem_addr(p)));
+}
+
+// d = a . b (fresh) or d += a . b; m16n8k16, bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of one k-step (16 output pixels) for the three taps of a
+// kernel row: b[kj][0] holds output pixels (2q, 2q+1) of the k-step, b[kj][1]
+// pixels (2q+8, 2q+9).  xp: the lane's staged channel row at word W[p], p
+// the k-step's first pixel + 2q (even), so xp - 4 .. xp + 3 hold W[p-2] ..
+// W[p+1] and xp + 12 .. xp + 19 the same 8 pixels on.
+__device__ __forceinline__ void b_frags(uint32_t (&b)[3][2], const bf16* xp) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint2 lo = *reinterpret_cast<const uint2*>(xp + 16 * half - 4);  // W[p-2], W[p-1]
+    const uint2 hi = *reinterpret_cast<const uint2*>(xp + 16 * half);      // W[p], W[p+1]
+    b[0][half] = __byte_perm(lo.y, hi.x, 0x7632);  // columns 2p-1, 2p+1
+    b[1][half] = __byte_perm(hi.x, hi.y, 0x5410);  // columns 2p, 2p+2
+    b[2][half] = __byte_perm(hi.x, hi.y, 0x7632);  // columns 2p+1, 2p+3
+  }
+}
+
+// One or two k-steps (TWO) at one position of a band row, for every
+// m-tile: the chain is fresh at the first k-step and added into acc with
+// an f32 add after the last.  ap: the lane's ldmatrix row of m-tile 0.
+template <int MT, bool TWO>
+__device__ __forceinline__ void k_steps(float (&acc)[MT][3][4], const bf16* xp, const bf16* ap,
+                                        int sd) {
+  uint32_t b0[3][2], b1[3][2];
+  b_frags(b0, xp);
+  if (TWO) b_frags(b1, xp + 32);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float t[3][4];
+    uint32_t a[4];
+    ldmatrix_x4(a, ap + m * 16 * sd);
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj) mma_fresh(t[kj], a, b0[kj][0], b0[kj][1]);
+    if (TWO) {
+      ldmatrix_x4(a, ap + m * 16 * sd + 16);
+#pragma unroll
+      for (int kj = 0; kj < 3; ++kj) mma_acc(t[kj], a, b1[kj][0], b1[kj][1]);
+    }
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][kj][e] += t[kj][e];
+  }
+}
+
+// The unit a block stages or multiplies: image, band, window.
+struct Unit {
+  int img, band, win;
+};
+
+__device__ __forceinline__ void advance(Unit& u, const Geometry& g) {
+  if (++u.win == g.ncw) {
+    u.win = 0;
+    if (++u.band == g.nb) {
+      u.band = 0;
+      ++u.img;
+    }
+  }
+}
+
+// Grid (blocks, groups) in clusters of g.cl blocks along x, NTH threads, at
+// most 128 registers each (two blocks an SM).  Block (k, z) sums dw over
+// its run of units for input channels 16z .. 16z+15 and every output
+// channel; the blocks of a cluster add their sums into slot k / cl of ws,
+// (9*c_in, c_out) floats a slot, row t*c_in + i.  vec: x and dy land by
+// cp.async (W/2 % 8 == 0, both 16-byte aligned); else element by element.
+template <int MT>
+__global__ void __maxnreg__(128)
+conv3x3s2_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                        float* __restrict__ ws, int c_in, int c_out, int H, int W, Geometry g,
+                        int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const stage0 = reinterpret_cast<bf16*>(smem);
+
+  // Channels past the block's or past C_out are never staged: zero both
+  // stages once.
+  for (int e = threadIdx.x; e < g.stage / 4; e += NTH)  // 2 stages * 2 B / 16 B
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = warp / 3, ki = warp - 3 * h;
+  const int i0 = blockIdx.y * CG;
+  const int cg = min(CG, c_in - i0);
+  const bool active = 8 * h < cg;
+  const int H2 = H / 2, W2 = W / 2;
+  const long long L = (long long)H * W, L4 = (long long)H2 * W2;
+  const int k = blockIdx.x;
+  const int n_units = g.uq + (k < g.ur);
+  Unit su, mu;  // the next unit to stage, the next to multiply
+  {
+    const int u = k * g.uq + min(k, g.ur);
+    const int per_image = g.nb * g.ncw;
+    su.img = u / per_image;
+    const int b = u - su.img * per_image;
+    su.band = b / g.ncw;
+    su.win = b - su.band * g.ncw;
+    mu = su;
+  }
+  // This thread's first landing rows: x (channel, staged row), dy
+  // (channel, row); each step moves them by (dch, drr).
+  const int rx = warp * (32 >> g.lsh_x) + (lane >> g.lsh_x);
+  const int rd = warp * (32 >> g.lsh_d) + (lane >> g.lsh_d);
+  const int ch_x0 = rx / g.r2, rr_x0 = rx - ch_x0 * g.r2;
+  const int ch_d0 = rd / g.rows, rr_d0 = rd - ch_d0 * g.rows;
+
+  // Stage unit u into stage buffer xs (x, then dy at xs + CG*sx): every
+  // element of the block's channels is written, with the image's values or
+  // zero.
+  auto stage = [&](const Unit& u, bf16* xs) {
+    bf16* ds = xs + CG * g.sx;
+    const int y0 = u.band * g.bq + min(u.band, g.br);
+    const int rb = g.bq + (u.band < g.br);  // output rows of the band
+    const int xr = 2 * rb + 1;              // input rows they read
+    const int c0 = u.win * g.wd;
+    const int gy0 = 2 * y0 - 1, gx0 = 2 * c0 - XPAD;
+    const bf16* xn = x + ((long long)u.img * c_in + i0) * L;
+    const bf16* dn = dy + (long long)u.img * c_out * L4;
+    if (vec) {
+      {
+        const int step = 1 << g.lsh_x, cpr = g.wx / 8, j0 = lane & (step - 1);
+        int ch = ch_x0, rr = rr_x0;
+        while (ch < cg) {
+          const int gy = gy0 + rr;
+          const bool row_in = rr < xr && gy >= 0 && gy < H;
+          const bf16* src = xn + ch * L + (long long)gy * W;
+          bf16* dst = xs + ch * g.sx + rr * g.wx;
+          for (int j = j0; j < cpr; j += step) {
+            const int gc = gx0 + 8 * j;
+            const bool in = row_in && gc >= 0 && gc < W;
+            cp_async16(dst + 8 * j, in ? src + gc : x, in ? 16 : 0);
+          }
+          rr += g.drr_x;
+          ch += g.dch_x;
+          if (rr >= g.r2) {
+            rr -= g.r2;
+            ++ch;
+          }
+        }
+      }
+      {
+        const int step = 1 << g.lsh_d, cpr = g.wd / 8, j0 = lane & (step - 1);
+        int ch = ch_d0, rr = rr_d0;
+        while (ch < c_out) {
+          const bf16* src = dn + ch * L4 + (long long)(y0 + rr) * W2;
+          bf16* dst = ds + ch * g.sd + rr * g.wd;
+          for (int j = j0; j < cpr; j += step) {
+            const int gc = c0 + 8 * j;
+            const bool in = rr < rb && gc < W2;
+            cp_async16(dst + 8 * j, in ? src + gc : dy, in ? 16 : 0);
+          }
+          rr += g.drr_d;
+          ch += g.dch_d;
+          if (rr >= g.rows) {
+            rr -= g.rows;
+            ++ch;
+          }
+        }
+      }
+    } else {
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      for (int ch = 0; ch < cg; ++ch)
+        for (int rr = warp; rr < g.r2; rr += NWARP) {
+          const int gy = gy0 + rr;
+          const bool row_in = rr < xr && gy >= 0 && gy < H;
+          const bf16* src = xn + ch * L + (long long)gy * W;
+          bf16* dst = xs + ch * g.sx + rr * g.wx;
+          for (int j = lane; j < g.wx; j += 32) {
+            const int gc = gx0 + j;
+            dst[j] = row_in && gc >= 0 && gc < W ? src[gc] : zero;
+          }
+        }
+      for (int ch = 0; ch < c_out; ++ch)
+        for (int rr = warp; rr < g.rows; rr += NWARP) {
+          const bf16* src = dn + ch * L4 + (long long)(y0 + rr) * W2;
+          bf16* dst = ds + ch * g.sd + rr * g.wd;
+          for (int j = lane; j < g.wd; j += 32) {
+            const int gc = c0 + j;
+            dst[j] = rr < rb && gc < W2 ? src[gc] : zero;
+          }
+        }
+    }
+  };
+
+  const int gq = lane >> 2, q = lane & 3;
+  const int x_lane = (8 * h + gq) * g.sx + ki * g.wx + XPAD + 4 * q;
+  const int a_lane = (lane & 15) * g.sd + (lane >> 4) * 8;
+
+  float acc[MT][3][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][kj][e] = 0.f;
+
+  // Unit s of the run goes to stage s & 1, one commit group each (empty
+  // past the run); unit s + 1 is in flight while unit s is multiplied.
+  auto stage_ahead = [&](int s) {
+    if (s < n_units) {
+      stage(su, stage0 + (s & 1) * g.stage);
+      advance(su, g);
+    }
+    cp_async_commit();
+  };
+  stage_ahead(0);
+  for (int s = 0; s < n_units; ++s) {
+    stage_ahead(s + 1);     // into the stage unit s - 1 left
+    cp_async_wait_prior();  // unit s has landed
+    __syncthreads();
+    if (active) {
+      const int rb = g.bq + (mu.band < g.br);
+      const int c0 = mu.win * g.wd;
+      const int cols = min(g.wd, (W2 - c0 + 15) / 16 * 16);
+      const bf16* xs = stage0 + (s & 1) * g.stage;
+      const bf16* xl = xs + x_lane;
+      const bf16* al = xs + CG * g.sx + a_lane;
+      for (int r = 0; r < rb; ++r) {
+        const bf16* xr = xl + 2 * r * g.wx;  // staged rows 2r + ki
+        const bf16* ar = al + r * g.wd;
+        // chains of two k-steps; of one with four m-tiles, whose 48
+        // accumulators leave no room for a second k-step's B in 128 registers
+        int c = 0;
+        if (MT < 4)
+          for (; c + 32 <= cols; c += 32) k_steps<MT, true>(acc, xr + 2 * c, ar + c, g.sd);
+        for (; c < cols; c += 16) k_steps<MT, false>(acc, xr + 2 * c, ar + c, g.sd);
+      }
+    }
+    advance(mu, g);
+    __syncthreads();  // this stage is free for unit s + 2
+  }
+
+  // The block's sums into shared memory, rows (t, il) of pitch red_pitch:
+  // acc[m][kj][e] is output channel 16m + gq (+8 for e >= 2), input channel
+  // i0 + 8h + 2q + (e & 1), tap 3*ki + kj (the m16n8 accumulator layout).
+  // Then block `rank` of the cluster adds rows [rank * part, (rank + 1) *
+  // part) over the cluster's blocks in rank order, through distributed
+  // shared memory, and stores them in the slot.
+  cp_async_wait_all();  // the groups committed past the run are empty
+  __syncthreads();
+  constexpr int RP = red_pitch(MT);
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((3 * ki + kj) * CG + 8 * h + 2 * q + (e & 1)) * RP + 16 * m + gq + 8 * (e >> 1)] =
+            acc[m][kj][e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block of the cluster holds its sums
+  const int rank = (int)cluster.block_rank();
+  const int part = 9 * CG / g.cl;
+  float* slot = ws + (long long)(blockIdx.x / g.cl) * 9 * c_in * c_out;
+  for (int e = threadIdx.x; e < part * 4 * MT; e += NTH) {
+    const int row = rank * part + e / (4 * MT), col = 4 * (e % (4 * MT));
+    float4 v[CLUSTER];
+#pragma unroll
+    for (int b = 0; b < CLUSTER; ++b)
+      if (b < g.cl)
+        v[b] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, b) + row * RP + col);
+    float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int b = 1; b < CLUSTER; ++b)
+      if (b < g.cl) {
+        sum[0] += v[b].x;
+        sum[1] += v[b].y;
+        sum[2] += v[b].z;
+        sum[3] += v[b].w;
+      }
+    const int t = row / CG, i = i0 + row % CG;
+    if (i < c_in)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (col + c < c_out) slot[((long long)t * c_in + i) * c_out + col + c] = sum[c];
+  }
+  cluster.sync();  // the other blocks have read this block's sums
+}
+
+// Allows the kernel SMEM_MOST bytes of dynamic shared memory, once for each
+// device (the attribute is kept per context).
+template <int MT>
+cudaError_t allow_smem() {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(conv3x3s2_dw_mma_kernel<MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int MT>
+cudaError_t launch_partial(const bf16* x, const bf16* dy, float* ws, int c_in, int c_out, int h,
+                           int w, const Geometry& g, int vec, cudaStream_t stream) {
+  cudaError_t err = allow_smem<MT>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.blocks, g.groups);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = g.cl;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv3x3s2_dw_mma_kernel<MT>, x, dy, ws, c_in, c_out, h, w, g,
+                           vec);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
+}
+
+inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch(const void* x, const void* dy, float* ws, float* out, int n, int c_in,
+                   int c_out, int h, int w, cudaStream_t stream) {
+  const Geometry g = geometry(n, c_in, c_out, h, w);
+  if (g.units < 1 || g.groups > 65535) return cudaErrorInvalidConfiguration;
+  const int vec = (w / 2) % 8 == 0 && aligned(x) && aligned(dy);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* dp = static_cast<const bf16*>(dy);
+  float* dst = g.slots > 1 ? ws : out;
+  cudaError_t err;
+  if (g.mt == 1)
+    err = launch_partial<1>(xp, dp, dst, c_in, c_out, h, w, g, vec, stream);
+  else if (g.mt == 2)
+    err = launch_partial<2>(xp, dp, dst, c_in, c_out, h, w, g, vec, stream);
+  else
+    err = launch_partial<4>(xp, dp, dst, c_in, c_out, h, w, g, vec, stream);
+  if (err != cudaSuccess || g.slots == 1) return err;
+  return launch_reduce(ws, out, g.slots, c_in, c_out, stream);
+}
+
+}  // namespace tc
 
 // ------------------------------------------------------------ launchers
 
@@ -431,30 +992,23 @@ cudaError_t launch_dx(const void* dy, const void* w_all, void* dx, int n,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out,
-                      int n, int c_in, int c_out, int h, int w,
-                      cudaStream_t stream) {
+// K4dw, f32: the CUDA-core partial sums, then the slots' reduce.
+cudaError_t launch_dw_f32(const float* x, const float* dy, float* ws, float* out, int n,
+                          int c_in, int c_out, int h, int w, cudaStream_t stream) {
   const Geometry g = geometry(n, c_in, h, w);
   const dim3 grid(g.chunks, n, g.groups);
-  const T* xp = static_cast<const T*>(x);
-  const T* dp = static_cast<const T*>(dy);
   if (c_out <= 16)
-    conv3x3s2_dw_partial_kernel<T, 16><<<grid, CI_T * 16 / 4, 0, stream>>>(
-        xp, dp, ws, c_in, c_out, h, w, g);
+    conv3x3s2_dw_partial_kernel<16><<<grid, CI_T * 16 / 4, 0, stream>>>(
+        x, dy, ws, c_in, c_out, h, w, g);
   else if (c_out <= 32)
-    conv3x3s2_dw_partial_kernel<T, 32><<<grid, CI_T * 32 / 4, 0, stream>>>(
-        xp, dp, ws, c_in, c_out, h, w, g);
+    conv3x3s2_dw_partial_kernel<32><<<grid, CI_T * 32 / 4, 0, stream>>>(
+        x, dy, ws, c_in, c_out, h, w, g);
   else
-    conv3x3s2_dw_partial_kernel<T, 64><<<grid, CI_T * 64 / 4, 0, stream>>>(
-        xp, dp, ws, c_in, c_out, h, w, g);
-  cudaError_t err = cudaGetLastError();
+    conv3x3s2_dw_partial_kernel<64><<<grid, CI_T * 64 / 4, 0, stream>>>(
+        x, dy, ws, c_in, c_out, h, w, g);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long k = 9LL * c_in * c_out;
-  const int threads = 256;
-  conv3x3s2_dw_reduce_kernel<<<(unsigned)((k + threads - 1) / threads), threads, 0,
-                               stream>>>(ws, out, n * g.chunks, k);
-  return cudaGetLastError();
+  return launch_reduce(ws, out, n * g.chunks, c_in, c_out, stream);
 }
 
 // Shapes every launcher takes: H and W even, C_out <= 64, grids in range.
@@ -494,16 +1048,20 @@ int conv3x3s2_dx(const void* dy, const void* w_all, void* dx, int n, int c_in,
   return static_cast<int>(err);
 }
 
-// Floats of workspace conv3x3s2_dw needs for these shapes (0 if invalid).
-long long conv3x3s2_dw_workspace(int n, int c_in, int c_out, int h, int w) {
+// Floats of workspace conv3x3s2_dw needs for these shapes and this dtype
+// (0 if invalid): the slots of the route that runs, the tensor-core one
+// for bfloat16 (is_bf16 = 1), the CUDA-core one for float32.
+long long conv3x3s2_dw_workspace(int n, int c_in, int c_out, int h, int w, int is_bf16) {
   if (!valid(n, c_in, c_out, h, w)) return 0;
-  const Geometry g = geometry(n, c_in, h, w);
-  return (long long)n * g.chunks * 9 * c_in * c_out;
+  const long long slots = is_bf16 ? tc::geometry(n, c_in, c_out, h, w).slots
+                                  : (long long)n * geometry(n, c_in, h, w).chunks;
+  return slots * 9 * c_in * c_out;
 }
 
 // K4dw.  x: (n, c_in, h*w), dy: (n, c_out, h/2*w/2), as above; ws: at least
 // conv3x3s2_dw_workspace(...) floats; out: (9*c_in, c_out) float32, row
-// t*c_in + i.  Returns a cudaError_t as int.
+// t*c_in + i.  bf16 runs on the tensor cores, f32 on the CUDA cores.
+// Returns a cudaError_t as int.
 int conv3x3s2_dw(const void* x, const void* dy, void* ws, void* out, int n,
                  int c_in, int c_out, int h, int w, int is_bf16, void* stream) {
   if (!valid(n, c_in, c_out, h, w)) return static_cast<int>(cudaErrorInvalidValue);
@@ -511,8 +1069,9 @@ int conv3x3s2_dw(const void* x, const void* dy, void* ws, void* out, int n,
   float* wsp = static_cast<float*>(ws);
   float* op = static_cast<float*>(out);
   const cudaError_t err =
-      is_bf16 ? launch_dw<__nv_bfloat16>(x, dy, wsp, op, n, c_in, c_out, h, w, s)
-              : launch_dw<float>(x, dy, wsp, op, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch(x, dy, wsp, op, n, c_in, c_out, h, w, s)
+              : launch_dw_f32(static_cast<const float*>(x), static_cast<const float*>(dy), wsp,
+                              op, n, c_in, c_out, h, w, s);
   return static_cast<int>(err);
 }
 

@@ -110,7 +110,7 @@ _SIGNATURES = {  # C function -> argtypes; pointers and the stream as c_void_p
     "conv3x3s2": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "conv3x3s2_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "conv3x3s2_dw": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "conv3x3s2_dw_workspace": [ctypes.c_int] * 5,
+    "conv3x3s2_dw_workspace": [ctypes.c_int] * 6,
 }
 
 
@@ -191,7 +191,8 @@ def conv3x3s2_dw(x: torch.Tensor, dy: torch.Tensor, H: int, W: int) -> torch.Ten
         raise ValueError(f"conv3x3s2_dw: no kernel for device {x.device}")
     n, c_in, _ = x.shape
     c_out = dy.shape[1]
-    work = torch.empty(_fn("conv3x3s2_dw_workspace")(n, c_in, c_out, H, W),
+    work = torch.empty(_fn("conv3x3s2_dw_workspace")(n, c_in, c_out, H, W,
+                                                     int(x.dtype == torch.bfloat16)),
                        dtype=torch.float32, device=x.device)
     out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=x.device)
     _launch("conv3x3s2_dw", f"x {tuple(x.shape)}, dy {tuple(dy.shape)}", x, x.data_ptr(),

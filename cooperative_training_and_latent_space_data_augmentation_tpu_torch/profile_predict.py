@@ -7,7 +7,7 @@ Serves phantom requests (bf16, weights from a seed) through
 of them with ``torch.profiler``.  Prints, per batch size (20 and 160): the
 host-clock latency of a request (numpy in, numpy out) over 50 untraced
 requests, as min / median / p90 / max, the device time per request by
-group (kernels K1, K4 and K5, cuDNN convolutions, other kernels, copies), the
+group (kernels K1, K4, K4dw and K5, cuDNN convolutions, other kernels, copies), the
 device's idle share over the traced window, and the kernels that take the
 most device time.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
 (the encoders' stride-2 downsamples on K4), ``--conv-nl`` the
@@ -47,8 +47,10 @@ def _group(name: str) -> str:
         return "K5 conv3x3_nl (forward and dx)"
     if "conv3x3_b8" in name:
         return "K6 conv3x3_b8 (forward, dx and dw)"
+    if "conv3x3s2_dw" in name:
+        return "K4dw conv3x3s2_dw"
     if "conv3x3s2" in name:
-        return "K4 conv3x3s2 (forward, dx and dw)"
+        return "K4 conv3x3s2 (forward and dx)"
     if any(k in name for k in ("conv3x3_chw_kernel", "conv3x3_chw_mma_kernel")):
         return "K1 conv3x3_chw (forward and dx)"
     if any(k in name for k in ("dw_partial_kernel", "dw_mma_partial_kernel",

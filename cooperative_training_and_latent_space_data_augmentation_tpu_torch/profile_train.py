@@ -8,7 +8,7 @@ phantom batch, as ``chip_smoke.py``'s train phase does.  After 3 warm-up
 steps it times 20 untraced steps on the host clock (each ending in a
 synchronize) as min / median / p90 / max, then traces 5 steps with
 ``torch.profiler`` and prints the device time per step by group (K1 forward
-and dx, K2, K3, K4 with K4dx and K4dw, K5 with its dx and K5dw, cuDNN,
+and dx, K2, K3, K4 with K4dx, K4dw, K5 with its dx, K5dw, cuDNN,
 other kernels, copies), the device's idle share over the traced window, and
 the kernels that take the most device time.  ``--conv-s2`` trains the
 ``conv_s2=True`` configuration (the encoders' stride-2 downsamples on K4),

@@ -283,7 +283,7 @@ def test_kernel_binding_declares_pointer_arguments(monkeypatch):
         assert fn.argtypes[n_ptr:-1] == [ctypes.c_int] * 6
         assert fn.argtypes[-1] is ctypes.c_void_p
     ws = conv_s2._fn("conv3x3s2_dw_workspace")
-    assert ws.restype is ctypes.c_longlong and ws.argtypes == [ctypes.c_int] * 5
+    assert ws.restype is ctypes.c_longlong and ws.argtypes == [ctypes.c_int] * 6
 
 
 def test_parameters_are_the_same_under_both_routes():

@@ -4,7 +4,8 @@ K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
 multiple of 32, ties), the fixed summation order of K2, K4dw, K5, K5dw, K6
-and K6dw, the input checks (no fallback), the launch counts, and the predictor
+and K6dw, K4dw and K5dw on unaligned operands and inside the workspace they
+report, the input checks (no fallback), the launch counts, and the predictor
 and the train step on the card against the CPU, with the default route,
 with ``conv_s2=True`` and with ``conv_nl=True``.
 
@@ -342,8 +343,21 @@ def test_k4_and_k4dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
         torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
 
 
+# the tensor-core K4dw's tiling: bands that do not divide H/2 (95 and 19
+# output rows), W/2 a multiple of 8 but not of 16 (k-steps padded with dy
+# zeros), odd W/2 (17, 35: element-wise staging), C_in not a multiple of 8
+# or 16 (12, 24, 40: a last group of 8), every C_out bucket (5, 17, 24, 40,
+# 48, 64), N = 1 and 3, rows wider than a window (W/2 = 152, landed; 150,
+# element-wise), and the main path's shapes at the serving batch
+S2_DW_SHAPES = [
+    (20, 16, 16, 190, 192), (3, 16, 24, 38, 96), (2, 16, 16, 20, 80), (3, 16, 5, 14, 34),
+    (1, 24, 40, 10, 70), (2, 12, 48, 16, 32), (2, 3, 64, 12, 48), (3, 40, 17, 24, 16),
+    (1, 16, 32, 6, 304), (2, 8, 16, 4, 300), (160, 16, 16, 192, 192), (160, 32, 32, 96, 96),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_SHAPES)
+@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_SHAPES + S2_DW_SHAPES)
 def test_k4dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
     dt = getattr(torch, dtype)
     x, dy, _ = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 4)
@@ -356,6 +370,47 @@ def test_k4dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, 
     # another order
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [(20, 16, 16, 192, 192), (3, 24, 40, 10, 64)])
+def test_k4dw_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
+    """x and dy that start 2 bytes past a 16-byte boundary: the kernel
+    stages them element by element and gives the same sums."""
+    dt = getattr(torch, dtype)
+    x, dy, _ = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 12)
+    xu = torch.empty(x.numel() + 1, dtype=dt, device=cuda)[1:].view(x.shape)
+    dyu = torch.empty(dy.numel() + 1, dtype=dt, device=cuda)[1:].view(dy.shape)
+    xu.copy_(x)
+    dyu.copy_(dy)
+    got = conv_s2.conv3x3s2_dw(xu, dyu, h, w)
+    want = conv_s2.conv3x3s2_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, conv_s2.conv3x3s2_dw(xu, dyu, h, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [
+    (20, 16, 16, 192, 192), (20, 32, 32, 96, 96), (160, 32, 32, 96, 96), (3, 40, 17, 24, 16),
+    (2, 8, 16, 4, 300),
+])
+def test_k4dw_stays_inside_its_workspace(cuda, n, c_in, c_out, h, w, dtype):
+    """The C function through the port's binding, with the workspace it
+    reports for these shapes plus a tail of sentinels: the sums are right
+    and the tail is untouched, for either dtype's route."""
+    dt = getattr(torch, dtype)
+    x, dy, _ = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 13)
+    size = conv_s2._fn("conv3x3s2_dw_workspace")(n, c_in, c_out, h, w, int(dt == torch.bfloat16))
+    assert size >= 9 * c_in * c_out
+    work = torch.full((size + 4096,), 1234.5, dtype=torch.float32, device=cuda)
+    out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=cuda)
+    conv_s2._launch("conv3x3s2_dw", "sentinel test", x, x.data_ptr(), dy.data_ptr(),
+                    work.data_ptr(), out.data_ptr(), n, c_in, c_out, h, w)
+    want = conv_s2.conv3x3s2_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert bool((work[size:] == 1234.5).all())
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
 def test_k4_rejects_bad_input_without_fallback(cuda):

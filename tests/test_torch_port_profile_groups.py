@@ -5,8 +5,9 @@ substring; a K1 kernel whose name it does not know would land in the cuDNN
 row ("conv" in its name) and K1's device time would move there unseen.  This
 reads every ``__global__`` function of each ``csrc/*.cu`` source, checks
 that the map below names each of them (a new kernel must be given its row),
-builds the name as the profiler prints it and checks the row.  K5's source
-holds two rows: the forward (also run for dx) and K5dw.  CPU only, no CUDA.
+builds the name as the profiler prints it and checks the row.  K4's and
+K5's sources hold two rows each: the forward (K4 also with K4dx, K5 also
+run for dx) and the weight gradient (K4dw, K5dw).  CPU only, no CUDA.
 """
 
 import re
@@ -24,7 +25,8 @@ ROWS = {  # source -> {kernel -> the start of its row's label}
                           "dw_reduce_kernel": "K2 "},
     "percentile_mask.cu": {"percentile_mask_kernel": "K3 "},
     "conv3x3s2.cu": {"conv3x3s2_fwd_kernel": "K4 ", "conv3x3s2_dx_kernel": "K4 ",
-                     "conv3x3s2_dw_partial_kernel": "K4 ", "conv3x3s2_dw_reduce_kernel": "K4 "},
+                     "conv3x3s2_dw_partial_kernel": "K4dw ", "conv3x3s2_dw_mma_kernel": "K4dw ",
+                     "conv3x3s2_dw_reduce_kernel": "K4dw "},
     "conv3x3_nl.cu": {"conv3x3_nl_kernel": "K5 ", "conv3x3_nl_mma_kernel": "K5 ",
                       "conv3x3_nl_dw_partial": "K5dw ", "conv3x3_nl_dw_mma_kernel": "K5dw ",
                       "conv3x3_nl_dw_reduce": "K5dw "},
