@@ -22,8 +22,8 @@ Phases, each printing its seconds when it ends:
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
    ``csrc/``, one process per source, all started together; K1 and the
-   tensor-core kernels of K4dw, K5, K5dw and K6 must report 0 spill bytes
-   (and the latter four at most 128 registers);
+   tensor-core kernels of K4dw, K5, K5dw, K6 and K6dw must report 0 spill
+   bytes (and the latter five at most 128 registers);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
@@ -32,8 +32,8 @@ Phases, each printing its seconds when it ends:
    batch 20 f32, K4dw's two launches bitwise equal; K5, K5dx and K5dw at the four large-channel shapes, batch
    20 and 160, bf16, and batch 20 f32 (K5 and K5dx also batch 160 f32); K6,
    K6dx and K6dw at the five
-   stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage; K6 and
-   K6dx also launched twice, bitwise equal), with the
+   stages of ``bench_b8_conv``, batch 20, bf16, and one f32 stage; K6,
+   K6dx and K6dw also launched twice, bitwise equal), with the
    tolerance stated; median times from CUDA events
    for the kernel, the plain version and one library call computing the
    same function where there is one (``library_ms``, a yardstick the port
@@ -42,7 +42,8 @@ Phases, each printing its seconds when it ends:
    (K4's at batch 20) and their cuDNN calls, and for K3, also the device
    time alone (``device_ms``, ``library_device_ms``: ``torch.profiler``'s
    kernel durations, without the host time the events hold), and for bf16
-   K4dw at batch 20 that of its partial-sum and its reduce kernel apart;
+   K4dw at batch 20 and K6dw at the bench's stages that of their
+   partial-sum and reduce kernels apart;
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
    then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
    with the launch counts set to 0 just before each route and read just
@@ -84,8 +85,9 @@ K5 dx and K5dw by shape (K4's launches from the ``conv_s2`` train phase,
 K5's from the ``conv_nl`` one; K4dw's partial and reduce apart):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
-per-step totals; and K6 and K6 dx by stage of ``bench_b8_conv`` the same
-per bench pass, beside K1's (K1 dx's) device ms at the same shape.  The
+per-step totals; and K6, K6 dx and K6dw by stage of ``bench_b8_conv`` the
+same per bench pass, beside K1's (K1 dx's, K2's) device ms at the same
+shape, with K6dw's partial and reduce apart.  The
 last lines are the card's ``nvidia-smi`` line, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``,
 printed only when every phase passed.  Any failure exits non-zero.
@@ -839,12 +841,14 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 and the tensor-core kernels of K4dw, K5, K5dw and K6 are built
-        # to fit 128 registers a thread (two blocks an SM): they must not spill
+        # K1 and the tensor-core kernels of K4dw, K5, K5dw, K6 and K6dw are
+        # built to fit 128 registers a thread (two blocks an SM): they must
+        # not spill
         for lib, kernel in (("conv3x3_chw", ""), ("conv3x3s2", "conv3x3s2_dw_mma_kernel"),
                             ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
                             ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel"),
-                            ("conv3x3_b8", "conv3x3_b8_mma_kernel")):
+                            ("conv3x3_b8", "conv3x3_b8_mma_kernel"),
+                            ("conv3x3_b8", "conv3x3_b8_dw_mma_kernel")):
             log = built.get(lib, {}).get("log", "")
             spills = spill_lines(log, kernel)
             if spills:
@@ -945,11 +949,18 @@ def main():
                             for sh in NL_SHAPES for n, dt in nl_checks[which]]
                     for which in ("fwd", "dx", "dw")}
         # K6, K6dx and K6dw at the five stages of bench_b8_conv, timed in
-        # bf16 at its batch (with device times), and one stage checked in f32
+        # bf16 at its batch (with device times, K6dw's partial sums and
+        # reduce also apart), and one stage checked in f32
         b8_shapes = [(ci, co, h, h) for h, ci, co in bench_b8_conv.STAGES]
-        b8_row = (_group("void (anonymous namespace)::conv3x3_b8_kernel<1>()"), flush_names)
+        b8_rows = {which: _group(f"void (anonymous namespace)::tc::{name}<1>()")
+                   for which, name in (("fwd", "conv3x3_b8_mma_kernel"),
+                                       ("dx", "conv3x3_b8_mma_kernel"),
+                                       ("dw", "conv3x3_b8_dw_mma_kernel"))}
+        b8_split = (("partial", "conv3x3_b8_dw_mma_kernel"), ("reduce", "conv3x3_b8_dw_reduce"))
         b8_recs = {which: {sh: check_conv(torch, F, conv_chw, conv_b8, "b8", which, sh,
-                                          TRAIN_BATCH, "bfloat16", flush, b8_row)
+                                          TRAIN_BATCH, "bfloat16", flush,
+                                          (b8_rows[which], flush_names),
+                                          b8_split if which == "dw" else ())
                            for sh in b8_shapes}
                    for which in ("fwd", "dx", "dw")}
         b8_f32 = {which: [check_conv(torch, F, conv_chw, conv_b8, "b8", which, b8_shapes[0],
@@ -1224,23 +1235,28 @@ def main():
                                  ("conv3x3_nl_dw", "K5dw", "conv2d_weight")):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library)
-    # K4dw's two kernels apart: the partial sums and the slots' reduce
-    k4dw = per_step["conv3x3s2_dw"]
-    for label, _ in dw_split:
-        per = {sh: {"device_ms": timed["conv3x3s2_dw"][sh]["split_device_ms"][label]}
-               for sh in k4dw}
-        print(f"  K4dw {label} device ms by shape: " + ", ".join(
-            f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {fmt(per[sh]['device_ms'])}"
-            for sh in sorted(k4dw, key=lambda s: -s[2]))
-            + f"; per random step {fmt(per_call(k4dw, per, 'device_ms'))}", flush=True)
-    # K6 and K6 dx by stage of bench_b8_conv: one launch each per bench pass
-    # beside K1's (K1 dx's) device time at the same shape from the kernels
-    # phase (every bench stage is a K1 shape of the main path with C_in > 1)
+    # K6, K6 dx and K6dw by stage of bench_b8_conv: one launch each per
+    # bench pass beside K1's (K1 dx's, K2's) device time at the same shape
+    # from the kernels phase (every bench stage is a K1 shape of the main
+    # path with C_in > 1)
     for name, label, library, beside in (("conv3x3_b8", "K6", "F.conv2d", ("K1", recs)),
                                          ("conv3x3_b8_dx", "K6 dx", "conv2d_input",
-                                          ("K1 dx", dx_recs))):
+                                          ("K1 dx", dx_recs)),
+                                         ("conv3x3_b8_dw", "K6dw", "conv2d_weight",
+                                          ("K2", dw_recs))):
         by_shape(per_step[name], timed[name], records[LAUNCH_COUNTERS.index(name)], label,
                  library, "bench pass", beside)
+    # K4dw's and K6dw's two kernels apart: the partial sums and the slots'
+    # reduce
+    for name, label, split, unit in (("conv3x3s2_dw", "K4dw", dw_split, "random step"),
+                                     ("conv3x3_b8_dw", "K6dw", b8_split, "bench pass")):
+        calls = per_step[name]
+        for part, _ in split:
+            per = {sh: {"device_ms": timed[name][sh]["split_device_ms"][part]} for sh in calls}
+            print(f"  {label} {part} device ms by shape: " + ", ".join(
+                f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {fmt(per[sh]['device_ms'])}"
+                for sh in sorted(calls, key=lambda s: (-s[2], s[0], s[1])))
+                + f"; per {unit} {fmt(per_call(calls, per, 'device_ms'))}", flush=True)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

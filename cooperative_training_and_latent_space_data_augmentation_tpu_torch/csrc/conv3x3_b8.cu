@@ -88,22 +88,63 @@
 // the 3 x 10 input window once and the channel's 9 x 8 weights from shared
 // memory (flip = 1 stages them from the unflipped wall).
 //
-// K6dw (CUDA cores, both types): a thread owns one input channel and 8
-// output channels over all 9 taps: 72 f32 sums.  For each pixel block it
-// loads the channel's 3 x 10 window and takes the 8 x 8 dy values from a
-// tile staged in shared memory, and does 576 FMAs; the fold over the window
-// columns is implicit, since each tap's sum is kept apart.  Hopper's blocks
-// run in no order, so the TPU kernel's sequential accumulation over images
-// becomes two passes with a fixed summation order and no float atomics:
-// each block sums one slab of pixel blocks of one image into a workspace
-// slot of its own, and a second kernel adds the slots in slot order.  The
-// slabs depend on the shapes only; two launches agree bit for bit.
+// K6dw in bf16 (tc::conv3x3_b8_dw_mma_kernel): an implicit GEMM on the
+// tensor cores, dw^T (C_out x 9*C_in) = dy (C_out x pixels) . P^T, with the
+// pixels as the reduction; P is never built.  It is K2's function on K2's
+// layout (csrc/conv3x3_chw_dw.cu), landed as K6 lands x:
+//
+//   * A unit is a band of whole rows (heights differing by at most one) of
+//     a column window of at most 24 pixel blocks, of one image; the host
+//     picks band height and window width by the bytes the busiest block
+//     lands.  A block owns 16 input channels (grid.y covers the rest),
+//     every output channel and a run of consecutive units, about two blocks
+//     an SM in all.  Each unit's x (its rows with a one-row halo, and a
+//     16-byte halo piece on each side of the window) and dy (its rows)
+//     land in CHW pieces by 16-byte cp.async two units ahead, into three
+//     buffers, with one barrier a unit.  Pieces outside the image, and an
+//     odd-width window's last dy piece, land as zeros (source size 0), so
+//     the product loop has no masks.  One landed band serves all 9 taps and
+//     every output channel.
+//   * Warp (h, ki), 6 of them, owns kernel row ki and input channels 8h ..
+//     8h+7: three n-tiles (kj = 0, 1, 2) by every 16-channel m-tile of
+//     C_out.  A (dy) comes by ldmatrix.x4 straight from the staged rows, a
+//     row an output channel and 8 pixels a 16-byte piece.  B (x): a 32-bit
+//     register holds two neighbouring pixels of one input channel, so the
+//     kj = 1 pair is an aligned word and the kj = 0 and 2 pairs, one bf16
+//     off, are the halves of two aligned words by __byte_perm.  x's channel
+//     pitch is odd in pieces, so the word loads of a warp hit 32 distinct
+//     banks; dy's too, so the rows of an ldmatrix fall in distinct 16-byte
+//     groups.
+//   * Accuracy as in K2: each mma chain is at most two k-steps (one with
+//     four m-tiles, C_out > 32, to fit 128 registers), and its result is
+//     added to the warp's accumulators with an f32 add.
+//   * The blocks run in thread-block clusters of 2: at the end each block
+//     puts its sums in shared memory, and each block of a pair adds half of
+//     them over the pair in rank order, through distributed shared memory,
+//     into the pair's workspace slot (straight into dw where a launch has
+//     one slot).
+//
+// K6dw in f32 (CUDA cores): a thread owns one input channel and 8 output
+// channels over all 9 taps: 72 f32 sums.  For each pixel block it loads
+// the channel's 3 x 10 window and takes the 8 x 8 dy values from a tile
+// staged in shared memory, and does 576 FMAs; the fold over the window
+// columns is implicit, since each tap's sum is kept apart.  Each block sums
+// one slab of pixel blocks of one image into a workspace slot of its own.
+//
+// Both K6dw paths: Hopper's blocks run in no order, so the TPU kernel's
+// sequential accumulation over images becomes two passes with a fixed
+// summation order and no float atomics: conv3x3_b8_dw_reduce adds the
+// workspace slots (RUNS interleaved runs of slots, then the runs' sums in
+// turn).  The slots depend on the shapes only; two launches agree bit for
+// bit.
 //
 // C interface (bound with ctypes): conv3x3_b8(...) and conv3x3_b8_dw(...)
 // launch on the given stream, allocate nothing, do not synchronise, and
 // return cudaGetLastError() of the launches (0 on success);
-// conv3x3_b8_dw_workspace(...) gives the workspace size in floats.
+// conv3x3_b8_dw_workspace(...) gives the workspace size in floats.  A
+// bfloat16 x or dy must start on a 16-byte boundary.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,14 +158,11 @@ constexpr int OG = 8;       // output channels a thread owns
 constexpr int MAX_C = 64;   // most channels on either side
 constexpr int PB = 32;      // K6 f32: pixel blocks per block, one a lane
 constexpr int CK = 16;      // K6 f32: input channels whose weights are staged at once
-constexpr int TP = 8;       // K6dw: pixel blocks of dy staged at once
-constexpr int DW_THREADS = 256;                // K6dw: most threads a block
-constexpr long long DW_TARGET_THREADS = 65536;  // K6dw: about 16 warps an SM
+constexpr int TP = 8;       // K6dw f32: pixel blocks of dy staged at once
+constexpr int DW_THREADS = 256;                // K6dw f32: most threads a block
+constexpr long long DW_TARGET_THREADS = 65536;  // K6dw f32: about 16 warps an SM
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 __device__ __forceinline__ void store8(float* p, const float (&v)[B]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -133,14 +171,13 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[B]) {
 
 // The 3 x 10 window of channel plane xc around the pixel block (y, x0 .. x0+7):
 // rows y-1 .. y+1, columns x0-1 .. x0+8, zero outside the image.
-template <typename T>
-__device__ __forceinline__ void load_window(const T* xc, int y, int x0, int H, int W,
+__device__ __forceinline__ void load_window(const float* xc, int y, int x0, int H, int W,
                                             float (&win)[3][B + 2]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     const int sy = y + r - 1;
     const bool row_ok = sy >= 0 && sy < H;
-    const T* row = xc + (long long)sy * W;
+    const float* row = xc + (long long)sy * W;
 #pragma unroll
     for (int c = 0; c < B + 2; ++c) {
       const int sx = x0 + c - 1;
@@ -218,11 +255,46 @@ conv3x3_b8_kernel(const float* __restrict__ x, const float* __restrict__ w_all,
   }
 }
 
+constexpr int RUNS = 16;  // K6dw: interleaved runs of slots in the reduce
+
+// K6dw, pass 2, both paths.  out[e] = sum over the workspace slots p = 0 ..
+// parts-1 of ws[p][e] in a fixed order: thread row j of a (32, RUNS) block
+// adds slots j, j + RUNS, ... in turn, then row 0 adds the RUNS rows' sums
+// in row order.
+__global__ void __launch_bounds__(32 * RUNS)
+conv3x3_b8_dw_reduce(const float* __restrict__ ws, float* __restrict__ out, int parts,
+                     long long k) {
+  __shared__ float part[RUNS][32];
+  const long long e = (long long)blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (e < k) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += RUNS) s += ws[(long long)p * k + e];
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < k) {
+    float total = part[0][threadIdx.x];
+#pragma unroll
+    for (int j = 1; j < RUNS; ++j) total += part[j][threadIdx.x];
+    out[e] = total;
+  }
+}
+
+cudaError_t launch_reduce(const float* ws, float* out, int parts, int c_in, int c_out,
+                          cudaStream_t stream) {
+  const long long k = 9LL * c_in * c_out;
+  conv3x3_b8_dw_reduce<<<(unsigned)((k + 31) / 32), dim3(32, RUNS), 0, stream>>>(ws, out,
+                                                                               parts, k);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // K6 in bf16: tensor cores (see the note at the top).
 
 namespace tc {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int CG = 16;            // input channels a stage
@@ -628,9 +700,450 @@ cudaError_t launch(const void* x, const void* w_all, void* out, int n, int c_in,
               : launch_k<2, false>(xp, wp, op, c_in, c_out, h, w, g, vec_w, stream);
 }
 
+// ---------------------------------------------------------------------------
+// K6dw in bf16: tensor cores (see the note at the top).
+
+constexpr int DW_NWARP = 6;   // warp (h, ki) = (warp / 3, warp % 3)
+constexpr int DW_NTH = 32 * DW_NWARP;
+constexpr int DW_WMAX = 24;   // most pixel blocks in a window
+constexpr int CLUSTER = 2;    // blocks of a cluster
+constexpr int DW_ROW_COST = 64;  // dw_geometry: bytes a landed row costs beyond its own
+
+__host__ __device__ constexpr int red_pitch(int mt) { return 16 * mt + 4; }  // floats a row
+constexpr int red_bytes(int mt) { return 9 * CG * red_pitch(mt) * 4; }
+
+// How a K6dw launch is cut.  C_out is `mt` m-tiles of 16 (1, 2 or 4).  An
+// image row is w8 = W/8 pixel blocks in `ncw` windows, window k of wq + (k
+// < wr) blocks from block k*wq + min(k, wr), at most `wdp` rounded up to
+// even; the H rows are `nb` bands, band b of bq + (b < br) rows from row
+// b*bq + min(b, br), at most `rows`.  A unit is (image, band, window),
+// `units` in all, walked by `blocks` blocks (grid.x) for each of `groups`
+// groups of 16 input channels (grid.y): block k takes uq units, one more
+// for k < ur, from unit k*uq + min(k, ur).  Clusters of `cl` blocks along x
+// share one of `slots` workspace slots.  A landing buffer, in 16-byte
+// pieces: x as 16 channels of pitch `lpc` (odd), each r2 = rows + 2 staged
+// rows of lp = wdp + 2 pieces (a halo piece each side), then dy as 16*mt
+// channels of pitch `sd` (odd), each `rows` rows of `wdp` pieces; `stage`
+// pieces in all.  Lanes 2^lsh_x land one staged x row, 2^lsh_d one dy row;
+// a thread's landing rows advance by (dch, drr) channels and rows a step.
+struct DwGeometry {
+  int mt, groups, ncw, wq, wr, wdp, lp, nb, bq, br, rows, r2;
+  int units, blocks, uq, ur, cl, slots;
+  int lpc, sd, stage, lsh_x, lsh_d, dch_x, drr_x, dch_d, drr_d;
+  int smem;  // bytes
+};
+
+// The cut whose busiest block lands the fewest bytes, plus DW_ROW_COST for
+// each landed row (a separate run of device memory: on the H100, at equal
+// bytes, wider windows land faster) and a share for each unit's set-up,
+// over window widths of at most DW_WMAX blocks and band heights whose three
+// buffers fit SMEM_MOST; the grid is about one wave of two blocks an SM.
+// Shapes only, so the summation order is the same on every card.  units ==
+// 0: no cut.
+DwGeometry dw_geometry(int n, int c_in, int c_out, int h, int w) {
+  const int w8 = w / 8;
+  DwGeometry best{}, g{};
+  long long best_cost = -1;
+  g.mt = c_out <= 16 ? 1 : (c_out <= 32 ? 2 : 4);
+  g.groups = ceil_div(c_in, CG);
+  const int target = g.groups >= 2 * SMS ? 1 : 2 * SMS / g.groups;
+  const int cgb = c_in < CG ? c_in : CG;
+  for (int ncw = ceil_div(w8, DW_WMAX); ncw <= w8; ++ncw) {
+    const int wd = ceil_div(w8, ncw);
+    if (ceil_div(w8, wd) != ncw) continue;  // the same widest window as fewer windows
+    g.ncw = ncw;
+    g.wdp = wd + (wd & 1);
+    g.lp = g.wdp + 2;
+    for (int r = 1; r <= h; ++r) {
+      g.nb = ceil_div(h, r);
+      g.rows = ceil_div(h, g.nb);
+      if (g.rows != r) continue;  // the same cut as a lower height
+      g.r2 = g.rows + 2;
+      g.lpc = (g.r2 * g.lp) | 1;
+      g.sd = (g.rows * g.wdp) | 1;
+      g.stage = CG * g.lpc + 16 * g.mt * g.sd;
+      g.smem = NLAND * 16 * g.stage > red_bytes(g.mt) ? NLAND * 16 * g.stage : red_bytes(g.mt);
+      if (g.smem > SMEM_MOST) break;
+      const long long units = (long long)n * g.nb * ncw;
+      if (units > 0x7fffffffLL) break;
+      g.units = (int)units;
+      g.blocks = g.units < target ? g.units : target;
+      if (g.blocks >= CLUSTER) g.blocks -= g.blocks % CLUSTER;
+      const long long cost =
+          (long long)ceil_div(g.units, g.blocks) *
+          (16LL * (cgb * g.r2 * g.lp + c_out * g.rows * g.wdp) +
+           DW_ROW_COST * (cgb * g.r2 + c_out * g.rows) + 4096);
+      if (best_cost < 0 || cost < best_cost) {
+        best = g;
+        best_cost = cost;
+      }
+    }
+  }
+  if (best_cost < 0) return DwGeometry{};
+  g = best;
+  g.wq = w8 / g.ncw;
+  g.wr = w8 % g.ncw;
+  g.bq = h / g.nb;
+  g.br = h % g.nb;
+  g.uq = g.units / g.blocks;
+  g.ur = g.units % g.blocks;
+  g.cl = g.blocks >= CLUSTER ? CLUSTER : 1;
+  g.slots = g.blocks / g.cl;
+  g.lsh_x = log2_lanes(g.lp);
+  g.lsh_d = log2_lanes(g.wdp);
+  const int step_x = DW_NWARP * (32 >> g.lsh_x), step_d = DW_NWARP * (32 >> g.lsh_d);
+  g.dch_x = step_x / g.r2;
+  g.drr_x = step_x % g.r2;
+  g.dch_d = step_d / g.rows;
+  g.drr_d = step_d % g.rows;
+  return g;
+}
+
+// d = a . b; m16n8k16, bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// B fragments of one k-step (16 pixels) for the three taps of a kernel
+// row: b[kj][0] holds the lane's channel at pixels (2q+kj-1, 2q+kj) of the
+// k-step, b[kj][1] at the same 8 on.  xp: the lane's staged x row at pixel
+// 2q - 2 of the k-step (an even element: the left halo piece holds pixels
+// -8 .. -1), so its words 0..2 hold pixels 2q-2 .. 2q+3 and words 4..6 the
+// same 8 on.  kj = 1 is word 1; kj = 0 and 2 are the halves of words 0|1
+// and 1|2.
+__device__ __forceinline__ void dw_b_frags(uint32_t (&b)[3][2], const bf16* xp) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(xp);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t w0 = w[4 * half], w1 = w[4 * half + 1], w2 = w[4 * half + 2];
+    b[0][half] = __byte_perm(w0, w1, 0x5432);
+    b[1][half] = w1;
+    b[2][half] = __byte_perm(w1, w2, 0x5432);
+  }
+}
+
+// One chain of K k-steps (1 or 2) for every m-tile: fresh at the first
+// k-step, added into acc with an f32 add after the last.  K-step k is at
+// xp[k] (see dw_b_frags) and ap[k], the lane's ldmatrix row of m-tile 0 in
+// the staged dy rows; m-tile m is 16*m channels (16*m*sd8 elements) on.
+template <int MT, int K>
+__device__ __forceinline__ void dw_chain(float (&acc)[MT][3][4], const bf16* const (&xp)[K],
+                                         const bf16* const (&ap)[K], int sd8) {
+  uint32_t b[K][3][2];
+#pragma unroll
+  for (int k = 0; k < K; ++k) dw_b_frags(b[k], xp[k]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float t[3][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_addr(ap[k] + m * 16 * sd8));
+#pragma unroll
+      for (int kj = 0; kj < 3; ++kj) {
+        if (k == 0)
+          mma_fresh(t[kj], a, b[k][kj][0], b[k][kj][1]);
+        else
+          mma_acc(t[kj], a, b[k][kj][0], b[k][kj][1]);
+      }
+    }
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][kj][e] += t[kj][e];
+  }
+}
+
+// The unit a block lands or multiplies: image, band, window.
+struct Unit {
+  int img, band, win;
+};
+
+__device__ __forceinline__ void advance(Unit& u, const DwGeometry& g) {
+  if (++u.win == g.ncw) {
+    u.win = 0;
+    if (++u.band == g.nb) {
+      u.band = 0;
+      ++u.img;
+    }
+  }
+}
+
+// Grid (blocks, groups) in clusters of g.cl blocks along x, DW_NTH threads,
+// at most 128 registers each (two blocks an SM).  Block (k, z) sums dw over
+// its run of units for input channels 16z .. 16z+15 and every output
+// channel; the blocks of a cluster add their sums into slot k / cl of ws,
+// (9*c_in, c_out) floats a slot, row t*c_in + i.  x and dy are 16-byte
+// aligned and W % 8 == 0: every piece lands by cp.async.
+template <int MT>
+__global__ void __maxnreg__(128)
+conv3x3_b8_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                         float* __restrict__ ws, int c_in, int c_out, int H, int W,
+                         DwGeometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* const buf0 = reinterpret_cast<uint4*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = warp / 3, ki = warp - 3 * h;
+  const int i0 = blockIdx.y * CG;
+  const int cg = min(CG, c_in - i0);
+  const bool active = 8 * h < cg;
+  const int L = H * W;  // offsets inside one image fit 32 bits (valid())
+  const int k = blockIdx.x;
+  const int n_units = g.uq + (k < g.ur);
+
+  Unit su, mu;  // the next unit to land, the next to multiply
+  {
+    const int u = k * g.uq + min(k, g.ur), per_image = g.nb * g.ncw;
+    su.img = u / per_image;
+    const int b = u - su.img * per_image;
+    su.band = b / g.ncw;
+    su.win = b - su.band * g.ncw;
+    mu = su;
+  }
+  // This thread's landing: piece jx of x rows (channel, staged row) from
+  // (ch_x0, rr_x0), piece jd of dy rows (channel, row) from (ch_d0, rr_d0),
+  // each step (dch, drr) on.
+  const int jx = lane & ((1 << g.lsh_x) - 1), jd = lane & ((1 << g.lsh_d) - 1);
+  const int rx = warp * (32 >> g.lsh_x) + (lane >> g.lsh_x);
+  const int rd = warp * (32 >> g.lsh_d) + (lane >> g.lsh_d);
+  const int ch_x0 = rx / g.r2, rr_x0 = rx - ch_x0 * g.r2;
+  const int ch_d0 = rd / g.rows, rr_d0 = rd - ch_d0 * g.rows;
+
+  // Unit u into landing buffer s: x rows y0-1 .. y0+hb, pieces 0 .. wkp+1
+  // (columns x0-8 .. x0+8*wkp+7), zero outside the image; dy rows y0 ..
+  // y0+hb-1, pieces 0 .. wkp-1, zero past the window (an odd width's last
+  // piece).  Nothing else of the buffer is read for this unit, but for
+  // channels past the block's (c_in) or past c_out, which are never
+  // landed: what the buffer holds there reaches only the sums of those
+  // channels, and they are not stored.
+  auto land = [&](const Unit& u, uint4* s) {
+    const int y0 = u.band * g.bq + min(u.band, g.br), hb = g.bq + (u.band < g.br);
+    const int wk = g.wq + (u.win < g.wr), wkp = wk + (wk & 1);
+    const int x0 = 8 * (u.win * g.wq + min(u.win, g.wr));
+    if (jx < wkp + 2) {
+      const bf16* xn = x + ((long long)u.img * c_in + i0) * L;
+      const int gx = x0 - 8 + 8 * jx;
+      const bool col_in = gx >= 0 && gx < W;
+      int ch = ch_x0, rr = rr_x0;
+      while (ch < cg) {
+        if (rr < hb + 2) {
+          const int gy = y0 - 1 + rr;
+          const bool in = col_in && gy >= 0 && gy < H;
+          cp_async16(s + ch * g.lpc + rr * g.lp + jx, in ? xn + ch * L + gy * W + gx : x,
+                     in ? 16 : 0);
+        }
+        rr += g.drr_x;
+        ch += g.dch_x;
+        if (rr >= g.r2) {
+          rr -= g.r2;
+          ++ch;
+        }
+      }
+    }
+    if (jd < wkp) {
+      const bf16* dn = dy + (long long)u.img * c_out * L + y0 * W + x0 + 8 * jd;
+      uint4* d = s + CG * g.lpc + jd;
+      const bool in = jd < wk;
+      int ch = ch_d0, rr = rr_d0;
+      while (ch < c_out) {
+        if (rr < hb)
+          cp_async16(d + ch * g.sd + rr * g.wdp, in ? dn + ch * L + rr * W : dy, in ? 16 : 0);
+        rr += g.drr_d;
+        ch += g.dch_d;
+        if (rr >= g.rows) {
+          rr -= g.rows;
+          ++ch;
+        }
+      }
+    }
+  };
+  // Unit s of the run lands in buffer s % NLAND, one commit group each
+  // (empty past the run); units s+1 and s+2 are in flight while s is
+  // multiplied.
+  auto land_ahead = [&](int s) {
+    if (s < n_units) {
+      land(su, buf0 + (s % NLAND) * g.stage);
+      advance(su, g);
+    }
+    cp_async_commit();
+  };
+
+  // The lane's B row: channel 8h + gq, staged row ki, pixel 2q - 2 of the
+  // window (element 8 + 2q - 2 of the row); its A row (ldmatrix.x4
+  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k
+  // 8-15)): dy channel lane & 15, piece lane >> 4.
+  const int gq = lane >> 2, q = lane & 3;
+  const int x_lane = ((8 * h + gq) * g.lpc + ki * g.lp) * 8 + 6 + 2 * q;
+  const int a_lane = (CG * g.lpc + (lane & 15) * g.sd + (lane >> 4)) * 8;
+  const int sd8 = 8 * g.sd;
+
+  float acc[MT][3][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][kj][e] = 0.f;
+
+  land_ahead(0);
+  land_ahead(1);
+  for (int s = 0; s < n_units; ++s) {
+    cp_async_wait_prior();
+    __syncthreads();  // unit s has landed; every warp is done with unit s-1
+    land_ahead(s + 2);  // into unit s-1's buffer
+    if (active) {
+      const int hb = g.bq + (mu.band < g.br);
+      const int wk = g.wq + (mu.win < g.wr), cols = 8 * (wk + (wk & 1));
+      const bf16* xs = reinterpret_cast<const bf16*>(buf0 + (s % NLAND) * g.stage);
+      const bf16* xl = xs + x_lane;
+      const bf16* al = xs + a_lane;
+      // The unit's k-steps in row order, kpr a row: k-step j is pixels 16 *
+      // (j % kpr) .. +15 of band row j / kpr (staged x row j / kpr + ki),
+      // at offsets (xo, ao), taken in chains of CH (a chain may run on into
+      // the next row).  Chains of two k-steps; of one with four m-tiles,
+      // whose 48 accumulators leave no room for a second k-step's B in 128
+      // registers.
+      constexpr int CH = MT < 4 ? 2 : 1;
+      const int kpr = cols / 16, nk = hb * kpr;
+      const int x_wrap = 8 * g.lp - 16 * kpr, a_wrap = 8 * g.wdp - 16 * kpr;
+      int xo = 0, ao = 0, cc = 0;
+      auto next = [&]() {
+        xo += 16;
+        ao += 16;
+        if (++cc == kpr) {
+          cc = 0;
+          xo += x_wrap;
+          ao += a_wrap;
+        }
+      };
+      int j = 0;
+#pragma unroll 1
+      for (; j + CH <= nk; j += CH) {
+        const bf16* xp[CH];
+        const bf16* ap[CH];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          xp[c] = xl + xo;
+          ap[c] = al + ao;
+          next();
+        }
+        dw_chain<MT, CH>(acc, xp, ap, sd8);
+      }
+      if (j < nk) {
+        const bf16* const xp[1] = {xl + xo};
+        const bf16* const ap[1] = {al + ao};
+        dw_chain<MT, 1>(acc, xp, ap, sd8);
+      }
+    }
+    advance(mu, g);
+  }
+
+  // The block's sums into shared memory, rows (t, il) of pitch red_pitch:
+  // acc[m][kj][e] is output channel 16m + gq (+8 for e >= 2), input channel
+  // i0 + 8h + 2q + (e & 1), tap 3*ki + kj (the m16n8 accumulator layout).
+  // Then block `rank` of the cluster adds rows [rank * part, (rank + 1) *
+  // part) over the cluster's blocks in rank order, through distributed
+  // shared memory, and stores them in the slot.
+  cp_async_wait_all();  // the groups committed past the run are empty
+  __syncthreads();
+  constexpr int RP = red_pitch(MT);
+  float* red = reinterpret_cast<float*>(smem);
+  if (active)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int kj = 0; kj < 3; ++kj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[((3 * ki + kj) * CG + 8 * h + 2 * q + (e & 1)) * RP + 16 * m + gq + 8 * (e >> 1)] =
+              acc[m][kj][e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block of the cluster holds its sums
+  const int rank = (int)cluster.block_rank();
+  const int part = 9 * CG / g.cl;
+  float* slot = ws + (long long)(blockIdx.x / g.cl) * 9 * c_in * c_out;
+  for (int e = tid; e < part * 4 * MT; e += DW_NTH) {
+    const int row = rank * part + e / (4 * MT), col = 4 * (e % (4 * MT));
+    const int t = row / CG, i = i0 + row % CG;
+    if (i >= c_in || col >= c_out) continue;
+    float4 v[CLUSTER];
+#pragma unroll
+    for (int b = 0; b < CLUSTER; ++b)
+      if (b < g.cl)
+        v[b] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, b) + row * RP + col);
+    float sum[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int b = 1; b < CLUSTER; ++b)
+      if (b < g.cl) {
+        sum[0] += v[b].x;
+        sum[1] += v[b].y;
+        sum[2] += v[b].z;
+        sum[3] += v[b].w;
+      }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < c_out) slot[((long long)t * c_in + i) * c_out + col + c] = sum[c];
+  }
+  cluster.sync();  // the other blocks have read this block's sums
+}
+
+template <int MT>
+cudaError_t launch_dw_k(const bf16* x, const bf16* dy, float* ws, int c_in, int c_out, int h,
+                        int w, const DwGeometry& g, cudaStream_t stream) {
+  cudaError_t err = allow_smem<conv3x3_b8_dw_mma_kernel<MT>>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.blocks, g.groups);
+  cfg.blockDim = dim3(DW_NTH);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = g.cl;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv3x3_b8_dw_mma_kernel<MT>, x, dy, ws, c_in, c_out, h, w, g);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
+}
+
+// Floats of workspace launch_dw needs (0 if no cut).
+long long dw_workspace(int n, int c_in, int c_out, int h, int w) {
+  return (long long)dw_geometry(n, c_in, c_out, h, w).slots * 9 * c_in * c_out;
+}
+
+cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int n, int c_in,
+                      int c_out, int h, int w, cudaStream_t stream) {
+  const DwGeometry g = dw_geometry(n, c_in, c_out, h, w);
+  if (g.units < 1 || g.groups > 65535) return cudaErrorInvalidConfiguration;
+  if (!aligned(x) || !aligned(dy)) return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* dp = static_cast<const bf16*>(dy);
+  float* dst = g.slots > 1 ? ws : out;
+  cudaError_t err;
+  if (g.mt == 1)
+    err = launch_dw_k<1>(xp, dp, dst, c_in, c_out, h, w, g, stream);
+  else if (g.mt == 2)
+    err = launch_dw_k<2>(xp, dp, dst, c_in, c_out, h, w, g, stream);
+  else
+    err = launch_dw_k<4>(xp, dp, dst, c_in, c_out, h, w, g, stream);
+  if (err != cudaSuccess || g.slots == 1) return err;
+  return launch_reduce(ws, out, g.slots, c_in, c_out, stream);
+}
+
 }  // namespace tc
 
-// How K6dw cuts the work: input channels in groups of `cig` (one thread
+// How K6dw in f32 cuts the work: input channels in groups of `cig` (one thread
 // each, times `ng` output groups), the pixel blocks of an image in slabs of
 // `spb` (a multiple of TP), `parts` slabs an image.  Shapes only.
 struct Geometry {
@@ -655,13 +1168,12 @@ Geometry geometry(int n, int c_in, int c_out, int h, int w) {
   return g;
 }
 
-// K6dw, pass 1.  Grid (parts, N, groups), blockDim ng * cig: thread tid owns
+// K6dw f32, pass 1.  Grid (parts, N, groups), blockDim ng * cig: thread tid owns
 // input channel i0 + tid / ng and output channels OG * (tid % ng) .. +7 over
 // the pixel blocks [spb * z, min(H*W/8, spb * (z+1))) of image n, and writes
 // its 9 x 8 sums to workspace slot (n, z).
-template <typename T>
 __global__ void __launch_bounds__(DW_THREADS)
-conv3x3_b8_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
+conv3x3_b8_dw_partial(const float* __restrict__ x, const float* __restrict__ dy,
                       float* __restrict__ ws, int c_in, int c_out, int H, int W,
                       Geometry g) {
   // dy of TP pixel blocks, row pixel-block * B + pixel; rows padded so
@@ -677,8 +1189,8 @@ conv3x3_b8_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
   const int p0 = blockIdx.x * g.spb;
   const int p1 = min(nblocks, p0 + g.spb);
   const long long L = (long long)H * W;
-  const T* xc = x + ((long long)n * c_in + (i < c_in ? i : 0)) * L;
-  const T* dn = dy + (long long)n * c_out * L;
+  const float* xc = x + ((long long)n * c_in + (i < c_in ? i : 0)) * L;
+  const float* dn = dy + (long long)n * c_out * L;
 
   float acc[9][OG];
 #pragma unroll
@@ -731,17 +1243,6 @@ conv3x3_b8_dw_partial(const T* __restrict__ x, const T* __restrict__ dy,
       if (o0 + o < c_out) wp[((long long)t * c_in + i) * c_out + o0 + o] = acc[t][o];
 }
 
-// K6dw, pass 2: out[e] = sum over the workspace slots z = 0 .. parts-1 of
-// ws[z][e], in slot order.
-__global__ void conv3x3_b8_dw_reduce(const float* __restrict__ ws,
-                                     float* __restrict__ out, int parts, long long k) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= k) return;
-  float s = 0.f;
-  for (int z = 0; z < parts; ++z) s += ws[(long long)z * k + e];
-  out[e] = s;
-}
-
 // The shapes both kernels take: the JAX package's b8_eligible for the
 // forward conv (8 | W, H >= 2, C_in >= 8, max(C) <= 64), except that the
 // input gradient runs K6 with the forward's C_out as its C_in, so here any
@@ -765,20 +1266,16 @@ cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n, i
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* dy, float* ws, float* out, int n, int c_in,
-                      int c_out, int h, int w, cudaStream_t stream) {
+// K6dw in f32: the CUDA-core partial sums, then the slots' reduce.
+cudaError_t launch_dw_f32(const void* x, const void* dy, float* ws, float* out, int n,
+                          int c_in, int c_out, int h, int w, cudaStream_t stream) {
   const Geometry g = geometry(n, c_in, c_out, h, w);
   const dim3 grid(g.parts, n, g.groups);
-  conv3x3_b8_dw_partial<T><<<grid, g.ng * g.cig, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), ws, c_in, c_out, h, w, g);
-  cudaError_t err = cudaGetLastError();
+  conv3x3_b8_dw_partial<<<grid, g.ng * g.cig, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), ws, c_in, c_out, h, w, g);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long k = 9LL * c_in * c_out;
-  const int threads = 256;
-  conv3x3_b8_dw_reduce<<<(unsigned)((k + threads - 1) / threads), threads, 0, stream>>>(
-      ws, out, n * g.parts, k);
-  return cudaGetLastError();
+  return launch_reduce(ws, out, n * g.parts, c_in, c_out, stream);
 }
 
 }  // namespace
@@ -800,10 +1297,13 @@ int conv3x3_b8(const void* x, const void* w_all, void* out, int n, int c_in, int
   return static_cast<int>(err);
 }
 
-// Floats of workspace conv3x3_b8_dw needs for these shapes (0 if invalid).
+// Floats of workspace conv3x3_b8_dw needs for these shapes, in either dtype
+// (0 if invalid): the more of the two routes' slots.
 long long conv3x3_b8_dw_workspace(int n, int c_in, int c_out, int h, int w) {
   if (!valid(n, c_in, c_out, h, w)) return 0;
-  return (long long)n * geometry(n, c_in, c_out, h, w).parts * 9 * c_in * c_out;
+  const long long f32 = (long long)n * geometry(n, c_in, c_out, h, w).parts * 9 * c_in * c_out;
+  const long long mma = tc::dw_workspace(n, c_in, c_out, h, w);
+  return f32 > mma ? f32 : mma;
 }
 
 // x: (n, c_in, h*w), dy: (n, c_out, h*w), both contiguous on the current
@@ -817,8 +1317,8 @@ int conv3x3_b8_dw(const void* x, const void* dy, void* ws, void* out, int n, int
   float* wsp = static_cast<float*>(ws);
   float* op = static_cast<float*>(out);
   const cudaError_t err =
-      is_bf16 ? launch_dw<__nv_bfloat16>(x, dy, wsp, op, n, c_in, c_out, h, w, s)
-              : launch_dw<float>(x, dy, wsp, op, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch_dw(x, dy, wsp, op, n, c_in, c_out, h, w, s)
+              : launch_dw_f32(x, dy, wsp, op, n, c_in, c_out, h, w, s);
   return static_cast<int>(err);
 }
 

@@ -12,9 +12,11 @@ group, ``out'(HW/8, 8*C_out) = P'(HW/8, 30*C_in) @ W'(30*C_in, 8*C_out)``, so
 that a 16-channel conv fills the MXU's lanes.  The plain versions here
 compute exactly that blocked formulation (so the CPU tests hold the
 blocking and the fold against JAX); the CUDA kernels compute the same
-function without P' (``csrc/conv3x3_b8.cu``): K6 in bf16 as an implicit
-GEMM on the tensor cores, K6 in f32 and K6dw by register blocking on the
-CUDA cores.  The ``custom_partitioning`` wrappers have no counterpart.
+function without P' (``csrc/conv3x3_b8.cu``): K6 and K6dw in bf16 as
+implicit GEMMs on the tensor cores (K6dw with the pixels as the reduction,
+its blocks' sums added in a fixed order), K6 and K6dw in f32 by register
+blocking on the CUDA cores.  The ``custom_partitioning`` wrappers have no
+counterpart.
 
 Each kernel has a wrapper that on a CUDA tensor launches the kernel (or
 raises) and adds one to its ``launches`` count, and on a CPU tensor runs
@@ -251,7 +253,9 @@ def conv3x3_b8_dw(x: torch.Tensor, dy: torch.Tensor, H: int, W: int) -> torch.Te
     agree bit for bit.
 
     On a CUDA tensor this launches K6dw and adds one to
-    ``conv3x3_b8_dw.launches``; on a CPU tensor it runs the plain version."""
+    ``conv3x3_b8_dw.launches``; on a CPU tensor it runs the plain version.
+    The bf16 kernel lands x and dy in 16-byte pieces, so both must start on
+    a 16-byte boundary there."""
     if x.dim() != 3 or dy.dim() != 3:
         raise ValueError(f"conv3x3_b8_dw: x {tuple(x.shape)} and dy {tuple(dy.shape)} are "
                          f"not (N, C, H*W)")
@@ -265,6 +269,8 @@ def conv3x3_b8_dw(x: torch.Tensor, dy: torch.Tensor, H: int, W: int) -> torch.Te
         return conv3x3_b8_dw_plain(x, dy, H, W)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_b8_dw: no kernel for device {x.device}")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or dy.data_ptr() % 16):
+        raise ValueError("conv3x3_b8_dw: bfloat16 x and dy must start 16-byte aligned")
     n, c_in, _ = x.shape
     c_out = dy.shape[1]
     work = torch.empty(_fn("conv3x3_b8_dw_workspace")(n, c_in, c_out, H, W),

@@ -45,8 +45,10 @@ def _group(name: str) -> str:
         return "K5dw conv3x3_nl_dw"
     if "conv3x3_nl" in name:
         return "K5 conv3x3_nl (forward and dx)"
+    if "conv3x3_b8_dw" in name:
+        return "K6dw conv3x3_b8_dw"
     if "conv3x3_b8" in name:
-        return "K6 conv3x3_b8 (forward, dx and dw)"
+        return "K6 conv3x3_b8 (forward and dx)"
     if "conv3x3s2_dw" in name:
         return "K4dw conv3x3s2_dw"
     if "conv3x3s2" in name:

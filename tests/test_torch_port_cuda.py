@@ -4,8 +4,9 @@ K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
 multiple of 32, ties), the fixed summation order of K2, K4dw, K5, K5dw, K6
-and K6dw, K4dw and K5dw on unaligned operands and inside the workspace they
-report, the input checks (no fallback), the launch counts, and the predictor
+and K6dw, K4dw and K5dw on unaligned operands, K4dw, K5dw and K6dw inside
+the workspace they report, K6 and K6dw refusing unaligned bf16 operands,
+the input checks (no fallback), the launch counts, and the predictor
 and the train step on the card against the CPU, with the default route,
 with ``conv_s2=True`` and with ``conv_nl=True``.
 
@@ -773,8 +774,11 @@ def test_k6_refuses_an_unaligned_bf16_input(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES)
+@pytest.mark.parametrize("n,c_in,c_out,h,w", B8_SHAPES + B8_EDGE_SHAPES)
 def test_k6dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    """bf16 on the tensor cores at ragged bands and windows (W = 8 and 520:
+    odd window widths), C_in of 8, 12, 24 and 40 (partial channel groups)
+    and C_out of 1, 13 and 56 (partial m-tiles); f32 on the CUDA cores."""
     dt = getattr(torch, dtype)
     x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 8)
     got = conv_b8.conv3x3_b8_dw(x, dy, h, w)
@@ -784,6 +788,45 @@ def test_k6dw_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, 
     assert got.dtype == torch.float32 and got.shape == (9 * c_in, c_out)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
     assert torch.equal(got, again)
+
+
+def test_k6dw_refuses_unaligned_bf16_operands(cuda):
+    """The tensor-core K6dw lands x and dy in 16-byte pieces: a bf16 x or dy
+    that starts 2 bytes past a 16-byte boundary is refused before any
+    launch, not run another way."""
+    x, dy, _ = _nl_inputs(cuda, 2, 16, 16, 8, 16, torch.bfloat16, 14)
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    dyu = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)[1:].view(dy.shape)
+    xu.copy_(x)
+    dyu.copy_(dy)
+    before = conv_b8.conv3x3_b8_dw.launches
+    for a, d in ((xu, dy), (x, dyu)):
+        with pytest.raises(ValueError):
+            conv_b8.conv3x3_b8_dw(a, d, 8, 16)
+    assert conv_b8.conv3x3_b8_dw.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [
+    (20, 16, 16, 192, 192), (20, 64, 64, 48, 48), (1, 8, 64, 7, 520), (3, 64, 13, 19, 40),
+    (2, 64, 1, 2, 8),
+])
+def test_k6dw_stays_inside_its_workspace(cuda, n, c_in, c_out, h, w, dtype):
+    """The C function through the port's binding, with the workspace it
+    reports for these shapes plus a tail of sentinels: the sums are right
+    and the tail is untouched, for either dtype's route."""
+    dt = getattr(torch, dtype)
+    x, dy, _ = _nl_inputs(cuda, n, c_in, c_out, h, w, dt, 15)
+    size = conv_b8._fn("conv3x3_b8_dw_workspace")(n, c_in, c_out, h, w)
+    assert size >= 9 * c_in * c_out
+    work = torch.full((size + 4096,), 1234.5, dtype=torch.float32, device=cuda)
+    out = torch.empty((9 * c_in, c_out), dtype=torch.float32, device=cuda)
+    conv_b8._launch("conv3x3_b8_dw", "sentinel test", x, x.data_ptr(), dy.data_ptr(),
+                    work.data_ptr(), out.data_ptr(), n, c_in, c_out, h, w)
+    want = conv_b8.conv3x3_b8_dw_plain(x, dy, h, w)
+    torch.cuda.synchronize()
+    assert bool((work[size:] == 1234.5).all())
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
 def test_k6_rejects_bad_input_and_counts_launches(cuda):

@@ -5,9 +5,10 @@ substring; a K1 kernel whose name it does not know would land in the cuDNN
 row ("conv" in its name) and K1's device time would move there unseen.  This
 reads every ``__global__`` function of each ``csrc/*.cu`` source, checks
 that the map below names each of them (a new kernel must be given its row),
-builds the name as the profiler prints it and checks the row.  K4's and
-K5's sources hold two rows each: the forward (K4 also with K4dx, K5 also
-run for dx) and the weight gradient (K4dw, K5dw).  CPU only, no CUDA.
+builds the name as the profiler prints it and checks the row.  K4's, K5's
+and K6's sources hold two rows each: the forward (K4 also with K4dx, K5 and
+K6 also run for dx) and the weight gradient (K4dw, K5dw, K6dw).  CPU only,
+no CUDA.
 """
 
 import re
@@ -31,7 +32,8 @@ ROWS = {  # source -> {kernel -> the start of its row's label}
                       "conv3x3_nl_dw_partial": "K5dw ", "conv3x3_nl_dw_mma_kernel": "K5dw ",
                       "conv3x3_nl_dw_reduce": "K5dw "},
     "conv3x3_b8.cu": {"conv3x3_b8_kernel": "K6 ", "conv3x3_b8_mma_kernel": "K6 ",
-                      "conv3x3_b8_dw_partial": "K6 ", "conv3x3_b8_dw_reduce": "K6 "},
+                      "conv3x3_b8_dw_partial": "K6dw ", "conv3x3_b8_dw_mma_kernel": "K6dw ",
+                      "conv3x3_b8_dw_reduce": "K6dw "},
 }
 GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__(?:launch_bounds|maxnreg)__\s*\([^)]*\)\s*)?(\w+)\s*\(")
