@@ -8,8 +8,10 @@
 // (chw_phase_split: (N, 4*C_in, H/2*W/2)), a relayout that stood in for an
 // NHWC transpose on the TPU, build the tap matrix P (9*C_in, H/2*W/2) of one
 // image from shifted phases and run one MXU product per image.  Here there is
-// no transpose to replace, so the kernels read and write NCHW directly with
-// stride-2 indexing and no phase split.  They compute, with f32 accumulation,
+// no transpose to replace, so the kernels read and write NCHW directly and
+// none splits the phases in device memory (K4's tensor-core kernel splits
+// them in shared memory, in a pass it needs anyway).  They compute, with f32
+// accumulation,
 //
 //   K4:   out[n, o, r, c] = sum_{ki, kj, i} w_all[o, (3*ki + kj)*C_in + i]
 //                                          * x[n, i, 2r+ki-1, 2c+kj-1]
@@ -22,20 +24,71 @@
 // store; K4dw returns f32.
 //
 // What bounds them on the H100: at the main path's shapes (16->16 on 192^2,
-// 32->32 on 96^2) each moves a few MB and does 2*9*C_in*C_out MACs per
-// output pixel; on the tensor cores the bytes bound them (K4dw at batch 20:
-// 29.5 MB, 8.8 us, and 14.7 MB, 4.4 us).  K4 and K4dx, and K4dw's f32 path,
-// run the MACs on the CUDA cores in f32 (67 TFLOP/s peak), so they are
-// bound by operations there; K4dw's bf16 path runs them on the tensor cores.
+// 32->32 on 96^2) each moves a few MB and does 2*9*C_in*C_out operations
+// per output pixel; on the tensor cores the bytes bound them (K4 and K4dw
+// at batch 20: 29.5 MB, 8.8 us, and 14.7 MB, 4.4 us; the products take a
+// tenth of that at 989 TFLOP/s).  K4dx, and the f32 paths of K4 and K4dw,
+// run the products on the CUDA cores in f32 (67 TFLOP/s peak), so they are
+// bound by operations there; the bf16 paths of K4 and K4dw run them on the
+// tensor cores.
 //
 // What the designs do about it:
 //
-//   K4 (conv3x3s2_fwd_kernel) is K1's design at stride 2: a block owns one
-//   image and a TH x TW tile of output pixels, one thread per pixel, all
-//   C_out (<= 64) sums in registers.  It stages CK input channels of the
-//   (2TH+1) x (2TW+1) input window of its tile in shared memory (zero
-//   outside the image), and the matching weights, so each input pixel is
-//   read from device memory about once.
+//   K4, bf16 (tc::conv3x3s2_mma_kernel): K1's implicit GEMM
+//   (csrc/conv3x3_chw.cu) at stride 2, on the tensor cores (mma.sync
+//   m16n8k16, bf16 in, f32 out): out (C_out x output pixels) = wall (C_out
+//   x 9*C_in) . P, with M = 16 output channels, N = 8 neighbouring output
+//   pixels of one row and a k-step = 16 input channels of one tap; P is
+//   never built.  A quarter of K1's products and output bytes on the same
+//   x, so landing and transposing x is most of its work.
+//
+//   * A tile is a band of whole output rows (heights differing by at most
+//     one, split on the host as q, rem) of a window of at most 64 output
+//     columns (48 at W/2 = 48 and 96, so no window is half empty); its
+//     input is the 2R+1 rows from input row 2*r0 - 1 and the 2*wd + 1
+//     columns from 2*c0 - 1.  A block walks a run of tiles in stages of 16
+//     input channels, for one or two m-tiles of C_out (grid.y covers the
+//     rest), about two 8-warp blocks an SM.  The band height is the one
+//     whose busiest block lands the fewest bytes (4 rows at 16->16 @ 192^2,
+//     2 at 32->32 @ 96^2, batch 20).
+//   * Staging by parity, the point of the design: x lands as raw CHW
+//     16-byte pieces by cp.async, two stages ahead, and ldmatrix.x4.trans
+//     turns 8 channel rows of a piece into each lane's channel pairs of one
+//     pixel, as in K1.  Those stores go to two planes a row,
+//     channel-innermost at a 48-byte pixel pitch: the even input columns
+//     and the odd ones.  Output pixel c of a window reads tap kj = 1 at
+//     even-plane pixel c, kj = 0 at odd-plane pixel c and kj = 2 at
+//     odd-plane pixel c + 1 (odd-plane pixel j holds column 2*(c0 + j) - 1),
+//     so the 8 pixels of an n-tile are 8 consecutive pixels of one plane
+//     for every tap: each B fragment pair is one conflict-free ldmatrix.x4,
+//     with no shuffles or masks.  Without the split the 8 pixels are 96
+//     bytes apart and fall in 4 of the 8 16-byte bank groups, a 2-way
+//     conflict whatever the pitch.  This is the TPU kernel's phase split
+//     (chw_phase_split), done in shared memory by the transposing pass
+//     rather than as a pass over device memory; the odd plane starts 3
+//     pixels mod 8 after the even one, so the pass's stores hit 32 banks.
+//   * The wall goes by cp.async to rows of one tap (A fragments by
+//     ldmatrix.x4) and stays for the block's walk while C_in <= 64.  Edges
+//     are data: the halo row above the image (an even H needs none below),
+//     columns outside it, channels past C_in and wall rows past C_out are
+//     zero in the staged copy (cp.async with a source size of 0).  Rows
+//     that are not 16-byte aligned (W/2 % 8 != 0, or an operand off a
+//     16-byte boundary) are staged and stored element by element.
+//   * The sums go through shared memory and leave as 16-byte stores of
+//     output rows.  One mma chain per output and no atomics: two launches
+//     agree bit for bit.
+//
+//   K4, f32 (conv3x3s2_fwd_kernel): K1's CUDA-core design at stride 2: a
+//   block owns one image and a TH x TW tile of output pixels, one thread
+//   per pixel, all C_out (<= 64) sums in registers.  It stages CK input
+//   channels of the (2TH+1) x (2TW+1) input window of its tile in shared
+//   memory (zero outside the image), and the matching weights, so each
+//   input pixel is read from device memory about once.  f32 stays off the
+//   tensor cores because the port's f32 convs are full f32
+//   (ops/conv_chw.py:full_f32) and the tensor cores' f32 input is TF32.
+//   bf16 of any C_in takes the tensor-core kernel: below 16 channels its
+//   one k-step a tap is part padding, but no K4 of the main path has so
+//   few.
 //
 //   K4dx (conv3x3s2_dx_kernel) is a gather, not a scatter, so it needs no
 //   atomics: a thread owns the 2x2 quad of input pixels (2r+py, 2c+px) for
@@ -133,12 +186,12 @@ constexpr int F_CK = 4;               // input channels staged per pass
 constexpr int F_SW = 2 * F_TW + 1;    // staged input window width
 constexpr int F_SH = 2 * F_TH + 1;    // staged input window height
 
-// COB: C_out rounded up to the bucket the sums are kept for (16, 32 or 64).
-// Sums for o >= C_out see zero weights and are not stored.
-template <typename T, int COB>
+// K4, f32.  COB: C_out rounded up to the bucket the sums are kept for (16,
+// 32 or 64).  Sums for o >= C_out see zero weights and are not stored.
+template <int COB>
 __global__ void __launch_bounds__(F_NT)
-conv3x3s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
-                     T* __restrict__ out, int c_in, int c_out, int H, int W) {
+conv3x3s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_all,
+                     float* __restrict__ out, int c_in, int c_out, int H, int W) {
   __shared__ float s_x[F_CK][F_SH][F_SW];
   __shared__ __align__(16) float s_w[F_CK][9][COB];
 
@@ -151,7 +204,7 @@ conv3x3s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
   const int iy0 = 2 * r0 - 1;  // input row of s_x[.][0]
   const int ix0 = 2 * c0 - 1;  // input column of s_x[.][.][0]
   const long long L = (long long)H * W;
-  const T* xn = x + (long long)blockIdx.z * c_in * L;
+  const float* xn = x + (long long)blockIdx.z * c_in * L;
 
   float acc[COB];
 #pragma unroll
@@ -168,7 +221,7 @@ conv3x3s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
       const int gx = ix0 + b;
       float v = 0.f;
       if (ci < ck && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = load_f32(xn + (long long)(i0 + ci) * L + (long long)gy * W + gx);
+        v = xn[(long long)(i0 + ci) * L + (long long)gy * W + gx];
       s_x[ci][a][b] = v;
     }
     for (int e = tid; e < F_CK * 9 * COB; e += F_NT) {
@@ -177,7 +230,7 @@ conv3x3s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
       const int o = e % COB;
       float v = 0.f;
       if (ci < ck && o < c_out)
-        v = load_f32(w_all + (long long)o * 9 * c_in + t * c_in + i0 + ci);
+        v = w_all[(long long)o * 9 * c_in + t * c_in + i0 + ci];
       s_w[ci][t][o] = v;
     }
     __syncthreads();
@@ -202,10 +255,10 @@ conv3x3s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_all,
   const int c = c0 + tx;
   if (r < H2 && c < W2) {
     const long long L4 = (long long)H2 * W2;
-    T* on = out + (long long)blockIdx.z * c_out * L4 + (long long)r * W2 + c;
+    float* on = out + (long long)blockIdx.z * c_out * L4 + (long long)r * W2 + c;
 #pragma unroll
     for (int o = 0; o < COB; ++o)
-      if (o < c_out) store_from_f32(on + (long long)o * L4, acc[o]);
+      if (o < c_out) on[(long long)o * L4] = acc[o];
   }
 }
 
@@ -605,6 +658,10 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(smem_addr(p)));
 }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(smem_addr(p)));
+}
 
 // d = a . b (fresh) or d += a . b; m16n8k16, bf16 in, f32 accumulators.
 __device__ __forceinline__ void mma_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -901,9 +958,9 @@ conv3x3s2_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   cluster.sync();  // the other blocks have read this block's sums
 }
 
-// Allows the kernel SMEM_MOST bytes of dynamic shared memory, once for each
+// Allows KERNEL SMEM_MOST bytes of dynamic shared memory, once for each
 // device (the attribute is kept per context).
-template <int MT>
+template <auto KERNEL>
 cudaError_t allow_smem() {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<bool> done[MAX_DEVICES];
@@ -911,8 +968,7 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(conv3x3s2_dw_mma_kernel<MT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
+  err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MOST);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
   return err;
 }
@@ -920,7 +976,7 @@ cudaError_t allow_smem() {
 template <int MT>
 cudaError_t launch_partial(const bf16* x, const bf16* dy, float* ws, int c_in, int c_out, int h,
                            int w, const Geometry& g, int vec, cudaStream_t stream) {
-  cudaError_t err = allow_smem<MT>();
+  cudaError_t err = allow_smem<conv3x3s2_dw_mma_kernel<MT>>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(g.blocks, g.groups);
@@ -961,23 +1017,443 @@ cudaError_t launch(const void* x, const void* dy, float* ws, float* out, int n, 
   return launch_reduce(ws, out, g.slots, c_in, c_out, stream);
 }
 
+// --------------------------------------------------------- K4, bf16 (mma)
+
+constexpr int CP = 24;              // staged channels a pixel: CG + 8 of padding (48 bytes)
+constexpr int F_WARPS = 8;          // warps a block
+constexpr int F_NTH = 32 * F_WARPS;
+constexpr int F_NTW = 4;            // most n-tiles a warp owns in a band: two ldmatrix pairs
+constexpr int F_WIN = 64;           // most output columns of a window
+constexpr int F_MAX_WSLOTS = 4;     // wall slices kept; C_in <= 64 keeps all of them
+constexpr int F_STAGE_COST = 4096;  // a stage's set-up in the band-height model, as landed bytes
+
+// How K4's tensor-core kernel cuts a launch, and a block's shared memory.
+// A tile is a band of output rows of a window of `wd` output columns (`cpr`
+// n-tiles of 8): `ncw` windows across an output row; the H/2 output rows
+// are `nb` bands, band b starting at row b*bq + min(b, br) with bq rows, one
+// more for b < br, at most `rows`; `total` tiles over the batch, in (image,
+// band, window) order.  Block k along grid.x walks tiles k*per .. +per-1,
+// each in `groups` stages of 16 input channels; along grid.y (`mz` blocks)
+// it owns `mw` m-tiles of 16 output channels.  Shared memory holds:
+//   * the wall: `wslots` slices of 9 taps x 16*mw rows x CP;
+//   * xs, the parity planes of r2 = 2*rows + 1 input rows (input row 2*y0 -
+//     1 + r at row r), `rowp` pixels x CP a row: the even plane at pixel j
+//     (input column 2*x0 + 2j, j < wd), the odd plane at pixel opl + j
+//     (column 2*x0 + 2j - 1, j <= wd); at a tile's end, its outputs, 16*mw
+//     rows of `opitch` elements;
+//   * two landing buffers: 16 channel rows (pitch `lpc` pieces) of r2 rows
+//     of `lp` 16-byte pieces, input columns 2*x0 - 8 .. 2*x0 + 2*wd - 1.
+// lsh_l, lsh_o: log2 of the lanes that land one row of pieces (lp) or store
+// one output row (cpr pieces); cpr_mul: t / cpr = (t * cpr_mul) >> 16 for
+// the band's n-tiles t.
+struct FwdGeometry {
+  int mw, mz, wd, cpr, ncw, rows, nb, bq, br, r2, total, per, blocks, groups, wslots;
+  int opl, rowp, opitch, lp, lpc, lsh_l, lsh_o, cpr_mul;
+  int xs_off, land_off, land_bytes, smem;  // bytes
+};
+
+void fwd_layout(FwdGeometry& g) {
+  g.r2 = 2 * g.rows + 1;
+  g.opl = g.wd + 3;  // 3 mod 8: see transpose_s2
+  g.rowp = g.opl + g.wd + 1;
+  g.opitch = ceil_div(g.rows * g.wd, 64) * 64 + 8;  // 4 words past a multiple of 32
+  g.lp = g.wd / 4 + 1;
+  g.lpc = (g.r2 * g.lp) | 1;  // odd: see transpose_s2
+  g.xs_off = g.wslots * 9 * 16 * g.mw * CP * 2;
+  const int xs = g.r2 * g.rowp * CP, outs = 16 * g.mw * g.opitch;
+  g.land_off = g.xs_off + (xs > outs ? xs : outs) * 2;
+  g.land_bytes = CG * g.lpc * 16;
+  g.smem = g.land_off + 2 * g.land_bytes;
+}
+
+// The band height whose busiest block lands the fewest bytes (plus a share
+// for each stage's set-up), over heights whose shared memory lets two
+// blocks fit an SM and whose n-tiles the warps hold; the grid is about two
+// blocks an SM.  total == 0: no cut.
+FwdGeometry fwd_geometry(int n, int c_in, int c_out, int h, int w) {
+  const int h2 = h / 2, w2 = w / 2;
+  FwdGeometry g{};
+  const int mt = ceil_div(c_out, 16);
+  g.mw = mt == 1 ? 1 : 2;
+  g.mz = ceil_div(mt, g.mw);
+  g.ncw = ceil_div(w2, F_WIN);
+  g.wd = round_up(ceil_div(w2, g.ncw), 8);
+  g.cpr = g.wd / 8;
+  g.groups = ceil_div(c_in, CG);
+  g.wslots = g.groups < F_MAX_WSLOTS ? g.groups : F_MAX_WSLOTS;
+  const int target = 2 * SMS / g.mz;
+  FwdGeometry best{};
+  long long best_cost = -1;
+  for (int r = 1; r <= h2 && r * g.cpr <= F_WARPS * F_NTW; ++r) {
+    g.nb = ceil_div(h2, r);
+    g.rows = ceil_div(h2, g.nb);
+    if (g.rows != r) continue;  // the same cut as a lower height
+    fwd_layout(g);
+    if (g.smem > SMEM_MOST) break;
+    const long long total = (long long)n * g.nb * g.ncw;
+    if (total > 0x7fffffffLL) continue;
+    g.total = (int)total;
+    g.per = ceil_div(g.total, target);
+    const long long cost =
+        (long long)g.per * g.groups * ((long long)CG * g.r2 * g.lp * 16 + F_STAGE_COST);
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  if (best_cost < 0) return FwdGeometry{};
+  g = best;
+  g.bq = h2 / g.nb;
+  g.br = h2 % g.nb;
+  g.blocks = ceil_div(g.total, g.per);
+  g.lsh_l = log2_lanes(g.lp);
+  g.lsh_o = log2_lanes(g.cpr);
+  g.cpr_mul = (65536 + g.cpr - 1) / g.cpr;  // exact for t < 65536 / cpr
+  return g;
+}
+
+// Rows of (count) x (r2) walked by a lane group: row (c, r) = (k / r2, k %
+// r2) for k = first, first + step, ...; one division to start, none after.
+struct RowWalk {
+  int c, r;
+  __device__ __forceinline__ RowWalk(int first, int r2) : c(first / r2), r(first - c * r2) {}
+  __device__ __forceinline__ void advance(int step, int r2) {
+    r += step;
+    while (r >= r2) {
+      r -= r2;
+      ++c;
+    }
+  }
+};
+
+// Land channels c0 .. c0+15 of input rows gy0 .. gy0+xr-1, columns gx0 ..
+// gx0 + 8*lp - 1, as 16-byte pieces: piece j of channel row (ch, r) at
+// (ch*lpc + r*lp + j)*8, zero outside the image and past C_in.  A group of
+// 2^lsh_l lanes lands row r, one piece a lane, for the 16 channels in turn.
+// Needs W % 8 == 0 and x 16-byte aligned, so a piece is in or out as a
+// whole (gx0 is a multiple of 8).
+__device__ __forceinline__ void land_s2(bf16* land, const bf16* xn, int c0, int c_in, int H,
+                                        int W, long long L, int gy0, int gx0, int xr,
+                                        const FwdGeometry& g, int warp, int lane) {
+  const int per = 32 >> g.lsh_l, j = lane & ((1 << g.lsh_l) - 1);
+  const int gx = gx0 + 8 * j;
+  if (j >= g.lp) return;
+  const bool col_in = gx >= 0 && gx < W;
+  const int nch = min(CG, c_in - c0);
+  for (int r = warp * per + (lane >> g.lsh_l); r < xr; r += F_WARPS * per) {
+    const int gy = gy0 + r;
+    const bool in = col_in && gy >= 0 && gy < H;
+    const bf16* src = in ? xn + (long long)c0 * L + (long long)gy * W + gx : xn;
+    bf16* dst = land + (r * g.lp + j) * 8;
+#pragma unroll
+    for (int ch = 0; ch < CG; ++ch) {
+      const bool v = in && ch < nch;
+      cp_async16(dst, v ? src : xn, v ? 16 : 0);
+      src += in ? L : 0;
+      dst += g.lpc * 8;
+    }
+  }
+}
+
+// The landing to the parity planes.  Pixel d of a landed row (input column
+// 2*x0 + d, d = -8 .. 2*wd - 1; piece j holds d = 8j - 8 .. 8j - 1) goes to
+// the even plane at d / 2 (d even, d >= 0) or to the odd plane at (d + 1) /
+// 2 (d odd, d >= -1): of the halo piece (j = 0) only d = -1 is kept.  Warp
+// w takes rows w, w + 8, ... and walks a row's pieces two at a time: one
+// ldmatrix.x4.trans, whose 8-row matrices are 8 channels of a piece, gives
+// lane (g, q) channels 2q, 2q+1 (and 8+2q, 9+2q) of pixel g of each piece,
+// four 32-bit stores.  The 8 channel rows are lpc pieces apart (odd), so
+// the loads hit 8 distinct bank groups.  A piece's 8 pixels go to 4
+// consecutive pixels of each plane, 12 words a pixel, at words 12p + q of
+// the even plane, {0-7, 12-15, 24-27} + 16j mod 32, and 12(opl + p) + q of
+// the odd one, opl = 3 mod 8 putting them 4 words on, {8-11, 16-23, 28-31}
+// + 16j mod 32: a store hits 32 distinct banks.
+__device__ __forceinline__ void transpose_s2(bf16* xs, const bf16* land, const FwdGeometry& g,
+                                             int xr, int warp, int lane) {
+  const int gq = lane >> 2, q = lane & 3, hi = lane >> 4;
+  // the plane pixel of pixel gq of piece 0 (4 on for each piece after it)
+  const int pix0 = (gq & 1) ? g.opl + (gq + 1) / 2 - 4 : gq / 2 - 4;
+  for (int r = warp; r < xr; r += F_WARPS) {
+    const bf16* src = land + ((lane & 15) * g.lpc + r * g.lp + hi) * 8;
+    bf16* dst = xs + (r * g.rowp + pix0) * CP + 2 * q;
+    for (int j = 0; j < g.lp; j += 2, src += 16, dst += 8 * CP) {
+      const bool two = j + 1 < g.lp;
+      uint32_t v[4];
+      ldmatrix_x4_trans(v, two || !hi ? src : src - 8);  // no second piece: re-read the first
+      if (j > 0 || gq == 7) {
+        *reinterpret_cast<uint32_t*>(dst) = v[0];
+        *reinterpret_cast<uint32_t*>(dst + 8) = v[1];
+      }
+      if (two) {
+        *reinterpret_cast<uint32_t*>(dst + 4 * CP) = v[2];
+        *reinterpret_cast<uint32_t*>(dst + 4 * CP + 8) = v[3];
+      }
+    }
+  }
+}
+
+// The planes element by element, for rows that are not 16-byte aligned:
+// input column 2*x0 - 1 + s goes to the odd plane at s / 2 (s even) or to
+// the even plane at (s - 1) / 2 (s odd).
+__device__ __forceinline__ void stage_s2_scalar(bf16* xs, const bf16* xn, int c0, int c_in,
+                                                int H, int W, long long L, int gy0, int x0,
+                                                int xr, const FwdGeometry& g, int tid) {
+  const int cols = 2 * g.wd + 1;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int e = tid; e < CG * xr * cols; e += F_NTH) {
+    const int ch = e % CG, rs = e / CG;
+    const int s = rs % cols, r = rs / cols;
+    const int gy = gy0 + r, gx = 2 * x0 - 1 + s;
+    const bool in = c0 + ch < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const int pix = (s & 1) ? (s - 1) / 2 : g.opl + s / 2;
+    xs[(r * g.rowp + pix) * CP + ch] =
+        in ? xn[(long long)(c0 + ch) * L + (long long)gy * W + gx] : zero;
+  }
+}
+
+// Wall slice of channels c0 .. c0+15 for output channels o0 .. o0+16*MW-1:
+// row (t, o) at (t*16*MW + o)*CP, zero past C_in and C_out.  vec: C_in % 8
+// == 0 and w_all 16-byte aligned, so each half row is one cp.async.
+template <int MW>
+__device__ __forceinline__ void stage_wall(bf16* wsl, const bf16* w_all, int c0, int c_in,
+                                           int c_out, int o0, bool vec, int tid) {
+  constexpr int OP = 16 * MW;
+  const long long K = 9LL * c_in;
+  if (vec) {
+    for (int e = tid; e < 9 * OP * 2; e += F_NTH) {
+      const int h = e & 1, to = e >> 1;
+      const int o = to % OP, t = to / OP;
+      const int ow = o0 + o, cc = c0 + 8 * h;
+      const bool in = ow < c_out && cc < c_in;
+      cp_async16(wsl + (t * OP + o) * CP + 8 * h, in ? w_all + ow * K + t * c_in + cc : w_all,
+                 in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int e = tid; e < 9 * OP * CG; e += F_NTH) {
+      const int ch = e % CG, to = e / CG;
+      const int o = to % OP, t = to / OP;
+      const int ow = o0 + o, cc = c0 + ch;
+      wsl[(t * OP + o) * CP + ch] =
+          ow < c_out && cc < c_in ? w_all[ow * K + t * c_in + cc] : zero;
+    }
+  }
+}
+
+// Grid (blocks, mz), F_NTH threads, at most 128 registers each (two blocks
+// an SM).  vec_x: W/2 % 8 == 0 and x and out 16-byte aligned (cp.async
+// landing, 16-byte stores); vec_w: the wall's rows are (see stage_wall).
+template <int MW>
+__global__ void __launch_bounds__(F_NTH, 2)
+conv3x3s2_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all,
+                     bf16* __restrict__ out, int c_in, int c_out, int H, int W, FwdGeometry g,
+                     int vec_x, int vec_w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int OP = 16 * MW;
+  constexpr int WSLICE = 9 * OP * CP;  // elements of one wall slice
+  bf16* ws0 = reinterpret_cast<bf16*>(smem);
+  bf16* xs = reinterpret_cast<bf16*>(smem + g.xs_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H2 = H / 2, W2 = W / 2;
+  const int o0 = blockIdx.y * OP;
+  const int t_first = blockIdx.x * g.per;
+  const int stages = (min(g.total, t_first + g.per) - t_first) * g.groups;
+  const long long L = (long long)H * W, L4 = (long long)H2 * W2;
+  auto land_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + g.land_off + (s & 1) * g.land_bytes);
+  };
+  // Stage s is channel group gi of tile t_first + s / groups: image n,
+  // output rows y0 .. y0+rb-1, window columns x0 ..
+  auto origin = [&](int s, int& n, int& y0, int& rb, int& x0, int& gi) {
+    const int k = s / g.groups, t = t_first + k, per_image = g.nb * g.ncw;
+    gi = s - k * g.groups;
+    n = t / per_image;
+    const int b = t - n * per_image, band = b / g.ncw;
+    y0 = band * g.bq + min(band, g.br);
+    rb = g.bq + (band < g.br);
+    x0 = (b - band * g.ncw) * g.wd;
+  };
+  // Stage s's wall slice sits in slot gi while all slices fit (staged with
+  // the block's first tile), else in slot s % F_MAX_WSLOTS (staged with
+  // every stage).
+  auto wslot = [&](int s, int gi) { return g.groups <= F_MAX_WSLOTS ? gi : s % F_MAX_WSLOTS; };
+  // Stage s's pieces into landing buffer s & 1 (the 2*rb + 1 input rows its
+  // band reads), and its wall slice where the slot does not hold it yet:
+  // one commit group, empty past the last stage.
+  auto prefetch = [&](int s) {
+    if (s < stages) {
+      int n, y0, rb, x0, gi;
+      origin(s, n, y0, rb, x0, gi);
+      if (vec_x)
+        land_s2(land_of(s), x + (long long)n * c_in * L, gi * CG, c_in, H, W, L, 2 * y0 - 1,
+                2 * x0 - 8, 2 * rb + 1, g, warp, lane);
+      if (g.groups > F_MAX_WSLOTS || s < g.groups)
+        stage_wall<MW>(ws0 + wslot(s, gi) * WSLICE, w_all, gi * CG, c_in, c_out, o0, vec_w,
+                       tid);
+    }
+    cp_async_commit();
+  };
+
+  const int a_lane = (lane & 15) * CP + (lane >> 4) * 8;
+  float acc[MW][F_NTW][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int j = 0; j < F_NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  // Slot j of this warp is n-tile t = j*F_WARPS + warp of a band: output
+  // row t / cpr, columns 8*(t % cpr) .. +7.  Slots past the band's last row
+  // are idle (their B lanes read slot 0's pixels).  boff[p]: the lane's
+  // ldmatrix row of slot pair p at tap (0, 1), the even plane of staged row
+  // 2 * (output row).
+  const auto row_of = [&](int t) { return (t * g.cpr_mul) >> 16; };
+  int boff[F_NTW / 2];
+#pragma unroll
+  for (int p = 0; p < F_NTW / 2; ++p) {
+    int t = (2 * p + (lane >> 4)) * F_WARPS + warp;
+    if (t >= g.rows * g.cpr) t = 0;
+    const int row = row_of(t);
+    boff[p] = (2 * row * g.rowp + 8 * (t - row * g.cpr) + (lane & 7)) * CP +
+              ((lane >> 3) & 1) * 8;
+  }
+  int nvalid = 0;
+
+  prefetch(0);
+  prefetch(1);
+  for (int s = 0; s < stages; ++s) {
+    int n, y0, rb, x0, gi;
+    origin(s, n, y0, rb, x0, gi);
+    cp_async_wait_prior();
+    __syncthreads();  // stage s has landed; the block is done with xs
+    if (vec_x)
+      transpose_s2(xs, land_of(s), g, 2 * rb + 1, warp, lane);
+    else
+      stage_s2_scalar(xs, x + (long long)n * c_in * L, gi * CG, c_in, H, W, L, 2 * y0 - 1, x0,
+                      2 * rb + 1, g, tid);
+    __syncthreads();  // xs holds stage s; its landing buffer is free
+    prefetch(s + 2);
+
+    if (gi == 0) {
+      const int nslots = rb * g.cpr;
+      nvalid = warp < nslots ? (nslots - warp + F_WARPS - 1) / F_WARPS : 0;
+    }
+    // tap (ki, kj) of output column c reads staged row 2r + ki at input
+    // column 2c + kj - 1: the even plane at c (kj = 1), the odd plane at c
+    // (kj = 0) or at c + 1 (kj = 2)
+    const bf16* wsg = ws0 + wslot(s, gi) * WSLICE + a_lane;
+#pragma unroll
+    for (int ki = 0; ki < 3; ++ki)
+#pragma unroll
+      for (int kj = 0; kj < 3; ++kj) {
+        uint32_t a[MW][4];
+#pragma unroll
+        for (int m = 0; m < MW; ++m) ldmatrix_x4(a[m], wsg + ((3 * ki + kj) * OP + 16 * m) * CP);
+        const bf16* xt = xs + (ki * g.rowp + (kj == 1 ? 0 : g.opl + (kj >> 1))) * CP;
+#pragma unroll
+        for (int p = 0; p < F_NTW / 2; ++p) {
+          if (2 * p < nvalid) {
+            uint32_t b[4];
+            ldmatrix_x4(b, xt + boff[p]);
+#pragma unroll
+            for (int m = 0; m < MW; ++m) mma_acc(acc[m][2 * p], a[m], b[0], b[1]);
+            if (2 * p + 1 < nvalid) {
+#pragma unroll
+              for (int m = 0; m < MW; ++m) mma_acc(acc[m][2 * p + 1], a[m], b[2], b[3]);
+            }
+          }
+        }
+      }
+    if (gi + 1 < g.groups) continue;
+
+    // The tile's last group: its outputs through xs, as 16*MW rows of
+    // opitch, then out.  acc[m][j]: output channels 16m + gq (e < 2) and + 8
+    // (e >= 2) of the block, the pixels 2q and 2q+1 of slot j's n-tile (the
+    // m16n8 accumulator layout); 8 channel rows 4 words past a multiple of
+    // 32 apart, so the stores hit 32 distinct banks.
+    __syncthreads();  // the products are done with xs
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int j = 0; j < F_NTW; ++j) {
+      if (j < nvalid) {
+        const int t = j * F_WARPS + warp, row = row_of(t);
+        const int pix = row * g.wd + 8 * (t - row * g.cpr) + 2 * q;
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<__nv_bfloat162*>(xs + (16 * m + gq + 8 * hh) * g.opitch + pix) =
+                __floats2bfloat162_rn(acc[m][j][2 * hh], acc[m][j][2 * hh + 1]);
+      }
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    }
+    __syncthreads();
+    const int ob = min(OP, c_out - o0);
+    bf16* on = out + ((long long)n * c_out + o0) * L4 + (long long)y0 * W2 + x0;
+    if (vec_x) {
+      // a group of 2^lsh_o lanes stores one output row, 16 bytes a lane
+      const int per = 32 >> g.lsh_o, c = lane & ((1 << g.lsh_o) - 1);
+      if (c < g.cpr && x0 + 8 * c < W2)
+        for (RowWalk w(warp * per + (lane >> g.lsh_o), rb); w.c < ob;
+             w.advance(F_WARPS * per, rb))
+          *reinterpret_cast<uint4*>(on + w.c * L4 + (long long)w.r * W2 + 8 * c) =
+              *reinterpret_cast<const uint4*>(xs + w.c * g.opitch + w.r * g.wd + 8 * c);
+    } else {
+      for (int e = tid; e < ob * rb * g.wd; e += F_NTH) {
+        const int c = e % g.wd, orr = e / g.wd;
+        const int r = orr % rb, o = orr / rb;
+        if (x0 + c < W2) on[o * L4 + (long long)r * W2 + c] = xs[o * g.opitch + r * g.wd + c];
+      }
+    }
+  }
+}
+
+template <int MW>
+cudaError_t launch_fwd_mw(const bf16* x, const bf16* w_all, bf16* out, int c_in, int c_out,
+                          int h, int w, const FwdGeometry& g, int vec_x, int vec_w,
+                          cudaStream_t stream) {
+  const cudaError_t err = allow_smem<conv3x3s2_mma_kernel<MW>>();
+  if (err != cudaSuccess) return err;
+  conv3x3s2_mma_kernel<MW><<<dim3(g.blocks, g.mz), F_NTH, g.smem, stream>>>(
+      x, w_all, out, c_in, c_out, h, w, g, vec_x, vec_w);
+  return cudaGetLastError();
+}
+
+// K4, bf16.
+cudaError_t launch_fwd_mma(const void* x, const void* w_all, void* out, int n, int c_in,
+                           int c_out, int h, int w, cudaStream_t stream) {
+  const FwdGeometry g = fwd_geometry(n, c_in, c_out, h, w);
+  if (g.total < 1 || g.smem > SMEM_MOST) return cudaErrorInvalidConfiguration;
+  const int vec_x = (w / 2) % 8 == 0 && aligned(x) && aligned(out);
+  const int vec_w = c_in % 8 == 0 && aligned(w_all);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* wp = static_cast<const bf16*>(w_all);
+  bf16* op = static_cast<bf16*>(out);
+  if (g.mw == 1) return launch_fwd_mw<1>(xp, wp, op, c_in, c_out, h, w, g, vec_x, vec_w, stream);
+  return launch_fwd_mw<2>(xp, wp, op, c_in, c_out, h, w, g, vec_x, vec_w, stream);
+}
+
 }  // namespace tc
 
 // ------------------------------------------------------------ launchers
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w_all, void* out, int n,
-                       int c_in, int c_out, int h, int w, cudaStream_t stream) {
+// K4, f32.
+cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n,
+                           int c_in, int c_out, int h, int w, cudaStream_t stream) {
   const dim3 grid((w / 2 + F_TW - 1) / F_TW, (h / 2 + F_TH - 1) / F_TH, n);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w_all);
-  T* op = static_cast<T*>(out);
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w_all);
+  float* op = static_cast<float*>(out);
   if (c_out <= 16)
-    conv3x3s2_fwd_kernel<T, 16><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
+    conv3x3s2_fwd_kernel<16><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
   else if (c_out <= 32)
-    conv3x3s2_fwd_kernel<T, 32><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
+    conv3x3s2_fwd_kernel<32><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
   else
-    conv3x3s2_fwd_kernel<T, 64><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
+    conv3x3s2_fwd_kernel<64><<<grid, F_NT, 0, stream>>>(xp, wp, op, c_in, c_out, h, w);
   return cudaGetLastError();
 }
 
@@ -1025,14 +1501,15 @@ extern "C" {
 
 // K4.  x: (n, c_in, h*w), w_all: (c_out, 9*c_in) tap-major, out: (n, c_out,
 // h/2*w/2), all contiguous on the current device, float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1).  Returns a cudaError_t as int.
+// bfloat16 (is_bf16 = 1).  bf16 runs on the tensor cores, f32 on the CUDA
+// cores.  Returns a cudaError_t as int.
 int conv3x3s2(const void* x, const void* w_all, void* out, int n, int c_in,
               int c_out, int h, int w, int is_bf16, void* stream) {
   if (!valid(n, c_in, c_out, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16>(x, w_all, out, n, c_in, c_out, h, w, s)
-              : launch_fwd<float>(x, w_all, out, n, c_in, c_out, h, w, s);
+  const cudaError_t err = is_bf16
+                              ? tc::launch_fwd_mma(x, w_all, out, n, c_in, c_out, h, w, s)
+                              : launch_fwd_f32(x, w_all, out, n, c_in, c_out, h, w, s);
   return static_cast<int>(err);
 }
 

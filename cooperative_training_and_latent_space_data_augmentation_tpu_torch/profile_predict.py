@@ -7,9 +7,12 @@ Serves phantom requests (bf16, weights from a seed) through
 of them with ``torch.profiler``.  Prints, per batch size (20 and 160): the
 host-clock latency of a request (numpy in, numpy out) over 50 untraced
 requests, as min / median / p90 / max, the device time per request by
-group (kernels K1, K4, K4dw and K5, cuDNN convolutions, other kernels, copies), the
-device's idle share over the traced window, and the kernels that take the
-most device time.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
+group (kernels K1, K4, K4dx, K4dw and K5, cuDNN convolutions, other kernels,
+copies), the device's idle share over the traced window, and the kernels
+that take the most device time.  Device busy is the sum of the kernels'
+and copies' device time (:func:`device_time`): ``record_function`` ranges,
+which the trace also shows on the device, are printed apart and not
+counted.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
 (the encoders' stride-2 downsamples on K4), ``--conv-nl`` the
 ``conv_nl=True`` one (the residual stages' large-channel 3x3 convs on K5);
 the two combine.  Needs a CUDA device.
@@ -51,8 +54,10 @@ def _group(name: str) -> str:
         return "K6 conv3x3_b8 (forward and dx)"
     if "conv3x3s2_dw" in name:
         return "K4dw conv3x3s2_dw"
+    if "conv3x3s2_dx" in name:
+        return "K4dx conv3x3s2_dx"
     if "conv3x3s2" in name:
-        return "K4 conv3x3s2 (forward and dx)"
+        return "K4 conv3x3s2"
     if any(k in name for k in ("conv3x3_chw_kernel", "conv3x3_chw_mma_kernel")):
         return "K1 conv3x3_chw (forward and dx)"
     if any(k in name for k in ("dw_partial_kernel", "dw_mma_partial_kernel",
@@ -65,6 +70,31 @@ def _group(name: str) -> str:
     if any(k in low for k in ("cudnn", "conv", "xmma", "implicit", "sm90_")):
         return "cuDNN/cuBLAS convs and matmuls"
     return "other kernels (elementwise, BN, casts, upsample)"
+
+
+def device_time(events):
+    """Device time of a trace's ``key_averages()`` entries, in microseconds:
+    ``(by_group, ranges, kernels)``.  Only device-side entries count (a CPU
+    op's entry repeats its kernels' time).  A ``record_function`` range
+    (``is_user_annotation``) also shows on the device's timeline, as a span
+    over kernels counted on their own, idle gaps included: ranges are
+    summed apart into ``ranges`` and left out of ``by_group``, so that
+    busy, ``sum(by_group.values())``, counts each kernel once.  ``kernels``
+    lists (device time, launches, name) of every kernel and copy.  The
+    attribute is read directly, so a torch without it raises."""
+    by_group = defaultdict(float)
+    kernels = []
+    ranges = 0.0
+    for evt in events:
+        annotation = evt.is_user_annotation
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if annotation:
+            ranges += evt.self_device_time_total
+            continue
+        by_group[_group(evt.key)] += evt.self_device_time_total
+        kernels.append((evt.self_device_time_total, evt.count, evt.key))
+    return by_group, ranges, kernels
 
 
 def profile_batch(predictor, batch: int) -> None:
@@ -87,15 +117,7 @@ def profile_batch(predictor, batch: int) -> None:
             serve()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    by_group = defaultdict(float)
-    kernels = []
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's entry repeats its kernels' time
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = evt.self_device_time_total
-        by_group[_group(evt.key)] += dev_us
-        kernels.append((dev_us, evt.count, evt.key))
+    by_group, ranges, kernels = device_time(prof.key_averages())
     busy = sum(by_group.values())
     med = statistics.median(lat)
     p90 = statistics.quantiles(lat, n=10)[-1]
@@ -107,7 +129,9 @@ def profile_batch(predictor, batch: int) -> None:
         print("  the profiler saw no device time: device breakdown not measured")
         return
     print(f"  traced {TRACED_REQUESTS} requests in {window * 1e3:.3f} ms; device busy "
-          f"{busy / 1e3:.3f} ms, idle share {1 - busy / 1e6 / window:.3f}")
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / 1e6 / window:.3f}; record_function "
+          f"ranges on the device, not in busy: {ranges / 1e3 / TRACED_REQUESTS:.3f} ms per "
+          f"request")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {us / 1e3 / TRACED_REQUESTS:.3f} ms per request "
               f"({us / busy:.1%} of device time)")

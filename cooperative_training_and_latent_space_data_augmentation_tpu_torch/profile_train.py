@@ -8,9 +8,11 @@ phantom batch, as ``chip_smoke.py``'s train phase does.  After 3 warm-up
 steps it times 20 untraced steps on the host clock (each ending in a
 synchronize) as min / median / p90 / max, then traces 5 steps with
 ``torch.profiler`` and prints the device time per step by group (K1 forward
-and dx, K2, K3, K4 with K4dx, K4dw, K5 with its dx, K5dw, cuDNN,
-other kernels, copies), the device's idle share over the traced window, and
-the kernels that take the most device time.  ``--conv-s2`` trains the
+and dx, K2, K3, K4, K4dx, K4dw, K5 with its dx, K5dw, cuDNN, other kernels,
+copies), the device's idle share over the traced window, and the kernels
+that take the most device time.  Device busy leaves ``record_function``
+ranges out (``profile_predict.device_time``): the optimizer step's range,
+``Optimizer.step#Adam.step``, is printed on a line of its own.  ``--conv-s2`` trains the
 ``conv_s2=True`` configuration (the encoders' stride-2 downsamples on K4),
 ``--conv-nl`` the ``conv_nl=True`` one (the residual stages' large-channel
 3x3 convs on K5); the two combine.  Needs a CUDA device.
@@ -21,10 +23,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
-from collections import defaultdict
-
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
@@ -34,8 +33,8 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synt
     phantom_batch,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
-    _group,
     configuration,
+    device_time,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
@@ -88,20 +87,15 @@ def main() -> int:
         for _ in range(TRACED):
             step()
         window = time.perf_counter() - t0
-    by_group = defaultdict(float)
-    kernels = []
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's entry repeats its kernels' time
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        by_group[_group(evt.key)] += evt.self_device_time_total
-        kernels.append((evt.self_device_time_total, evt.count, evt.key))
+    by_group, ranges, kernels = device_time(prof.key_averages())
     busy = sum(by_group.values())
     if busy == 0:
         print("the profiler saw no device time: device breakdown not measured")
         return 0
     print(f"traced {TRACED} steps in {window * 1e3:.3f} ms; device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / 1e6 / window:.3f}")
+    print(f"record_function ranges on the device (the optimizer step's), not in busy: "
+          f"{ranges / 1e3 / TRACED:.3f} ms per step")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {us / 1e3 / TRACED:.3f} ms per step ({us / busy:.1%} of device time)")
     print(f"top {TOP} kernels by device time (per step):")

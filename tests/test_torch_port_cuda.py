@@ -3,12 +3,14 @@ stride-2 K4, K4dx and K4dw, the large-channel K5 (forward and dx) and
 K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
-multiple of 32, ties), the fixed summation order of K2, K4dw, K5, K5dw, K6
-and K6dw, K4dw and K5dw on unaligned operands, K4dw, K5dw and K6dw inside
-the workspace they report, K6 and K6dw refusing unaligned bf16 operands,
-the input checks (no fallback), the launch counts, and the predictor
-and the train step on the card against the CPU, with the default route,
-with ``conv_s2=True`` and with ``conv_nl=True``.
+multiple of 32, ties), the fixed summation order of K2, K4, K4dw, K5, K5dw,
+K6 and K6dw, K4, K4dw and K5dw on unaligned operands, K4's routes by dtype
+and C_in, K4dw, K5dw and K6dw inside the workspace they report, K6 and
+K6dw refusing unaligned bf16 operands, the input checks (no fallback), the
+launch counts, the profile scripts' device busy without
+``record_function`` ranges, and the predictor and the train step on the
+card against the CPU, with the default route, with ``conv_s2=True`` and
+with ``conv_nl=True``.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -344,6 +346,86 @@ def test_k4_and_k4dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
         torch.testing.assert_close(g.float(), wt.float(), rtol=0, atol=atol)
 
 
+# the tensor-core K4's tiling (bf16): bands that do not divide
+# H/2 (95 and 19 output rows), W/2 over 64 (2 and 3 windows), W/2 not a
+# multiple of 8 (35, 17: element-wise staging), C_in 9, 24, 40 (a partial
+# 16-channel stage), 64 and 72 (more wall slices than stay resident), every
+# C_out bucket (5, 16, 17, 33, 40, 64: one or two m-tiles, one or two blocks
+# along C_out), one output row, N = 1, more tiles than blocks (N = 300), and
+# the main path's shapes at the serving batch
+S2_FWD_SHAPES = [
+    (2, 16, 16, 190, 192), (3, 24, 17, 38, 96), (1, 40, 33, 24, 304), (2, 64, 64, 48, 48),
+    (2, 16, 5, 20, 70), (3, 24, 40, 10, 34), (1, 72, 16, 12, 32), (2, 9, 16, 8, 16),
+    (2, 12, 8, 2, 32), (300, 24, 17, 4, 16), (160, 16, 16, 192, 192), (160, 32, 32, 96, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_FWD_SHAPES)
+def test_k4_tiling_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    x, _, w_all = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 5)
+    got = conv_s2.conv3x3s2(x, w_all, h, w)
+    again = conv_s2.conv3x3s2(x, w_all, h, w)
+    want = conv_s2.conv3x3s2_plain(x, w_all, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, c_out, (h // 2) * (w // 2))
+    scale = want.float().abs().max().item()
+    # bf16: one rounding of nearly the same f32 sum; f32: another order
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    # one mma chain (or one thread's sum) per output, no atomics
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [(20, 16, 16, 192, 192), (3, 24, 40, 10, 64)])
+def test_k4_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
+    """x, the wall and the output 2 bytes past a 16-byte boundary: the
+    tensor-core kernel stages element by element and stores element by
+    element, and gives the same outputs."""
+    dt = getattr(torch, dtype)
+    x, _, w_all = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 14)
+    xu = torch.empty(x.numel() + 1, dtype=dt, device=cuda)[1:].view(x.shape)
+    wu = torch.empty(w_all.numel() + 1, dtype=dt, device=cuda)[1:].view(w_all.shape)
+    xu.copy_(x)
+    wu.copy_(w_all)
+    out = torch.empty(n * c_out * (h // 2) * (w // 2) + 1, dtype=dt, device=cuda)[1:]
+    conv_s2._launch("conv3x3s2", "unaligned test", xu, xu.data_ptr(), wu.data_ptr(),
+                    out.data_ptr(), n, c_in, c_out, h, w)
+    want = conv_s2.conv3x3s2_plain(x, w_all, h, w)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(out.view(want.shape).float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,c_in,kernel", [
+    ("bfloat16", 16, "tc::conv3x3s2_mma_kernel"), ("bfloat16", 9, "tc::conv3x3s2_mma_kernel"),
+    ("bfloat16", 8, "tc::conv3x3s2_mma_kernel"), ("bfloat16", 3, "tc::conv3x3s2_mma_kernel"),
+    ("float32", 16, "conv3x3s2_fwd_kernel"),
+])
+def test_k4_routes_by_dtype_and_channels(cuda, dtype, c_in, kernel):
+    """bf16 of any C_in runs on the tensor cores, f32 on the CUDA cores: one
+    launch, of that kernel, in K4's profile row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        _group,
+    )
+
+    x, _, w_all = _s2_inputs(cuda, 2, c_in, 16, 32, 32, getattr(torch, dtype), 15)
+    conv_s2.conv3x3s2(x, w_all, 32, 32)  # built and loaded before the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv_s2.conv3x3s2(x, w_all, 32, 32)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
+    assert _group(names[0]) == "K4 conv3x3s2", names
+
+
 # the tensor-core K4dw's tiling: bands that do not divide H/2 (95 and 19
 # output rows), W/2 a multiple of 8 but not of 16 (k-steps padded with dy
 # zeros), odd W/2 (17, 35: element-wise staging), C_in not a multiple of 8
@@ -412,6 +494,40 @@ def test_k4dw_stays_inside_its_workspace(cuda, n, c_in, c_out, h, w, dtype):
     torch.cuda.synchronize()
     assert bool((work[size:] == 1234.5).all())
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_profile_busy_leaves_record_function_ranges_out(cuda):
+    """The profile scripts' busy (``profile_predict.device_time``) over
+    real traces: a ``record_function`` range around one K1 launch shows on
+    the device and is returned apart; busy is the kernel's device time.
+    Every one of ten traces is held to that, so a trace that comes back
+    without its device events fails the test."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        _group,
+        device_time,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((4, 16, 96 * 96), generator=gen, device=cuda).to(torch.bfloat16)
+    w_all = torch.randn((16, 144), generator=gen, device=cuda).to(torch.bfloat16)
+    conv_chw.conv3x3_chw(x, w_all, 96, 96)  # built and loaded before the traces
+    torch.cuda.synchronize()
+    for trace in range(10):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("k1_range"):
+                conv_chw.conv3x3_chw(x, w_all, 96, 96)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        k1 = [e.time_range.elapsed_us() for e in device if _group(e.name).startswith("K1 ")]
+        seen = (trace, [(e.name, e.is_user_annotation) for e in device])
+        assert len(k1) == 1 and k1[0] > 0, seen
+        by_group, ranges, _ = device_time(prof.key_averages())
+        assert ranges > 0, seen
+        assert set(by_group) == {_group("tc::conv3x3_chw_mma_kernel")}, seen
+        assert sum(by_group.values()) == pytest.approx(k1[0], rel=1e-3), seen
 
 
 def test_k4_rejects_bad_input_without_fallback(cuda):
