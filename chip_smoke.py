@@ -22,14 +22,15 @@ Phases, each printing its seconds when it ends:
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel of the port, compiled by ``nvcc`` from
    ``csrc/``, one process per source, all started together; K1 and the
-   tensor-core kernels of K4, K4dw, K5, K5dw, K6 and K6dw must report 0
-   spill bytes (and the latter six at most 128 registers);
+   tensor-core kernels of K4, K4dx, K4dw, K5, K5dw, K6 and K6dw must report
+   0 spill bytes (and the latter seven at most 128 registers);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the two paths give it (K1 forward at batch 20 and 160, K1
    dx and K2 at batch 20, bf16, plus one f32 shape each; K3 at (20, 128)
    and (20, 144), hard and soft, ties planted; K4, K4dx and K4dw at
    16->16 on 192x192 and 32->32 on 96x96, batch 20 and 160, bf16, and
-   batch 20 f32, K4's and K4dw's two launches bitwise equal; K5, K5dx and
+   batch 20 f32, K4's, K4dx's and K4dw's two launches bitwise equal; K5,
+   K5dx and
    K5dw at the four large-channel shapes, batch
    20 and 160, bf16, and batch 20 f32 (K5 and K5dx also batch 160 f32); K6,
    K6dx and K6dw at the five
@@ -40,7 +41,7 @@ Phases, each printing its seconds when it ends:
    same function where there is one (``library_ms``, a yardstick the port
    never calls), and the least time the card could take (``bound_ms``);
    for K1, K1 dx, K2, K4, K4dx, K4dw, K5, K5dx, K5dw, K6, K6dx and K6dw
-   (K4's at batch 20 and 160, K4dx's and K4dw's at batch 20) and their
+   (K4's and K4dx's at batch 20 and 160, K4dw's at batch 20) and their
    cuDNN calls, and for K3, also the device
    time alone (``device_ms``, ``library_device_ms``: ``torch.profiler``'s
    kernel durations, without the host time the events hold), and for bf16
@@ -87,11 +88,10 @@ K5 dx and K5dw by shape (K4's launches from the ``conv_s2`` train phase,
 K5's from the ``conv_nl`` one; K4dw's partial and reduce apart):
 launches per random step, ms, device ms, cuDNN's ms and device ms
 (``conv2d_weight``, ``F.conv2d``, ``conv2d_input``) and the bound, with the
-per-step totals; K4 by shape at batch 160 too; and K6, K6 dx and K6dw by
-stage of ``bench_b8_conv`` the same per bench pass, beside K1's (K1 dx's,
-K2's) device ms at the same shape, with K6dw's partial and reduce apart.
-The
-last lines are the card's ``nvidia-smi`` line, one JSON object with a
+per-step totals; K4 and K4 dx by shape at batch 160 too; and K6, K6 dx and
+K6dw by stage of ``bench_b8_conv`` the same per bench pass, beside K1's (K1
+dx's, K2's) device ms at the same shape, with K6dw's partial and reduce
+apart.  The last lines are the card's ``nvidia-smi`` line, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``,
 printed only when every phase passed.  Any failure exits non-zero.
 Without a CUDA device, or without the port's package beside this file, it
@@ -417,8 +417,8 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
     conv).  Forward and dx: bf16 within one ulp of scale (one rounding of
     nearly the same f32 sum), f32 within 1e-5 of scale (another summation
     order); dw (f32 out, the same exact products summed in another order)
-    within 1e-5 of scale, and two launches bit for bit equal (K4, K6 and
-    K6dx too: one mma chain per output, no atomics).  With
+    within 1e-5 of scale, and two launches bit for bit equal (K4, K4dx, K6
+    and K6dx too: one mma chain per output, no atomics).  With
     ``flush`` also its times and cuDNN's conv, input gradient or weight
     gradient, and the bound.  With ``device`` (the profiler's row of this
     kind's kernel, and the flush kernel's names) also the device times of
@@ -463,7 +463,7 @@ def check_conv(torch, F, conv_chw, mod, kind, which, shape, n, dtype_name, flush
         else 1e-5 * scale
     same = bool(torch.equal(got, again))
     # launches held to be bitwise equal
-    repeat = which == "dw" or kind == "b8" or (kind, which) == ("s2", "fwd")
+    repeat = which == "dw" or kind in ("b8", "s2")
     rec = {"shape": [n, c_in, c_out, h, w], "dtype": dtype_name, "max_abs_err": err,
            "tol": tol, "ok": err <= tol and (same or not repeat)}
     label = labels[("fwd", "dx", "dw").index(which)]
@@ -845,10 +845,11 @@ def main():
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"  {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
-        # K1 and the tensor-core kernels of K4, K4dw, K5, K5dw, K6 and K6dw
-        # are built to fit 128 registers a thread (two blocks an SM): they
-        # must not spill
+        # K1 and the tensor-core kernels of K4, K4dx, K4dw, K5, K5dw, K6 and
+        # K6dw are built to fit 128 registers a thread (two blocks an SM):
+        # they must not spill
         for lib, kernel in (("conv3x3_chw", ""), ("conv3x3s2", "conv3x3s2_mma_kernel"),
+                            ("conv3x3s2", "conv3x3s2_dx_mma_kernel"),
                             ("conv3x3s2", "conv3x3s2_dw_mma_kernel"),
                             ("conv3x3_nl", "conv3x3_nl_mma_kernel"),
                             ("conv3x3_nl", "conv3x3_nl_dw_mma_kernel"),
@@ -925,17 +926,18 @@ def main():
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
         # shapes, timed in bf16 at the training and the serving batch (device
-        # times at the training batch, K4's at both, K4dw's partial sums and
-        # reduce also apart), checked in f32 at the training batch.  bf16 K4
-        # runs on the tensor cores, so its row is read by that kernel's name
+        # times at the training batch, K4's and K4dx's at both, K4dw's
+        # partial sums and reduce also apart), checked in f32 at the training
+        # batch.  bf16 K4, K4dx and K4dw run on the tensor cores, so their
+        # rows are read by those kernels' names
         s2_rows = {which: _group(f"void (anonymous namespace)::{name}<1>()")
                    for which, name in (("fwd", "tc::conv3x3s2_mma_kernel"),
-                                       ("dx", "conv3x3s2_dx_kernel"),
+                                       ("dx", "tc::conv3x3s2_dx_mma_kernel"),
                                        ("dw", "tc::conv3x3s2_dw_mma_kernel"))}
         dw_split = (("partial", "conv3x3s2_dw_mma_kernel"), ("reduce", "conv3x3s2_dw_reduce"))
         s2_recs = {(which, n): {sh: check_conv(
             torch, F, conv_chw, conv_s2, "s2", which, sh, n, "bfloat16", flush,
-            (s2_rows[which], flush_names) if n == TRAIN_BATCH or which == "fwd" else None,
+            (s2_rows[which], flush_names) if n == TRAIN_BATCH or which != "dw" else None,
             dw_split if which == "dw" and n == TRAIN_BATCH else ()) for sh in S2_SHAPES}
                    for which in ("fwd", "dx", "dw") for n in (TRAIN_BATCH, SERVE_BATCH)}
         s2_f32 = {which: [check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
@@ -1263,12 +1265,15 @@ def main():
                 f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {fmt(per[sh]['device_ms'])}"
                 for sh in sorted(calls, key=lambda s: (-s[2], s[0], s[1])))
                 + f"; per {unit} {fmt(per_call(calls, per, 'device_ms'))}", flush=True)
-    # K4 at the serving batch (a launch each, bf16, from the kernels phase)
-    print(f"  K4 at N = {SERVE_BATCH} by shape (ms, device ms, cuDNN F.conv2d stride 2 ms, "
-          f"cuDNN device ms, bound ms): " + "; ".join(
-              f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {r['ms']:.4f}, {fmt(r.get('device_ms'))}, "
-              f"{r['library_ms']:.4f}, {fmt(r.get('library_device_ms'))}, {r['bound_ms']:.4f}"
-              for sh, r in s2_recs[("fwd", SERVE_BATCH)].items()), flush=True)
+    # K4 and K4 dx at the serving batch (a launch each, bf16, from the
+    # kernels phase)
+    for which, label, library in (("fwd", "K4", "F.conv2d"), ("dx", "K4 dx", "conv2d_input")):
+        print(f"  {label} at N = {SERVE_BATCH} by shape (ms, device ms, cuDNN {library} "
+              f"stride 2 ms, cuDNN device ms, bound ms): " + "; ".join(
+                  f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]} {r['ms']:.4f}, "
+                  f"{fmt(r.get('device_ms'))}, {r['library_ms']:.4f}, "
+                  f"{fmt(r.get('library_device_ms'))}, {r['bound_ms']:.4f}"
+                  for sh, r in s2_recs[(which, SERVE_BATCH)].items()), flush=True)
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

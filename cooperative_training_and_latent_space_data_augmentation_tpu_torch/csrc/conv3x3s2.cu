@@ -25,12 +25,11 @@
 //
 // What bounds them on the H100: at the main path's shapes (16->16 on 192^2,
 // 32->32 on 96^2) each moves a few MB and does 2*9*C_in*C_out operations
-// per output pixel; on the tensor cores the bytes bound them (K4 and K4dw
-// at batch 20: 29.5 MB, 8.8 us, and 14.7 MB, 4.4 us; the products take a
-// tenth of that at 989 TFLOP/s).  K4dx, and the f32 paths of K4 and K4dw,
-// run the products on the CUDA cores in f32 (67 TFLOP/s peak), so they are
-// bound by operations there; the bf16 paths of K4 and K4dw run them on the
-// tensor cores.
+// per output pixel; on the tensor cores the bytes bound them (each of K4,
+// K4dx and K4dw at batch 20: 29.5 MB, 8.8 us, and 14.7 MB, 4.4 us; the
+// products take a tenth of that at 989 TFLOP/s).  Their bf16 paths run the
+// products on the tensor cores; their f32 paths run them on the CUDA cores
+// in f32 (67 TFLOP/s peak), so they are bound by operations there.
 //
 // What the designs do about it:
 //
@@ -90,13 +89,58 @@
 //   one k-step a tap is part padding, but no K4 of the main path has so
 //   few.
 //
-//   K4dx (conv3x3s2_dx_kernel) is a gather, not a scatter, so it needs no
-//   atomics: a thread owns the 2x2 quad of input pixels (2r+py, 2c+px) for
-//   16 input channels.  The four pixels of a quad are reached by exactly the
-//   nine taps, from the four dy values at (r, c), (r, c+1), (r+1, c) and
-//   (r+1, c+1): pixel (even, even) by tap (1,1) only, (even, odd) by two,
-//   (odd, even) by two, (odd, odd) by four.  grid.z covers images and groups
-//   of 16 input channels; the output channels are staged CK at a time.
+//   K4dx is a gather, not a scatter, so it needs no atomics.  The quad of
+//   input pixels (2r+py, 2c+px) is reached by exactly the nine taps, from
+//   the four dy values at (r, c), (r, c+1), (r+1, c) and (r+1, c+1): class
+//   (py, px) = (0, 0) by tap (1,1) at (r, c); (0, 1) by (1,2) at (r, c) and
+//   (1,0) at (r, c+1); (1, 0) by (2,1) at (r, c) and (0,1) at (r+1, c);
+//   (1, 1) by (2,2), (2,0), (0,2) and (0,0) at (r, c), (r, c+1), (r+1, c)
+//   and (r+1, c+1).  dx is 80 % of its bytes (23.6 of 29.5 MB at 16->16 on
+//   192^2, batch 20), so the output path sets the pace.
+//
+//   K4dx, bf16 (tc::conv3x3s2_dx_mma_kernel): K4's tensor-core design
+//   turned around, the stride now on the output side.  Four implicit GEMMs,
+//   one a parity class: dx_class (C_in x dy pixels) = sum over the class's
+//   taps of wall_t^T (C_in x C_out) . dy shifted by (dr, dc), with M = 16
+//   input channels, N = 8 neighbouring dy columns of one row and a k-step =
+//   16 output channels: nine products an (m-tile, n-tile, k-step), as in K4.
+//
+//   * A tile is a band of dy rows (split on the host as q, rem; the height
+//     whose busiest block moves the fewest bytes) of a window of at most 64
+//     dy columns (48 at W/2 = 48 and 96).  A block walks a run of tiles in
+//     stages of 16 output channels, for one or two m-tiles of C_in (grid.y
+//     covers the rest), about two 8-warp blocks an SM.  The halo runs
+//     forward only: the dy row below the band and the column right of the
+//     window (one extra landed piece, of which the first pixel is kept);
+//     past the image they are zero, the mirror of K4's row and column -1.
+//   * dy lands as raw CHW 16-byte pieces by cp.async, two stages ahead, and
+//     ldmatrix.x4.trans turns 8 channel rows of a piece into each lane's
+//     channel pairs of one pixel, stored channel-innermost at a 48-byte
+//     pixel pitch (conflict-free loads and stores).  The shifts (dr, dc) are
+//     then address offsets: each B fragment pair is one ldmatrix.x4, with
+//     no shuffles or masks.  The wall's slices stay resident for the block's
+//     walk (C_out <= 64), rows (tap, output channel) with 16 input channels
+//     contiguous, which is A^T: ldmatrix.x4.trans gives A, reloaded for
+//     each tap to fit 128 registers.
+//   * The output straight from the accumulators: a warp holds all four
+//     classes of its n-tiles, so lane (g, q) holds dx columns 4q .. 4q+3 of
+//     the n-tile's 16 in both rows 2r and 2r+1 for channels g and g+8, one
+//     8-byte store each; the four lanes of a group write one whole 32-byte
+//     sector.  No shared memory on the way out.
+//   * Edges are data: wall rows and dy channels past C_out (uninitialised
+//     shared memory could hold NaN, and 0 * NaN is NaN) and the halo past
+//     the image are zero in the staged copy; rows of an m-tile past C_in are
+//     not stored.  Rows that are not 16-byte aligned (W/2 % 8 != 0, or dy,
+//     dx or the wall off a 16-byte boundary) are staged and stored element
+//     by element.  One mma chain per output, f32 sums over at most
+//     9*C_out/16 k-steps rounded once, no atomics: two launches agree bit
+//     for bit.
+//
+//   K4dx, f32 (conv3x3s2_dx_kernel): on the CUDA cores in full f32, as the
+//   f32 paths of K4 and K4dw (the tensor cores' f32 input is TF32): a
+//   thread owns one quad for 16 input channels, 64 sums; grid.z covers
+//   images and groups of 16 input channels; the output channels are staged
+//   CK at a time.
 //
 //   K4dw, bf16 (tc::conv3x3s2_dw_mma_kernel): an implicit GEMM on the
 //   tensor cores (mma.sync m16n8k16, bf16 in, f32 out), dw^T (C_out x
@@ -167,15 +211,6 @@
 namespace {
 
 constexpr int MAX_COUT = 64;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // ------------------------------------------------------------------ K4
 
@@ -270,10 +305,10 @@ constexpr int D_NT = D_TW * D_TH;     // threads per block
 constexpr int D_CK = 16;              // output channels staged per pass
 constexpr int D_CIG = 16;             // input channels per block; grid.z covers the rest
 
-template <typename T>
+// K4dx, f32.
 __global__ void __launch_bounds__(D_NT)
-conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
-                    T* __restrict__ dx, int c_in, int c_out, int H, int W,
+conv3x3s2_dx_kernel(const float* __restrict__ dy, const float* __restrict__ w_all,
+                    float* __restrict__ dx, int c_in, int c_out, int H, int W,
                     int groups) {
   __shared__ float s_dy[D_CK][D_TH + 1][D_TW + 1];
   __shared__ float s_w[D_CK][9][D_CIG];
@@ -287,7 +322,7 @@ conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
   const int n = blockIdx.z / groups;
   const int i0 = (blockIdx.z % groups) * D_CIG;
   const long long L4 = (long long)H2 * W2;
-  const T* dyn = dy + (long long)n * c_out * L4;
+  const float* dyn = dy + (long long)n * c_out * L4;
 
   // acc[p][i]: input pixel (2r + p / 2, 2c + p % 2), input channel i0 + i
   float acc[4][D_CIG];
@@ -307,7 +342,7 @@ conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
       const int c = c0 + b;
       float v = 0.f;
       if (o < ck && r < H2 && c < W2)
-        v = load_f32(dyn + (long long)(o0 + o) * L4 + (long long)r * W2 + c);
+        v = dyn[(long long)(o0 + o) * L4 + (long long)r * W2 + c];
       s_dy[o][a][b] = v;
     }
     for (int e = tid; e < D_CK * 9 * D_CIG; e += D_NT) {
@@ -316,7 +351,7 @@ conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
       const int i = e % D_CIG;
       float v = 0.f;
       if (o < ck && i0 + i < c_in)
-        v = load_f32(w_all + (long long)(o0 + o) * 9 * c_in + t * c_in + i0 + i);
+        v = w_all[(long long)(o0 + o) * 9 * c_in + t * c_in + i0 + i];
       s_w[o][t][i] = v;
     }
     __syncthreads();
@@ -344,14 +379,14 @@ conv3x3s2_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w_all,
   const int c = c0 + tx;
   if (r < H2 && c < W2) {
     const long long L = (long long)H * W;
-    T* dn = dx + (long long)n * c_in * L;
+    float* dn = dx + (long long)n * c_in * L;
 #pragma unroll
     for (int i = 0; i < D_CIG; ++i) {
       if (i0 + i >= c_in) break;
-      T* di = dn + (long long)(i0 + i) * L;
+      float* di = dn + (long long)(i0 + i) * L;
 #pragma unroll
       for (int p = 0; p < 4; ++p)
-        store_from_f32(di + (long long)(2 * r + p / 2) * W + 2 * c + p % 2, acc[p][i]);
+        di[(long long)(2 * r + p / 2) * W + 2 * c + p % 2] = acc[p][i];
     }
   }
 }
@@ -435,7 +470,7 @@ conv3x3s2_dw_partial_kernel(const float* __restrict__ x, const float* __restrict
       const int gx = 2 * c0 - 1 + b;
       float v = 0.f;
       if (i0 + ci < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = load_f32(xn + (long long)(i0 + ci) * L + (long long)gy * W + gx);
+        v = xn[(long long)(i0 + ci) * L + (long long)gy * W + gx];
       s_x[ci * XS + a * sw + b] = v;
     }
     for (int e = tid; e < COB * th * tw; e += NT) {
@@ -445,7 +480,7 @@ conv3x3s2_dw_partial_kernel(const float* __restrict__ x, const float* __restrict
       const int c = p % tw;
       float v = 0.f;
       if (o < c_out && r < eh && c < ew)
-        v = load_f32(dyn + (long long)o * L4 + (long long)(r0 + r) * W2 + c0 + c);
+        v = dyn[(long long)o * L4 + (long long)(r0 + r) * W2 + c0 + c];
       s_dy[p * DS + o] = v;
     }
     __syncthreads();
@@ -1112,6 +1147,21 @@ FwdGeometry fwd_geometry(int n, int c_in, int c_out, int h, int w) {
   return g;
 }
 
+// Stage s of a block whose run starts at tile t_first, for K4's and K4dx's
+// cuts (FwdGeometry, DxGeometry): group gi of the stage's tile, the tile's
+// image n, its band's first row y0 and rb rows, its window's first column x0.
+template <class Geo>
+__device__ __forceinline__ void stage_origin(const Geo& g, int t_first, int s, int& n, int& y0,
+                                             int& rb, int& x0, int& gi) {
+  const int k = s / g.groups, t = t_first + k, per_image = g.nb * g.ncw;
+  gi = s - k * g.groups;
+  n = t / per_image;
+  const int b = t - n * per_image, band = b / g.ncw;
+  y0 = band * g.bq + min(band, g.br);
+  rb = g.bq + (band < g.br);
+  x0 = (b - band * g.ncw) * g.wd;
+}
+
 // Rows of (count) x (r2) walked by a lane group: row (c, r) = (k / r2, k %
 // r2) for k = first, first + step, ...; one division to start, none after.
 struct RowWalk {
@@ -1266,13 +1316,7 @@ conv3x3s2_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_all,
   // Stage s is channel group gi of tile t_first + s / groups: image n,
   // output rows y0 .. y0+rb-1, window columns x0 ..
   auto origin = [&](int s, int& n, int& y0, int& rb, int& x0, int& gi) {
-    const int k = s / g.groups, t = t_first + k, per_image = g.nb * g.ncw;
-    gi = s - k * g.groups;
-    n = t / per_image;
-    const int b = t - n * per_image, band = b / g.ncw;
-    y0 = band * g.bq + min(band, g.br);
-    rb = g.bq + (band < g.br);
-    x0 = (b - band * g.ncw) * g.wd;
+    stage_origin(g, t_first, s, n, y0, rb, x0, gi);
   };
   // Stage s's wall slice sits in slot gi while all slices fit (staged with
   // the block's first tile), else in slot s % F_MAX_WSLOTS (staged with
@@ -1437,6 +1481,366 @@ cudaError_t launch_fwd_mma(const void* x, const void* w_all, void* out, int n, i
   return launch_fwd_mw<2>(xp, wp, op, c_in, c_out, h, w, g, vec_x, vec_w, stream);
 }
 
+// -------------------------------------------------------- K4dx, bf16 (mma)
+
+constexpr int D_NTW = 4;      // n-tile slots a warp holds with one m-tile (two with two)
+constexpr int WSL = 9 * 16 * CP;  // elements of one wall slice: 9 taps x 16 output channels
+
+// How K4dx's tensor-core kernel cuts a launch, and a block's shared memory.
+// A tile is a band of dy rows of a window of `wd` dy columns (`cpr` n-tiles
+// of 8): `ncw` windows across a dy row; the H/2 dy rows are `nb` bands, band
+// b starting at row b*bq + min(b, br) with bq rows, one more for b < br, at
+// most `rows`; `total` tiles over the batch, in (image, band, window) order.
+// Block k along grid.x walks tiles k*per .. +per-1, each in `groups` stages
+// of 16 output channels; along grid.y (`mz` blocks) it owns `mw` m-tiles of
+// 16 input channels.  Shared memory holds:
+//   * the wall: mw x groups slices (input channels i0 + 16m .., output
+//     channels 16*gi ..) of 9 taps x 16 rows x CP, slice m*groups + gi;
+//   * xs, the stage's dy channel-innermost: rows + 1 rows (dy row y0 + r at
+//     row r) of `rowp` pixels x CP, pixel p holding dy column x0 + p, p = 0
+//     .. wd (the last is the halo column);
+//   * two landing buffers: 16 channel rows (pitch `lpc` pieces) of rows + 1
+//     rows of `lp` = cpr + 1 16-byte pieces, dy columns x0 .. x0 + wd + 7.
+// npair: the landed pieces of a row taken two at a time; lsh_l: log2 of the
+// lanes that land one channel row; cpr_mul: t / cpr = (t * cpr_mul) >> 16.
+struct DxGeometry {
+  int mw, mz, wd, cpr, ncw, rows, nb, bq, br, total, per, blocks, groups;
+  int rowp, lp, lpc, npair, lsh_l, cpr_mul;
+  int xs_off, land_off, land_bytes, smem;  // bytes
+};
+
+void dx_layout(DxGeometry& g) {
+  const int r2 = g.rows + 1;
+  g.rowp = g.wd + 1;
+  g.lp = g.cpr + 1;
+  g.lpc = (r2 * g.lp) | 1;  // odd: see transpose_dx
+  g.npair = ceil_div(g.lp, 2);
+  g.xs_off = g.mw * g.groups * WSL * 2;
+  g.land_off = g.xs_off + r2 * g.rowp * CP * 2;
+  g.land_bytes = CG * g.lpc * 16;
+  g.smem = g.land_off + 2 * g.land_bytes;
+}
+
+// The band height whose busiest block moves the fewest bytes (its landed dy,
+// plus a share for each stage's set-up, and its dx), over heights whose
+// n-tiles the warps hold and whose shared memory lets two blocks fit an SM;
+// the grid is about two blocks an SM.  total == 0: no cut.
+DxGeometry dx_geometry(int n, int c_in, int c_out, int h, int w) {
+  const int h2 = h / 2, w2 = w / 2;
+  DxGeometry g{};
+  const int mt = ceil_div(c_in, 16);
+  g.mw = mt == 1 ? 1 : 2;
+  g.mz = ceil_div(mt, g.mw);
+  g.ncw = ceil_div(w2, F_WIN);
+  g.wd = round_up(ceil_div(w2, g.ncw), 8);
+  g.cpr = g.wd / 8;
+  g.groups = ceil_div(c_out, CG);
+  const int target = g.mz >= 2 * SMS ? 1 : 2 * SMS / g.mz;
+  DxGeometry best{};
+  long long best_cost = -1;
+  for (int r = 1; r <= h2 && r * g.cpr <= F_WARPS * (D_NTW / g.mw); ++r) {
+    g.nb = ceil_div(h2, r);
+    g.rows = ceil_div(h2, g.nb);
+    if (g.rows != r) continue;  // the same cut as a lower height
+    dx_layout(g);
+    if (g.smem > SMEM_MOST) break;
+    const long long total = (long long)n * g.nb * g.ncw;
+    if (total > 0x7fffffffLL) continue;
+    g.total = (int)total;
+    g.per = ceil_div(g.total, target);
+    const long long cost =
+        (long long)g.per * (g.groups * ((long long)CG * (r + 1) * g.lp * 16 + F_STAGE_COST) +
+                            2LL * 4 * r * g.wd * 16 * g.mw);
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  if (best_cost < 0) return DxGeometry{};
+  g = best;
+  g.bq = h2 / g.nb;
+  g.br = h2 % g.nb;
+  g.blocks = ceil_div(g.total, g.per);
+  g.lsh_l = log2_lanes(g.lp);
+  g.cpr_mul = (65536 + g.cpr - 1) / g.cpr;  // exact for t < 65536 / cpr
+  return g;
+}
+
+// Land dy channels o0 .. o0+15 of dy rows y0 .. y0+xr-1, columns x0 .. x0 +
+// 8*lp - 1, as 16-byte pieces: piece j of channel row (ch, r) at (ch*lpc +
+// r*lp + j)*8, zero past the image and past C_out (the last piece is the
+// halo, of which transpose_dx keeps the first pixel).  A group of 2^lsh_l
+// lanes lands one channel row, one piece a lane.  Needs W/2 % 8 == 0 and dy
+// 16-byte aligned, so a piece is in or out as a whole (x0 is a multiple of
+// 8).
+__device__ __forceinline__ void land_dx(bf16* land, const bf16* dyn, int o0, int c_out, int H2,
+                                        int W2, long long L4, int y0, int x0, int xr,
+                                        const DxGeometry& g, int warp, int lane) {
+  const int per = 32 >> g.lsh_l, j = lane & ((1 << g.lsh_l) - 1);
+  if (j >= g.lp) return;
+  const int gx = x0 + 8 * j;
+  const int nch = min(CG, c_out - o0);
+  for (RowWalk w(warp * per + (lane >> g.lsh_l), xr); w.c < CG; w.advance(F_WARPS * per, xr)) {
+    const int gy = y0 + w.r;
+    const bool in = w.c < nch && gy < H2 && gx < W2;
+    cp_async16(land + (w.c * g.lpc + w.r * g.lp + j) * 8,
+               in ? dyn + (long long)(o0 + w.c) * L4 + (long long)gy * W2 + gx : dyn,
+               in ? 16 : 0);
+  }
+}
+
+// The landing to xs, channel-innermost: pixel p of landed row r (dy column
+// x0 + p; piece j holds p = 8j .. 8j+7) to (r*rowp + p)*CP, for p <= wd: of
+// the halo piece (j = cpr) only p = wd is kept.  Item (r, jp) of xr x npair,
+// the warps taking items in turn: one ldmatrix.x4.trans, whose 8-row
+// matrices are 8 channels of pieces 2jp and 2jp+1, gives lane (g, q)
+// channels 2q, 2q+1 (and 8+2q, 9+2q) of pixel g of each piece, four 32-bit
+// stores.  The 8 channel rows are lpc pieces apart (odd), so the loads hit 8
+// distinct bank groups; pixel g's words 12g + q (+ 4) fall in 32 distinct
+// banks, so the stores do.
+__device__ __forceinline__ void transpose_dx(bf16* xs, const bf16* land, const DxGeometry& g,
+                                             int xr, int warp, int lane) {
+  const int gq = lane >> 2, q = lane & 3, hi = lane >> 4;
+  for (int it = warp; it < xr * g.npair; it += F_WARPS) {
+    const int r = it / g.npair, j = 2 * (it - r * g.npair);
+    const bool two = j + 1 < g.lp;
+    uint32_t v[4];
+    // no second piece: the upper lanes re-read the first
+    ldmatrix_x4_trans(v, land + ((lane & 15) * g.lpc + r * g.lp + j + (two ? hi : 0)) * 8);
+    bf16* dst = xs + (r * g.rowp + 8 * j + gq) * CP + 2 * q;
+    if (j < g.cpr || gq == 0) {
+      *reinterpret_cast<uint32_t*>(dst) = v[0];
+      *reinterpret_cast<uint32_t*>(dst + 8) = v[1];
+    }
+    if (two && (j + 1 < g.cpr || gq == 0)) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * CP) = v[2];
+      *reinterpret_cast<uint32_t*>(dst + 8 * CP + 8) = v[3];
+    }
+  }
+}
+
+// xs element by element, for rows that are not 16-byte aligned: dy column x0
+// + p to pixel p, p = 0 .. wd, zero past the image and past C_out.
+__device__ __forceinline__ void stage_dx_scalar(bf16* xs, const bf16* dyn, int o0, int c_out,
+                                                int H2, int W2, long long L4, int y0, int x0,
+                                                int xr, const DxGeometry& g, int tid) {
+  const int cols = g.wd + 1;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int e = tid; e < CG * xr * cols; e += F_NTH) {
+    const int p = e % cols, cr = e / cols;
+    const int r = cr % xr, ch = cr / xr;
+    const int gy = y0 + r, gx = x0 + p;
+    const bool in = o0 + ch < c_out && gy < H2 && gx < W2;
+    xs[(r * g.rowp + p) * CP + ch] =
+        in ? dyn[(long long)(o0 + ch) * L4 + (long long)gy * W2 + gx] : zero;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Grid (blocks, mz), F_NTH threads, at most 128 registers each (two blocks
+// an SM).  vec_x: W/2 % 8 == 0 and dy and dx 16-byte aligned (cp.async
+// landing, 8-byte stores); vec_w: the wall's rows are (see stage_wall).
+template <int MW>
+__global__ void __launch_bounds__(F_NTH, 2)
+conv3x3s2_dx_mma_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w_all,
+                        bf16* __restrict__ dx, int c_in, int c_out, int H, int W, DxGeometry g,
+                        int vec_x, int vec_w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NTW = D_NTW / MW;
+  bf16* ws0 = reinterpret_cast<bf16*>(smem);
+  bf16* xs = reinterpret_cast<bf16*>(smem + g.xs_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H2 = H / 2, W2 = W / 2;
+  const int i0 = blockIdx.y * 16 * MW;
+  const int t_first = blockIdx.x * g.per;
+  const int stages = (min(g.total, t_first + g.per) - t_first) * g.groups;
+  const long long L = (long long)H * W, L4 = (long long)H2 * W2;
+  auto land_of = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + g.land_off + (s & 1) * g.land_bytes);
+  };
+  // Stage s is output-channel group gi of tile t_first + s / groups: image
+  // n, dy rows y0 .. y0+rb-1, window columns x0 ..
+  auto origin = [&](int s, int& n, int& y0, int& rb, int& x0, int& gi) {
+    stage_origin(g, t_first, s, n, y0, rb, x0, gi);
+  };
+  // Stage s's pieces into landing buffer s & 1 (the rb + 1 dy rows its band
+  // reads), with stage 0 the block's whole wall: one commit group, empty
+  // past the last stage.
+  auto prefetch = [&](int s) {
+    if (s < stages) {
+      int n, y0, rb, x0, gi;
+      origin(s, n, y0, rb, x0, gi);
+      if (vec_x)
+        land_dx(land_of(s), dy + (long long)n * c_out * L4, gi * CG, c_out, H2, W2, L4, y0, x0,
+                rb + 1, g, warp, lane);
+      if (s == 0)
+        for (int k = 0; k < MW * g.groups; ++k)
+          stage_wall<1>(ws0 + k * WSL, w_all, i0 + 16 * (k / g.groups), c_in, c_out,
+                        16 * (k % g.groups), vec_w, tid);
+    }
+    cp_async_commit();
+  };
+
+  // A = wall_t^T (16 input x 16 output channels) by ldmatrix.x4.trans of
+  // the slice's rows (t, o): lane row o = (lane & 7) + 8*(lane >> 4), input
+  // channels 8*((lane >> 3) & 1) ..
+  const int a_lane = ((lane & 7) + 8 * (lane >> 4)) * CP + ((lane >> 3) & 1) * 8;
+  float acc[MW][NTW][4][4];  // [m-tile][slot][class 2*py + px][m16n8 element]
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][c][e] = 0.f;
+  // Slot j of this warp is n-tile t = j*F_WARPS + warp of a band: dy row t /
+  // cpr, columns 8*(t % cpr) .. +7.  Slots past the band's last row are idle
+  // (their B lanes read slot 0's pixels).  boff[p]: the lane's ldmatrix row
+  // of slot pair p at shift (0, 0).
+  const auto row_of = [&](int t) { return (t * g.cpr_mul) >> 16; };
+  int boff[NTW / 2];
+#pragma unroll
+  for (int p = 0; p < NTW / 2; ++p) {
+    int t = (2 * p + (lane >> 4)) * F_WARPS + warp;
+    if (t >= g.rows * g.cpr) t = 0;
+    const int row = row_of(t);
+    boff[p] = (row * g.rowp + 8 * (t - row * g.cpr) + (lane & 7)) * CP + ((lane >> 3) & 1) * 8;
+  }
+  int nvalid = 0;
+
+  prefetch(0);
+  prefetch(1);
+  for (int s = 0; s < stages; ++s) {
+    int n, y0, rb, x0, gi;
+    origin(s, n, y0, rb, x0, gi);
+    cp_async_wait_prior();
+    __syncthreads();  // stage s (and with stage 0 the wall) has landed; the block is done with xs
+    if (vec_x)
+      transpose_dx(xs, land_of(s), g, rb + 1, warp, lane);
+    else
+      stage_dx_scalar(xs, dy + (long long)n * c_out * L4, gi * CG, c_out, H2, W2, L4, y0, x0,
+                      rb + 1, g, tid);
+    __syncthreads();  // xs holds stage s; its landing buffer is free
+    prefetch(s + 2);
+
+    if (gi == 0) {
+      const int nslots = rb * g.cpr;
+      nvalid = warp < nslots ? (nslots - warp + F_WARPS - 1) / F_WARPS : 0;
+    }
+    // Tap (ki, kj) adds wall_t^T . dy(r + dr, c + dc) into class (py, px) of
+    // dy pixel (r, c), dx pixel (2r + py, 2c + px): ki = 1 gives (py, dr) =
+    // (0, 0), ki = 2 (1, 0), ki = 0 (1, 1); kj likewise (px, dc).  Shift sh
+    // = 2*dr + dc is an address offset in xs: its B fragments are one
+    // ldmatrix.x4 a slot pair, loaded before the taps that read them.
+    const bf16* wsg = ws0 + gi * WSL + a_lane;
+#pragma unroll
+    for (int p = 0; p < NTW / 2; ++p) {
+      if (2 * p >= nvalid) continue;
+      const bool both = 2 * p + 1 < nvalid;
+#pragma unroll
+      for (int sh = 0; sh < 4; ++sh) {
+        uint32_t b[4];
+        ldmatrix_x4(b, xs + boff[p] + ((sh >> 1) * g.rowp + (sh & 1)) * CP);
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int ki = t / 3, kj = t % 3;
+          if (2 * (ki == 0) + (kj == 0) != sh) continue;
+          const int cls = 2 * (ki != 1) + (kj != 1);
+          uint32_t a[MW][4];
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+            ldmatrix_x4_trans(a[m], wsg + (m * g.groups * 9 + t) * 16 * CP);
+#pragma unroll
+          for (int m = 0; m < MW; ++m) mma_acc(acc[m][2 * p][cls], a[m], b[0], b[1]);
+          if (both) {
+#pragma unroll
+            for (int m = 0; m < MW; ++m) mma_acc(acc[m][2 * p + 1][cls], a[m], b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (gi + 1 < g.groups) continue;
+
+    // The tile's last group: the sums straight to dx.  acc[m][j][2py + px]
+    // holds input channels i0 + 16m + gq (e < 2) and + 8 (e >= 2) at dy
+    // columns 2q + (e & 1) of slot j's n-tile (the m16n8 accumulator
+    // layout), so lane (gq, q) holds dx columns 4q .. 4q+3 of the n-tile's
+    // 16 in rows 2r and 2r + 1: one 8-byte store a row and channel, the four
+    // lanes of a group one 32-byte sector.
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      if (j < nvalid) {
+        const int t = j * F_WARPS + warp, row = row_of(t);
+        const int c = x0 + 8 * (t - row * g.cpr);  // the n-tile's first dy column
+        bf16* dn = dx + (long long)n * c_in * L + (long long)(2 * (y0 + row)) * W + 2 * c;
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ch = i0 + 16 * m + gq + 8 * hh;
+            if (ch >= c_in) continue;
+            bf16* dc = dn + ch * L;
+#pragma unroll
+            for (int py = 0; py < 2; ++py) {
+              const float(&e0)[4] = acc[m][j][2 * py];      // px = 0
+              const float(&e1)[4] = acc[m][j][2 * py + 1];  // px = 1
+              if (vec_x) {
+                if (c < W2)
+                  *reinterpret_cast<uint2*>(dc + py * W + 4 * q) =
+                      make_uint2(pack_bf16x2(e0[2 * hh], e1[2 * hh]),
+                                 pack_bf16x2(e0[2 * hh + 1], e1[2 * hh + 1]));
+              } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  if (c + 2 * q + e < W2) {
+                    dc[py * W + 4 * q + 2 * e] = __float2bfloat16_rn(e0[2 * hh + e]);
+                    dc[py * W + 4 * q + 2 * e + 1] = __float2bfloat16_rn(e1[2 * hh + e]);
+                  }
+              }
+            }
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][c][e] = 0.f;
+    }
+  }
+}
+
+template <int MW>
+cudaError_t launch_dx_mw(const bf16* dy, const bf16* w_all, bf16* dx, int c_in, int c_out, int h,
+                         int w, const DxGeometry& g, int vec_x, int vec_w, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<conv3x3s2_dx_mma_kernel<MW>>();
+  if (err != cudaSuccess) return err;
+  conv3x3s2_dx_mma_kernel<MW><<<dim3(g.blocks, g.mz), F_NTH, g.smem, stream>>>(
+      dy, w_all, dx, c_in, c_out, h, w, g, vec_x, vec_w);
+  return cudaGetLastError();
+}
+
+// K4dx, bf16.
+cudaError_t launch_dx_mma(const void* dy, const void* w_all, void* dx, int n, int c_in,
+                          int c_out, int h, int w, cudaStream_t stream) {
+  const DxGeometry g = dx_geometry(n, c_in, c_out, h, w);
+  if (g.total < 1 || g.smem > SMEM_MOST || g.mz > 65535) return cudaErrorInvalidConfiguration;
+  const int vec_x = (w / 2) % 8 == 0 && aligned(dy) && aligned(dx);
+  const int vec_w = c_in % 8 == 0 && aligned(w_all);
+  const bf16* dp = static_cast<const bf16*>(dy);
+  const bf16* wp = static_cast<const bf16*>(w_all);
+  bf16* op = static_cast<bf16*>(dx);
+  if (g.mw == 1) return launch_dx_mw<1>(dp, wp, op, c_in, c_out, h, w, g, vec_x, vec_w, stream);
+  return launch_dx_mw<2>(dp, wp, op, c_in, c_out, h, w, g, vec_x, vec_w, stream);
+}
+
 }  // namespace tc
 
 // ------------------------------------------------------------ launchers
@@ -1457,13 +1861,13 @@ cudaError_t launch_fwd_f32(const void* x, const void* w_all, void* out, int n,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dx(const void* dy, const void* w_all, void* dx, int n,
-                      int c_in, int c_out, int h, int w, cudaStream_t stream) {
+// K4dx, f32.
+cudaError_t launch_dx_f32(const void* dy, const void* w_all, void* dx, int n,
+                          int c_in, int c_out, int h, int w, cudaStream_t stream) {
   const int groups = (c_in + D_CIG - 1) / D_CIG;
   const dim3 grid((w / 2 + D_TW - 1) / D_TW, (h / 2 + D_TH - 1) / D_TH, n * groups);
-  conv3x3s2_dx_kernel<T><<<grid, D_NT, 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(w_all), static_cast<T*>(dx),
+  conv3x3s2_dx_kernel<<<grid, D_NT, 0, stream>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(w_all), static_cast<float*>(dx),
       c_in, c_out, h, w, groups);
   return cudaGetLastError();
 }
@@ -1514,14 +1918,15 @@ int conv3x3s2(const void* x, const void* w_all, void* out, int n, int c_in,
 }
 
 // K4dx.  dy: (n, c_out, h/2*w/2), w_all: (c_out, 9*c_in), dx: (n, c_in,
-// h*w), as above.  Returns a cudaError_t as int.
+// h*w), as above.  bf16 runs on the tensor cores, f32 on the CUDA cores.
+// Returns a cudaError_t as int.
 int conv3x3s2_dx(const void* dy, const void* w_all, void* dx, int n, int c_in,
                  int c_out, int h, int w, int is_bf16, void* stream) {
   if (!valid(n, c_in, c_out, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_dx<__nv_bfloat16>(dy, w_all, dx, n, c_in, c_out, h, w, s)
-              : launch_dx<float>(dy, w_all, dx, n, c_in, c_out, h, w, s);
+      is_bf16 ? tc::launch_dx_mma(dy, w_all, dx, n, c_in, c_out, h, w, s)
+              : launch_dx_f32(dy, w_all, dx, n, c_in, c_out, h, w, s);
   return static_cast<int>(err);
 }
 

@@ -25,10 +25,13 @@ reference the kernel is held against on the card):
 * :func:`conv3x3s2_dx` (K4dx), plain :func:`conv3x3s2_dx_plain`;
 * :func:`conv3x3s2_dw` (K4dw), plain :func:`conv3x3s2_dw_plain`.
 
-All three live in ``csrc/conv3x3s2.cu``.  The bf16 paths of K4 and
-K4dw run on the tensor cores; K4's splits the input into its even and odd
-columns in shared memory while it transposes each landed piece for the
-products, so no pass over device memory is added.  Weights are in K1's
+All three live in ``csrc/conv3x3s2.cu``.  Their bf16 paths run on the
+tensor cores, their f32 paths on the CUDA cores in full f32.  K4's splits
+the input into its even and odd columns in shared memory while it
+transposes each landed piece for the products, so no pass over device
+memory is added; K4dx's computes the four parity classes of the input
+pixels as four products and writes each quad of dx straight from its
+accumulators.  Weights are in K1's
 wall form (C_out, 9*C_in), tap-major (``conv_chw.weights_to_wall``).  H and W are
 the input's (pre-downsample) height and width, both even; the output is
 (H/2, W/2), output pixel (r, c) reading input pixels (2r+ki-1, 2c+kj-1).

@@ -3,9 +3,10 @@ stride-2 K4, K4dx and K4dw, the large-channel K5 (forward and dx) and
 K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
-multiple of 32, ties), the fixed summation order of K2, K4, K4dw, K5, K5dw,
-K6 and K6dw, K4, K4dw and K5dw on unaligned operands, K4's routes by dtype
-and C_in, K4dw, K5dw and K6dw inside the workspace they report, K6 and
+multiple of 32, ties), the fixed summation order of K2, K4, K4dx, K4dw,
+K5, K5dw, K6 and K6dw, K4, K4dx, K4dw and K5dw on unaligned operands, K4's
+and K4dx's routes by dtype and C_in, K4dw, K5dw and K6dw inside the
+workspace they report, K6 and
 K6dw refusing unaligned bf16 operands, the input checks (no fallback), the
 launch counts, the profile scripts' device busy without
 ``record_function`` ranges, and the predictor and the train step on the
@@ -424,6 +425,87 @@ def test_k4_routes_by_dtype_and_channels(cuda, dtype, c_in, kernel):
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(names) == 1 and kernel in names[0], names
     assert _group(names[0]) == "K4 conv3x3s2", names
+
+
+# the tensor-core K4dx's tiling (bf16): bands that do not divide H/2 (95 and
+# 19 dy rows), W/2 over 64 (2 and 3 windows), W/2 not a multiple of 8 (35,
+# 17: element-wise staging and stores), C_out 1, 5, 17, 33 and 64 (padded
+# k-steps), C_in 3, 7, 20, 40 and 72 (a partial m-tile, two and three blocks
+# along grid.y), one dy pixel, N = 1, more tiles than blocks (N = 300), and
+# the main path's shapes at the training and the serving batch
+S2_DX_SHAPES = [
+    (2, 16, 16, 190, 192), (3, 24, 17, 38, 96), (1, 40, 33, 24, 304), (2, 72, 64, 48, 48),
+    (2, 20, 5, 20, 70), (3, 7, 1, 10, 34), (2, 3, 16, 8, 16), (2, 7, 33, 2, 2),
+    (300, 24, 17, 4, 16), (20, 16, 16, 192, 192), (20, 32, 32, 96, 96),
+    (160, 16, 16, 192, 192), (160, 32, 32, 96, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", S2_DX_SHAPES)
+def test_k4dx_tiling_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dtype):
+    dt = getattr(torch, dtype)
+    _, dy, w_all = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 6)
+    got = conv_s2.conv3x3s2_dx(dy, w_all, h, w)
+    again = conv_s2.conv3x3s2_dx(dy, w_all, h, w)
+    want = conv_s2.conv3x3s2_dx_plain(dy, w_all, h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, c_in, h * w)
+    scale = want.float().abs().max().item()
+    # bf16: one rounding of nearly the same f32 sum; f32: another order
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    # one mma chain (or one thread's sum) per output, no atomics
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c_in,c_out,h,w", [(20, 16, 16, 192, 192), (3, 24, 40, 10, 64)])
+def test_k4dx_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
+    """dy, the wall and dx 2 bytes past a 16-byte boundary: the tensor-core
+    kernel stages element by element and stores element by element, and
+    gives the same outputs."""
+    dt = getattr(torch, dtype)
+    _, dy, w_all = _s2_inputs(cuda, n, c_in, c_out, h, w, dt, 16)
+    du = torch.empty(dy.numel() + 1, dtype=dt, device=cuda)[1:].view(dy.shape)
+    wu = torch.empty(w_all.numel() + 1, dtype=dt, device=cuda)[1:].view(w_all.shape)
+    du.copy_(dy)
+    wu.copy_(w_all)
+    out = torch.empty(n * c_in * h * w + 1, dtype=dt, device=cuda)[1:]
+    conv_s2._launch("conv3x3s2_dx", "unaligned test", du, du.data_ptr(), wu.data_ptr(),
+                    out.data_ptr(), n, c_in, c_out, h, w)
+    want = conv_s2.conv3x3s2_dx_plain(dy, w_all, h, w)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
+    torch.testing.assert_close(out.view(want.shape).float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,c_in,kernel", [
+    ("bfloat16", 16, "tc::conv3x3s2_dx_mma_kernel"),
+    ("bfloat16", 40, "tc::conv3x3s2_dx_mma_kernel"),
+    ("bfloat16", 3, "tc::conv3x3s2_dx_mma_kernel"),
+    ("float32", 16, "conv3x3s2_dx_kernel"),
+])
+def test_k4dx_routes_by_dtype(cuda, dtype, c_in, kernel):
+    """bf16 of any C_in runs on the tensor cores, f32 on the CUDA cores: one
+    launch, of that kernel, in K4dx's profile row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        _group,
+    )
+
+    _, dy, w_all = _s2_inputs(cuda, 2, c_in, 16, 32, 32, getattr(torch, dtype), 17)
+    conv_s2.conv3x3s2_dx(dy, w_all, 32, 32)  # built and loaded before the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv_s2.conv3x3s2_dx(dy, w_all, 32, 32)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
+    assert _group(names[0]) == "K4dx conv3x3s2_dx", names
 
 
 # the tensor-core K4dw's tiling: bands that do not divide H/2 (95 and 19

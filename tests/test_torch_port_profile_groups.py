@@ -31,7 +31,7 @@ ROWS = {  # source -> {kernel -> the start of its row's label}
                           "dw_reduce_kernel": "K2 "},
     "percentile_mask.cu": {"percentile_mask_kernel": "K3 "},
     "conv3x3s2.cu": {"conv3x3s2_fwd_kernel": "K4 ", "conv3x3s2_mma_kernel": "K4 ",
-                     "conv3x3s2_dx_kernel": "K4dx ",
+                     "conv3x3s2_dx_kernel": "K4dx ", "conv3x3s2_dx_mma_kernel": "K4dx ",
                      "conv3x3s2_dw_partial_kernel": "K4dw ", "conv3x3s2_dw_mma_kernel": "K4dw ",
                      "conv3x3s2_dw_reduce_kernel": "K4dw "},
     "conv3x3_nl.cu": {"conv3x3_nl_kernel": "K5 ", "conv3x3_nl_mma_kernel": "K5 ",
