@@ -44,7 +44,10 @@ Phases, each printing its seconds when it ends:
    (K4's and K4dx's at batch 20 and 160, K4dw's at batch 20) and their
    cuDNN calls, and for K3, also the device
    time alone (``device_ms``, ``library_device_ms``: ``torch.profiler``'s
-   kernel durations, without the host time the events hold), and for bf16
+   kernel durations, without the host time the events hold); for K3 also
+   ``floor_ms``, the device time of one elementwise pass over its bytes
+   (``torch.add(sal, soft)``, no library time for K3's function), and
+   ``host_us``, one wrapper call's host time; and for bf16
    K4dw at batch 20 and K6dw at the bench's stages that of their
    partial-sum and reduce kernels apart;
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
@@ -119,6 +122,7 @@ REPLAY_SLICES = 4    # slices of a request replayed layer by layer on the CPU
 MAX_BF16_MISMATCH = 0.01  # share of a bf16 layer output that may differ from the CPU's
 N_ITER = 2           # FTN prediction + one STN refinement
 REPS = 25            # timed launches per measurement
+K3_HOST_CALLS = 1000  # wrapper calls timed on the host clock for K3's host_us
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off the tensor cores
 JAX_PKG = "cooperative_training_and_latent_space_data_augmentation_tpu"
@@ -355,12 +359,19 @@ def bf16_tol(torch, scale):
     return 2.0 ** (int(torch.tensor(max(scale, 1e-30)).log2().floor().item()) - 7)
 
 
-def check_k3(torch, pmask, n, d, soft, flush=None, row=None):
+def check_k3(torch, pmask, n, d, soft, flush=None, device=None):
     """K3 against its plain version (the sort-based threshold) on one
     (N, D) saliency with ties planted, at p in {0, 0.2, 0.5}: equal
     masks.  With ``flush`` also its times; no single PyTorch call computes
-    this function, so there is no library time.  With ``row`` (the
-    profiler's row of K3's kernel) also its device time (:func:`device_ms`)."""
+    this function, so there is no library time.  With ``device`` (the
+    profiler's row of K3's kernel, the flush's kernel names) also its
+    device time (:func:`device_ms`), ``floor_ms``, the device time of one
+    elementwise pass over the same bytes (``torch.add(sal, soft)``: reads
+    2 N D floats, writes N D) under the same flush, the least time the
+    card takes for any one launch that touches them, and ``host_us``, the
+    host time of one wrapper call (host clock over K3_HOST_CALLS calls
+    after warm-up, no synchronise inside): the ctypes path every port
+    kernel shares."""
     gen = torch.Generator(device="cuda").manual_seed(d + int(soft))
     sal = torch.randn((n, d), generator=gen, device="cuda")
     sal[:, 1] = sal[:, 2]                        # a tie
@@ -386,14 +397,26 @@ def check_k3(torch, pmask, n, d, soft, flush=None, row=None):
     b, by = bound((3 * n * d + 1) * 4, float(n * d * d), "float32")
     rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by)
     line = f" ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null bound_ms {b:.6f} ({by})"
-    if row is not None:
+    if device is not None:
         from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
             _group,
         )
 
+        row, flush_names = device
         rec["device_ms"] = device_ms(lambda: pmask.percentile_mask(sal, p, vals), torch, flush,
                                      lambda name: _group(name) == row)
-        line += f" device_ms {fmt(rec['device_ms'], 6)}"
+        rec["floor_ms"] = device_ms(lambda: torch.add(sal, vals), torch, flush,
+                                    lambda name: name not in flush_names)
+        for _ in range(10):
+            pmask.percentile_mask(sal, p, vals)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K3_HOST_CALLS):
+            pmask.percentile_mask(sal, p, vals)
+        rec["host_us"] = (time.perf_counter() - t0) / K3_HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+        line += (f" device_ms {fmt(rec['device_ms'], 6)} floor_ms {fmt(rec['floor_ms'], 6)}"
+                 f" host_us {rec['host_us']:.2f}")
     print(line, flush=True)
     return rec
 
@@ -922,7 +945,7 @@ def main():
         dw_f32 = k1("dw", (16, 16, 192, 192), TRAIN_BATCH, "float32")
         k3_row = _group("void (anonymous namespace)::percentile_mask_kernel()")
         k3_recs = {(d, soft): check_k3(torch, pmask, TRAIN_BATCH, d, soft,
-                                       flush if soft else None, k3_row)
+                                       flush if soft else None, (k3_row, flush_names))
                    for d in (128, 144) for soft in (False, True)}
         # K4, K4dx and K4dw under conv_s2=True: the encoders' two stride-2
         # shapes, timed in bf16 at the training and the serving batch (device
@@ -1223,6 +1246,9 @@ def main():
             "library_ms": total_of("library_ms"),
             "device_ms": total_of("device_ms"), "library_device_ms": total_of("library_device_ms"),
         })
+        if name == "percentile_mask":  # the floor beside K3's device time
+            records[-1].update(floor_ms=total_of("floor_ms"),
+                               host_us=max(r["host_us"] for r in timed[name].values()))
         unit = "bench pass" if name in LAUNCH_COUNTERS[10:] else "random step"
         print(f"  {name}: {sum(calls.values()):.1f} calls per {unit} at {len(calls)} "
               f"shapes; per {unit} ms {records[-1]['ms']:.4f} plain "

@@ -3,7 +3,8 @@ stride-2 K4, K4dx and K4dw, the large-channel K5 (forward and dx) and
 K5dw, and the blocked K6 (forward and dx) and K6dw against their plain
 PyTorch versions at the main path's shapes and at edge shapes (ragged
 tiles, C_in not a multiple of the staged chunk, every C_out bucket, D not a
-multiple of 32, ties), the fixed summation order of K2, K4, K4dx, K4dw,
+multiple of 32, ties at -0.0 and 0.0, constant rows, p on and one ulp
+below an integer threshold), the fixed summation order of K2, K4, K4dx, K4dw,
 K5, K5dw, K6 and K6dw, K4, K4dx, K4dw and K5dw on unaligned operands, K4's
 and K4dx's routes by dtype and C_in, K4dw, K5dw and K6dw inside the
 workspace they report, K6 and
@@ -206,19 +207,36 @@ def test_k2_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dt
 
 
 @pytest.mark.parametrize("soft", [False, True])
-@pytest.mark.parametrize("n,d", [(20, 128), (20, 144), (3, 37), (2, 1), (1, 4096)])
+@pytest.mark.parametrize("n,d", [
+    (20, 128), (20, 144), (3, 37), (2, 1), (1, 4096),   # the main path's shapes and edges
+    (20, 31), (33, 32), (1, 33),  # one block a row, padded or not; a second block of 1
+    (160, 144),                   # many rows
+    (2, 257), (1, 1024), (2, 1025),   # more than one staging pass of 256 entries
+])
 def test_k3_matches_plain(cuda, n, d, soft):
+    """Equal to the sort-based threshold, with ties (also at -0.0 and 0.0)
+    and constant rows, at p where f32(D) * p is an integer and one ulp below
+    it; two launches bitwise equal."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     sal = torch.randn((n, d), generator=gen, device=cuda)
     if d > 8:
         sal[:, 1] = sal[:, 2]
         sal[:, 3:8] = torch.round(sal[:, 3:8])
+        sal[:, 8::7] = -0.0
+        sal[:, 9::7] = 0.0
+    sal[0] = sal[0, 0].clone()                  # a row of one value
+    if n > 2:
+        sal[1] = 0.0
+        sal[1, ::2] = -0.0                      # a row of zeros of both signs
     vals = (0.5 * torch.rand((n, d), generator=gen, device=cuda) if soft
             else torch.zeros((n, d), device=cuda))
-    for p in (0.0, 0.13, 1 / 3, 0.5, 1.0):
-        pt = torch.tensor(p, device=cuda)
+    on_int = [torch.tensor(q, device=cuda) for q in (0.25, 0.5, 1 / 3)]
+    assert (torch.floor(d * on_int[1]) == d * on_int[1]) == (d % 2 == 0)
+    below = [torch.nextafter(q, torch.zeros_like(q)) for q in on_int]
+    for pt in [torch.tensor(q, device=cuda) for q in (0.0, 0.13, 1.0)] + on_int + below:
         got = pmask.percentile_mask(sal, pt, vals)
-        assert torch.equal(got, pmask.percentile_mask_plain(sal, pt, vals)), p
+        assert torch.equal(got, pmask.percentile_mask_plain(sal, pt, vals)), pt.item()
+        assert torch.equal(got, pmask.percentile_mask(sal, pt, vals)), pt.item()
 
 
 def test_k3_tie_semantics(cuda):
