@@ -14,7 +14,8 @@ package's ``PALLAS_CONV_S2=1``: the encoders' 16->16 and 32->32 stride-2
 downsamples on kernel K4, with K4dx and K4dw in the backward); and
 ``conv_nl=True`` (its ``PALLAS_CONV_NL=1``: the residual stages'
 64..128-channel 3x3 convs at 24x24 and 12x12 on kernel K5, with K5 on
-flipped weights for dx and K5dw in the backward).  Last it runs the port's
+flipped weights for dx and K5dw in the backward).  Then it runs the
+training augmentation pipeline into the train step, and last the port's
 ``bench_b8_conv``, the path of the blocked conv K6 (with its dx and K6dw).
 
 Phases, each printing its seconds when it ends:
@@ -80,7 +81,21 @@ Phases, each printing its seconds when it ends:
    Adam's first moment (0.1 x the gradient, against the CPU step's own
    sensitivity to a rounding-sized move of its input), the running
    statistics and the masks;
-8. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
+8. augment: the port's training augmentation (``ops/augment.py``) on 10
+   phantom slices at 224x224: ``make_batch_train_pipeline`` with the
+   configuration's policy (ACDC_affine_elastic_intensity; [augmented ||
+   original] at 192x192, a batch of 20) on the card against the same
+   pipeline on the CPU on the same ``draw_augment`` draws, then the same
+   for ACDC_affine_all, Atrial_perturb and elastic_v2 (the bias fields,
+   gamma and the coarse elastic field): images within 1e-4, labels equal,
+   except at pixels whose sample coordinate lies within 1e-3 of the frame's
+   edge or (labels) whose CPU class score lies within 1e-3 of 0.5, at most
+   0.1 % of the pixels, every gated stage fired on some slices and not on
+   others; one batch timed by CUDA events and by device time
+   (``profile_predict.device_time``) with its launches; then three bf16
+   train steps with latent DA on batches the card's pipeline has just
+   made, each launching the kernels its branches require, losses finite;
+9. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
    before and read just after; it must launch K6, K6dx and K6dw.
@@ -152,6 +167,18 @@ TRAIN_BATCH = 20     # the reference's training batch
 FORCED_STEPS = 2     # steps with each branch forced
 RANDOM_STEPS = 10    # steps under mask_type="random"
 CHECK_BATCH = 2      # the f32 card-vs-CPU step (the CPU side runs full width)
+# the augment phase: configs/ACDC/cooperative_training.json's policy on 10 raw
+# 224x224 slices, [augmented || original] cropped to 192x192, a batch of 20
+AUG_POLICY = "ACDC_affine_elastic_intensity"
+AUG_OTHER_POLICIES = ("ACDC_affine_all", "Atrial_perturb", "elastic_v2")  # bias v2; bias v1
+AUG_RAW = TRAIN_BATCH // 2                                               # and gamma; coarse
+AUG_PAD = (224, 224)
+AUG_CROP = (192, 192)
+AUG_IMAGE_ATOL = 1e-4    # on the [0, 1] scale: cuFFT and pocketfft round differently
+AUG_UNSURE = 1e-3        # a class score this near 0.5, a coordinate this near the edge
+AUG_MAX_UNSURE = 1e-3    # share of a batch's pixels that may be unsure
+AUG_REPS = 20            # timed batches
+AUG_TRAIN_STEPS = 3      # train steps on batches the card's pipeline made
 
 
 @contextmanager
@@ -817,6 +844,145 @@ def by_shape(calls, recs, total, label, library, unit="random step", beside=None
     print(f"{line}; bound {total['bound_ms']:.4f} ms", flush=True)
 
 
+def compare_augment(torch, got, want, edge, unsure, what):
+    """A training batch from the card against the CPU's on the same draws:
+    images within AUG_IMAGE_ATOL except where the sample coordinate lies
+    within AUG_UNSURE of the source frame's edge (``edge``; the in-frame
+    test picks the value or 0 there); labels equal except there and where
+    a CPU class score lies within AUG_UNSURE of 0.5 (``unsure``); unsure
+    pixels at most AUG_MAX_UNSURE of the batch's."""
+    g_img, g_lbl = got["image"].cpu(), got["label"].cpu()
+    w_img, w_lbl = want["image"], want["label"]
+    if g_img.shape != w_img.shape or g_lbl.shape != w_lbl.shape or g_lbl.dtype != w_lbl.dtype:
+        raise AssertionError(f"{what}: {g_img.shape} {g_lbl.shape} {g_lbl.dtype} from the card, "
+                             f"{w_img.shape} {w_lbl.shape} {w_lbl.dtype} on the CPU")
+    if not bool(torch.isfinite(g_img).all()):
+        raise AssertionError(f"{what}: non-finite image values")
+    err = (g_img - w_img).abs()[..., 0]
+    worst = float(err[~edge].max())
+    bad_img = int(((err > AUG_IMAGE_ATOL) & ~edge).sum())
+    differ = g_lbl != w_lbl
+    bad_lbl = int((differ & ~unsure).sum())
+    share = float(unsure.float().mean())
+    print(f"  {what}: image max abs err {worst:.3g} off the edge ({int(edge.sum())} pixels "
+          f"within {AUG_UNSURE} of it, {int((err > AUG_IMAGE_ATOL).sum())} beyond "
+          f"{AUG_IMAGE_ATOL}); labels differ at {int(differ.sum())}, unsure {int(unsure.sum())} "
+          f"of {unsure.numel()} ({share:.2e})", flush=True)
+    if bad_img or bad_lbl or share > AUG_MAX_UNSURE:
+        raise AssertionError(f"{what}: {bad_img} image and {bad_lbl} label pixels disagree "
+                             f"where the CPU is sure; unsure share {share:.2e}")
+
+
+def gates_mixed(augment, draws, policy, what):
+    """Every stage of probability in (0, 1) applies to some samples and not
+    to others: a draw that skips a stage would leave it unchecked."""
+    fired = {}
+    for gate, prob in augment.GATES.items():
+        u, p = getattr(draws, gate), getattr(policy, prob)
+        if u is None or p >= 1:
+            continue
+        fired[gate] = int((u < p).sum())
+        if fired[gate] in (0, u.numel()):
+            raise AssertionError(f"{what}: stage {gate} fired on {fired[gate]} of {u.numel()}")
+    return fired
+
+
+def augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod, wrappers):
+    """The augment phase (see the module docstring).  Returns the launches
+    by wrapper of its train steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        make_phantom,
+    )
+
+    slices = [make_phantom(np.random.RandomState(1000 + s), AUG_PAD) for s in range(AUG_RAW)]
+    img_cpu = torch.from_numpy(np.stack([s[0] for s in slices]).astype(np.float32))
+    lbl_cpu = torch.from_numpy(np.stack([s[1] for s in slices]).astype(np.int32))
+    img, lbl = img_cpu.to("cuda"), lbl_cpu.to("cuda")
+    gen = torch.Generator().manual_seed(0)
+    drawn = {}
+    for name in (AUG_POLICY,) + AUG_OTHER_POLICIES:
+        policy = augment.get_policy(name)
+        pipe = augment.make_batch_train_pipeline(name, AUG_PAD, AUG_CROP)
+        draws = drawn[name] = augment.draw_augment(gen, policy, AUG_RAW, AUG_PAD)
+        fired = gates_mixed(augment, draws, policy, name)
+        want = pipe(draws, img_cpu, lbl_cpu)
+        got = pipe(draws.to("cuda"), img, lbl)
+        torch.cuda.synchronize()
+        edge, unsure = augment.unsure_pixels(draws, img_cpu, lbl_cpu, name, AUG_PAD, AUG_CROP,
+                                             tol=AUG_UNSURE)
+        compare_augment(torch, got, want, edge, unsure,
+                        f"{name}, {AUG_RAW} raw -> {2 * AUG_RAW} at {AUG_CROP[0]}x"
+                        f"{AUG_CROP[1]} (stages fired {fired})")
+
+    pipe = augment.make_batch_train_pipeline(AUG_POLICY, AUG_PAD, AUG_CROP)
+    draws = drawn[AUG_POLICY].to("cuda")
+    for _ in range(3):
+        pipe(draws, img, lbl)
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(AUG_REPS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(AUG_REPS)]
+    for a, b in zip(starts, ends):
+        a.record()
+        pipe(draws, img, lbl)
+        b.record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(starts, ends))
+    t0 = time.perf_counter()
+    for _ in range(AUG_REPS):
+        augment.draw_augment(gen, augment.get_policy(AUG_POLICY), AUG_RAW, AUG_PAD,
+                             device="cuda")
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) / AUG_REPS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(AUG_REPS):
+            pipe(draws, img, lbl)
+        torch.cuda.synchronize()
+    by_group, _, kernels = profile_predict.device_time(prof.key_averages())
+    device = sum(by_group.values()) / 1e3 / AUG_REPS
+    launches = sum(count for _, count, _ in kernels) / AUG_REPS
+    if not device > 0:
+        raise AssertionError("the profiler saw no device time in the augment pipeline")
+    top = sorted(kernels, reverse=True)[:5]
+    print(f"  {AUG_POLICY}, one batch ({AUG_RAW} raw -> {2 * AUG_RAW} at {AUG_CROP[0]}x"
+          f"{AUG_CROP[1]}), {AUG_REPS} runs: events ms min {ms[0]:.4f} median "
+          f"{statistics.median(ms):.4f} max {ms[-1]:.4f}; device ms {device:.4f} a batch "
+          f"(busy share of the median {device / statistics.median(ms):.3f}); {launches:.0f} "
+          f"launches a batch; draw_augment and the copy to the card {draw_ms:.3f} ms (host "
+          f"clock)", flush=True)
+    print("  largest device rows a batch (ms, launches): " + "; ".join(
+        f"{t / 1e3 / AUG_REPS:.4f} {n // AUG_REPS} {key[:60]}" for t, n, key in top), flush=True)
+
+    lda = cfg.LatentDAConfig()
+    trainer = coop.CooperativeTrainer(lda, compute_dtype=torch.bfloat16, device="cuda", seed=0)
+    total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    for step in range(AUG_TRAIN_STEPS):
+        aug_draws = augment.draw_augment(gen, augment.get_policy(AUG_POLICY), AUG_RAW, AUG_PAD,
+                                         device="cuda")
+        step_draws = draws_mod.draw_step(gen, TRAIN_BATCH, AUG_CROP, lda, device="cuda")
+        for k in LAUNCH_COUNTERS:
+            wrappers[k].launches = 0
+        batch = pipe(aug_draws, img, lbl)
+        metrics = trainer.train_step(batch["image"], batch["label"], step_draws)
+        got = {k: wrappers[k].launches for k in LAUNCH_COUNTERS}
+        branches = {"image": step_draws.image.branch, "shape": step_draws.shape.branch}
+        want = {**dict.fromkeys(LAUNCH_COUNTERS, 0), **trainer.expected_launches(branches)}
+        if got != want:
+            raise AssertionError(f"augmented step {step}, branches {branches}: launches {got}, "
+                                 f"expected {want}")
+        for k in LAUNCH_COUNTERS:
+            total[k] += got[k]
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"non-finite loss on an augmented batch: {values}")
+        print(f"  train step {step} on an augmented batch of {tuple(batch['image'].shape)}, "
+              f"branches {branches}: loss/total {values['loss/total']:.4f}, launches "
+              f"{[got[k] for k in LAUNCH_COUNTERS]}", flush=True)
+    return total
+
+
 def main():
     import torch
 
@@ -832,7 +998,9 @@ def main():
     )
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import config as cfg
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch import bench_b8_conv
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import profile_predict
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        augment,
         conv_b8,
         conv_chw,
         conv_nl,
@@ -1171,6 +1339,11 @@ def main():
             print(f"  {name}:", flush=True)
             train_check(torch, cfg, coop, draws_mod, train_image, train_label, **flags)
 
+    with phase("augment"):
+        aug_launches = augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod,
+                                     wrappers)
+        torch.cuda.empty_cache()
+
     with phase("b8"):
         for w in wrappers.values():
             w.launches = 0
@@ -1221,7 +1394,7 @@ def main():
         for which, name in (("fwd", base), ("dx", f"{base}_dx"), ("dw", f"{base}_dw")):
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
-                + sum(run[0][k] for run in runs.values()) + b8_launches[k]
+                + sum(run[0][k] for run in runs.values()) + aug_launches[k] + b8_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

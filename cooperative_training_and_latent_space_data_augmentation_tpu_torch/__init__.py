@@ -10,7 +10,10 @@ Ported so far: the eval-mode FTN+STN predictor
 with latent masking (:class:`.train.cooperative.CooperativeTrainer`), the
 kernels K1 (the CHW 3x3 conv and its input gradient, :mod:`.ops.conv_chw`),
 K2 (its weight gradient) and K3 (the masking threshold,
-:mod:`.ops.percentile_mask`), and the converters in :mod:`.convert`.
+:mod:`.ops.percentile_mask`), the stride-2, large-channel and blocked
+conv kernels K4-K6, the on-device training augmentation
+(:mod:`.ops.augment`, :mod:`.ops.spline`; plain PyTorch ops), and the
+converters in :mod:`.convert`.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Conv ops of the port: kernel K1 (the CHW 3x3 conv) and its dispatcher, STN input construction."""
+"""Ops of the port: the conv kernels and their dispatchers, masking, losses,
+STN input construction, and the training augmentation with its B-spline warp."""

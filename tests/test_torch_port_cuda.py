@@ -12,7 +12,8 @@ K6dw refusing unaligned bf16 operands, the input checks (no fallback), the
 launch counts, the profile scripts' device busy without
 ``record_function`` ranges, and the predictor and the train step on the
 card against the CPU, with the default route, with ``conv_s2=True`` and
-with ``conv_nl=True``.
+with ``conv_nl=True``; and the training augmentation pipeline and its warp
+on the card against the CPU on the same draws.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -29,6 +30,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config im
     LatentDAConfig,
     MaskConfig,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import augment
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_b8
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_nl
@@ -1059,3 +1061,82 @@ def test_k6_rejects_bad_input_and_counts_launches(cuda):
     xg = x.clone().requires_grad_(True)
     conv_b8.conv3x3_b8_ad(xg, w_all.clone().requires_grad_(True), 8, 8).sum().backward()
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+
+
+# ------------------------------------------------ the augmentation pipeline
+def _aug_slices(n, hw):
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        make_phantom,
+    )
+
+    slices = [make_phantom(np.random.RandomState(2000 + s), hw) for s in range(n)]
+    return (torch.from_numpy(np.stack([s[0] for s in slices]).astype(np.float32)),
+            torch.from_numpy(np.stack([s[1] for s in slices]).astype(np.int32)))
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("name", ["ACDC_affine_elastic_intensity", "ACDC_affine_all"])
+def test_augment_pipeline_on_card_matches_cpu(cuda, name):
+    """The training pipeline (10 raw 224x224 slices -> [augmented ||
+    original] at 192x192) on the card against the CPU on the same draws,
+    by chip_smoke.py's rule: images within 1e-4 and labels equal, except
+    where a sample coordinate lies within 1e-3 of the frame's edge or
+    (labels) a CPU class score within 1e-3 of 0.5, at most 0.1 % of the
+    pixels."""
+    smoke = _chip_smoke()
+    images, labels = _aug_slices(10, (224, 224))
+    policy = augment.get_policy(name)
+    draws = augment.draw_augment(torch.Generator().manual_seed(1), policy, 10, (224, 224))
+    pipe = augment.make_batch_train_pipeline(name, (224, 224), (192, 192))
+    want = pipe(draws, images, labels)
+    got = pipe(draws.to(cuda), images.to(cuda), labels.to(cuda))
+    assert got["image"].device.type == got["label"].device.type == cuda.type
+    edge, unsure = augment.unsure_pixels(draws, images, labels, name, (224, 224), (192, 192),
+                                         tol=smoke.AUG_UNSURE)
+    smoke.compare_augment(torch, got, want, edge, unsure, name)
+
+
+def test_warp_on_card_matches_cpu(cuda):
+    """The fused image + label warp alone at 192x192, on coordinates that
+    rotate, zoom and bend the frame and leave it at the corners, on the card
+    against the CPU, by the same rule."""
+    smoke = _chip_smoke()
+    images, labels = _aug_slices(4, (192, 192))
+    ys, xs = torch.meshgrid(torch.arange(192.0), torch.arange(192.0), indexing="ij")
+    yc, xc = ys - 95.5, xs - 95.5
+    angle = torch.tensor([0.3, -1.2, 2.0, 0.05]).view(-1, 1, 1)
+    zoom = torch.tensor([1.1, 0.8, 1.25, 0.95]).view(-1, 1, 1)
+    ya = (torch.cos(angle) * yc - torch.sin(angle) * xc) * zoom + 95.5 + 4 * torch.sin(xs / 17)
+    xa = (torch.sin(angle) * yc + torch.cos(angle) * xc) * zoom + 95.5 + 3 * torch.cos(ys / 23)
+    want_img, want_lbl = augment.warp_image_and_label_batch(images, labels, ya, xa, 4)
+    got_img, got_lbl = augment.warp_image_and_label_batch(images.to(cuda), labels.to(cuda),
+                                                          ya.to(cuda), xa.to(cuda), 4)
+    edge = torch.stack([ya.abs(), (ya - 191).abs(), xa.abs(), (xa - 191).abs()]).amin(0) \
+        <= smoke.AUG_UNSURE
+    scores = augment._fused_warp_scores(images, labels, ya, xa, 4)[..., 1:]
+    unsure = edge | ((scores - 0.5).abs() <= smoke.AUG_UNSURE).any(-1)
+    assert bool(((ya < 0) | (ya > 191)).any())
+    smoke.compare_augment(torch, {"image": got_img, "label": got_lbl},
+                          {"image": want_img, "label": want_lbl}, edge, unsure, "warp")
+
+
+def test_augment_pipeline_refuses_mixed_devices(cuda):
+    """No fallback: draws left on the host with images on the card raise."""
+    images, labels = _aug_slices(2, (64, 64))
+    name = "ACDC_affine_elastic_intensity"
+    draws = augment.draw_augment(torch.Generator().manual_seed(0), augment.get_policy(name), 2,
+                                 (64, 64))
+    with pytest.raises(RuntimeError):
+        augment.make_batch_train_pipeline(name, (64, 64), (48, 48))(
+            draws, images.to(cuda), labels.to(cuda))

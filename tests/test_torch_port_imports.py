@@ -42,7 +42,7 @@ SCRIPT = textwrap.dedent("""
         percentile_mask,
     )
     expected = {"config", "convert", "kernels", "ops.conv_chw", "ops.conv_s2", "ops.conv_nl",
-                "ops.conv_b8", "bench_b8_conv", "ops.image",
+                "ops.conv_b8", "bench_b8_conv", "ops.image", "ops.augment", "ops.spline",
                 "ops.losses",
                 "ops.masking", "ops.percentile_mask", "models.blocks",
                 "models.encoder_decoder", "train.cooperative", "train.draws",

@@ -459,3 +459,83 @@ def check_step_moments_and_update(rec, what=""):
             assert np.linalg.norm(u_port - u_jax) <= bound, (what, name, k,
                                                              np.linalg.norm(u_port - u_jax),
                                                              bound)
+
+
+# ------------------------------------------------ augmentation draws
+def replay_augment_draws(key, policy, n: int, pad_hw, image_ch: int = 1):
+    """The draws the JAX package's ``augment_batch`` makes from ``key`` for
+    ``n`` samples padded to ``pad_hw`` under ``policy``, as the port's
+    :class:`AugmentDraws`: ``split(key, n)``, then each sample's
+    ``split(k, 14)`` (``ops/augment.py:759-760``), then each stage's own
+    splits.  Uniforms are replayed raw (``uniform(k, shape)`` on [0, 1)),
+    which the stages scale as ``jax.random.uniform`` does; the shift x draw
+    comes from ``fold_in(k_shift, 1)`` and the group index from
+    ``randint(k_group, (), 0, len(rotate_groups))``."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        augment as port_augment,
+    )
+
+    h, w = pad_hw
+    rows = [_replay_augment_one(k, policy, h, w, image_ch, port_augment)
+            for k in jax.random.split(key, n)]
+    kw = {}
+    for name in rows[0]:
+        if isinstance(rows[0][name], tuple):
+            kw[name] = tuple(torch.from_numpy(np.stack([r[name][i] for r in rows]))
+                             for i in range(len(rows[0][name])))
+        else:
+            kw[name] = torch.from_numpy(np.stack([r[name] for r in rows]))
+    return port_augment.AugmentDraws(**kw)
+
+
+def _replay_augment_one(key, policy, h: int, w: int, image_ch: int, port_augment):
+    def u(k, shape=()):
+        return np.asarray(jax.random.uniform(k, shape), np.float32)
+
+    def g(k, shape):
+        return np.asarray(jax.random.normal(k, shape), np.float32)
+
+    (k_flip, k_b1, k_b2, k_bc, k_gamma, k_affine, k_elastic, k_coarse,
+     k_p1, k_p2, k_pbc, k_pg, k_pe, k_pe2) = jax.random.split(key, 14)
+    d = {}
+    if policy.flip_p > 0:
+        k_h, k_v = jax.random.split(k_flip)
+        if policy.flip_h:
+            d["flip_h"] = u(k_h)
+        if policy.flip_v:
+            d["flip_v"] = u(k_v)
+    if policy.perturb_prob > 0:
+        k_field, k_noise = jax.random.split(k_b1)
+        keys = jax.random.split(k_field, len(policy.multi_control_points))
+        d["bias1_grids"] = tuple(u(keys[i], (cp, cp))
+                                 for i, cp in enumerate(sorted(policy.multi_control_points)))
+        if policy.add_noise:
+            d["bias1_noise"] = g(k_noise, (h, w, image_ch))
+        d["gate_bias1"] = u(k_p1)
+    if policy.perturb_v2_prob > 0:
+        k_field, k_noise = jax.random.split(k_b2)
+        _, _, _, n_h, n_w = port_augment._v2_geometry(h, w, policy)
+        d["bias2_knots"] = u(k_field, (n_h, n_w))
+        if policy.perturb_v2_add_noise:
+            d["bias2_noise"] = g(k_noise, (h, w, image_ch))
+        d["gate_bias2"] = u(k_p2)
+    if policy.intensity_prob > 0:
+        k_s, k_b = jax.random.split(k_bc)
+        d.update(contrast=u(k_s), brightness=u(k_b), gate_intensity=u(k_pbc))
+    if policy.gamma_prob > 0:
+        d.update(gamma=u(k_gamma), gate_gamma=u(k_pg))
+    if port_augment._needs_geometry(policy):
+        k_rot, k_shift, k_shear, k_zoom, k_group = jax.random.split(k_affine, 5)
+        d.update(rotation=u(k_rot), shift_y=u(k_shift),
+                 shift_x=u(jax.random.fold_in(k_shift, 1)), shear=u(k_shear), zoom=u(k_zoom))
+        if policy.rotate_groups:
+            d["group"] = np.asarray(jax.random.randint(k_group, (), 0,
+                                                       len(policy.rotate_groups)), np.int64)
+        if policy.elastic_prob > 0:
+            k_a, k_s, k_dx, k_dy = jax.random.split(k_elastic, 4)
+            d.update(elastic_alpha=u(k_a), elastic_sigma=u(k_s), elastic_dx=u(k_dx, (h, w)),
+                     elastic_dy=u(k_dy, (h, w)), gate_elastic=u(k_pe))
+        if policy.elastic_prob_v2 > 0:
+            k1, k2 = jax.random.split(k_coarse)
+            d.update(coarse_dx=g(k1, (3, 3)), coarse_dy=g(k2, (3, 3)), gate_coarse=u(k_pe2))
+    return d
