@@ -95,7 +95,22 @@ Phases, each printing its seconds when it ends:
    (``profile_predict.device_time``) with its launches; then three bf16
    train steps with latent DA on batches the card's pipeline has just
    made, each launching the kernels its branches require, losses finite;
-9. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
+9. loop: the training loop through the port's command line
+   (``cli.train``'s ``parse_args``, ``load_config`` and ``run``) on
+   ``configs/ACDC/cooperative_training.json`` with ``--synthetic --bf16``:
+   20 training and 10 validation phantoms, 5 epochs of 2 steps, validation
+   with ``predict(n_iter=2)`` every epoch, a periodic checkpoint every 2
+   epochs, into a temporary directory, with the launch counts set to 0
+   just before and read just after.  Each epoch's train and validation
+   seconds and the host milliseconds spent drawing are printed.  It fails
+   unless the last epoch's mean standard loss is below the first's, every
+   logged Mean IoU is finite, the best epoch is the first argmax of the
+   logged IoUs, ``best/`` and the periodic directories hold all five
+   modules, a predictor loaded from ``best/`` validates to the loop's
+   confusion matrix of that epoch, a snapshot loads back bit for bit, and
+   every kernel launched as often as the drawn branches
+   (``expected_launches``) and the validations' predicts require;
+10. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
    before and read just after; it must launch K6, K6dx and K6dw.
@@ -179,6 +194,13 @@ AUG_UNSURE = 1e-3        # a class score this near 0.5, a coordinate this near t
 AUG_MAX_UNSURE = 1e-3    # share of a batch's pixels that may be unsure
 AUG_REPS = 20            # timed batches
 AUG_TRAIN_STEPS = 3      # train steps on batches the card's pipeline made
+# the loop phase: the --synthetic protocol of the port's command line on the
+# configuration (20 training and 10 validation phantoms, the command line's
+# defaults: 2 steps and 1 validation batch an epoch), 5 epochs, a periodic
+# checkpoint every 2
+LOOP_CONFIG = os.path.join("configs", "ACDC", "cooperative_training.json")
+LOOP_EPOCHS = 5
+LOOP_SAVE_EVERY = 2
 
 
 @contextmanager
@@ -983,6 +1005,113 @@ def augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod, wrapper
     return total
 
 
+def loop_phase(torch, wrappers, predict_k1):
+    """The loop phase (see the module docstring).  ``predict_k1(model)``:
+    K1 launches of one ``predict(n_iter=2)``.  Returns the launches by
+    wrapper over the loop."""
+    import tempfile
+
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        EvalBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import (
+        checkpoint,
+        driver,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+        MODULE_NAMES,
+        CooperativePredictor,
+    )
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--json_config_path", config, "--synthetic", "--bf16", "--max_epochs",
+                str(LOOP_EPOCHS), "--save_dir", tmp, "--log"]
+        args = cli.parse_args(argv)
+        cfg, name = cli.load_config(args)
+        cfg.output.save_epoch_every_num_epochs = LOOP_SAVE_EVERY
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        trainer, result = cli.run(args, cfg, name)
+        loop_sec = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        log_dir, model_dir = driver.experiment_dirs(tmp, cfg.data.dataset_name,
+                                                    args.data_setting, cfg.data.num_classes,
+                                                    name, args.cval)
+        std = driver.LOSS_KEYS.index("loss/standard/total")
+        for e in result.epochs:
+            print(f"  epoch {e.epoch}: {e.steps} steps, train {e.train_sec:.4f} s, val "
+                  f"{e.val_sec:.4f} s, drawing {e.draw_sec * 1e3:.3f} ms on the host "
+                  f"({e.draw_sec / e.train_sec:.4f} of train); loss/standard/total "
+                  f"{float(e.losses[:, std].mean()):.5f}, Mean IoU {e.iou:.5f}; branches "
+                  f"{e.branches}", flush=True)
+        print(f"  train_network: {loop_sec:.3f} s for {LOOP_EPOCHS} epochs (host clock, "
+              f"trainer build and checkpoints included); best epoch {result.best_epoch}, "
+              f"Mean IoU {result.best_score:.5f}", flush=True)
+        first = float(result.epochs[0].losses[:, std].mean())
+        last = float(result.epochs[-1].losses[:, std].mean())
+        if not last < first:
+            raise AssertionError(f"the standard loss did not fall: {first} -> {last}")
+        with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+            ious = [r["value"] for r in map(json.loads, f) if r["tag"] == "iou/val_iou"]
+        if len(ious) != LOOP_EPOCHS or not all(math.isfinite(v) for v in ious):
+            raise AssertionError(f"logged Mean IoUs {ious}")
+        if result.best_epoch != int(np.argmax(ious)):
+            raise AssertionError(f"best epoch {result.best_epoch}, logged IoUs {ious}")
+        saved = ["best"] + [str(e) for e in range(LOOP_EPOCHS)
+                            if (e + 1) % LOOP_SAVE_EVERY == 0 or e == 0]
+        if sorted(d for d in os.listdir(model_dir) if d != "interrupted") != sorted(saved):
+            raise AssertionError(f"checkpoints {sorted(os.listdir(model_dir))}, want {saved}")
+        for d in saved:
+            files = sorted(os.listdir(os.path.join(model_dir, d, "checkpoints")))
+            if files != sorted(f"{m}.pth" for m in MODULE_NAMES):
+                raise AssertionError(f"{d}/checkpoints holds {files}")
+        # the best checkpoint validates as the trainer did at its epoch
+        predictor = checkpoint.load_model(
+            CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=1,
+                                 conv_s2=args.conv_s2, conv_nl=args.conv_nl),
+            os.path.join(model_dir, "best", "checkpoints"))
+        _, val_set = cli.build_datasets(cfg, args)
+        evals = EvalBatcher(val_set, cfg.learning.batch_size, cfg.data.pad_hw, cfg.data.crop_hw,
+                            device="cuda")
+        confusion = driver.eval_dispatch(predictor, evals).confusion_matrix.cpu().numpy()
+        if not np.array_equal(confusion, result.epochs[result.best_epoch].confusion):
+            raise AssertionError(f"best checkpoint's validation {confusion.tolist()}, the "
+                                 f"loop's {result.epochs[result.best_epoch].confusion.tolist()}")
+        # a snapshot loads back bit for bit
+        path = checkpoint.save_snapshot(trainer, model_dir, result.last_epoch)
+        other = cli.build_trainer(cfg, cli.parse_args(argv + ["--seed", str(args.seed + 1)]))
+        if checkpoint.load_snapshot(other, path) != result.last_epoch:
+            raise AssertionError("the snapshot's epoch")
+        same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                     other.model.state_dict().values()))
+        for p, q in zip(trainer.model.parameters(), other.model.parameters()):
+            a, b = trainer.optimizer.state[p], other.optimizer.state[q]
+            same &= float(a["step"]) == float(b["step"]) and all(
+                torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq"))
+        if not same:
+            raise AssertionError("the snapshot did not load back bit for bit")
+    # every launch of the loop: its steps' and its validations' predicts
+    want = Counter()
+    for e in result.epochs:
+        for branches in e.branches:
+            want.update(trainer.expected_launches(branches))
+    want["conv3x3_chw"] += LOOP_EPOCHS * len(evals) * predict_k1(trainer.model)
+    want = {k: want.get(k, 0) for k in LAUNCH_COUNTERS}
+    if got != want:
+        raise AssertionError(f"launches over the loop {got}, expected {want}")
+    if any(got[k] == 0 for k in LAUNCH_COUNTERS[:3]):
+        raise AssertionError(f"the loop did not launch K1, K1 dx and K2: {got}")
+    steps = sum(e.steps for e in result.epochs)
+    print(f"  launches over the loop ({steps} steps, {LOOP_EPOCHS} validations), as its "
+          f"branches and predicts require: {got}", flush=True)
+    return got
+
+
 def main():
     import torch
 
@@ -1344,6 +1473,11 @@ def main():
                                      wrappers)
         torch.cuda.empty_cache()
 
+    with phase("loop"):
+        loop_launches = loop_phase(torch, wrappers,
+                                   lambda model: convs_per_request(model, conv_chw.Conv.uses_k1))
+        torch.cuda.empty_cache()
+
     with phase("b8"):
         for w in wrappers.values():
             w.launches = 0
@@ -1394,7 +1528,8 @@ def main():
         for which, name in (("fwd", base), ("dx", f"{base}_dx"), ("dw", f"{base}_dw")):
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
-                + sum(run[0][k] for run in runs.values()) + aug_launches[k] + b8_launches[k]
+                + sum(run[0][k] for run in runs.values()) + aug_launches[k] + loop_launches[k]
+                + b8_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

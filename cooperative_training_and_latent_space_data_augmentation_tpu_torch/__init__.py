@@ -12,8 +12,11 @@ kernels K1 (the CHW 3x3 conv and its input gradient, :mod:`.ops.conv_chw`),
 K2 (its weight gradient) and K3 (the masking threshold,
 :mod:`.ops.percentile_mask`), the stride-2, large-channel and blocked
 conv kernels K4-K6, the on-device training augmentation
-(:mod:`.ops.augment`, :mod:`.ops.spline`; plain PyTorch ops), and the
-converters in :mod:`.convert`.
+(:mod:`.ops.augment`, :mod:`.ops.spline`; plain PyTorch ops), the training
+loop (:func:`.train.driver.train_network`: the datasets, batchers,
+validation metric and checkpoints around the train step) and its
+``--synthetic`` command line (:mod:`.cli.train`), and the converters in
+:mod:`.convert`.
 """
 
 __version__ = "0.1.0"

@@ -74,6 +74,8 @@ class CooperativePredictor(nn.Module):
     (the JAX package's ``train=False``), whatever mode the modules are in.
     """
 
+    network_type = "FCN_16_standard"
+
     def __init__(self, image_ch: int = 1, num_classes: int = 4, n_iter: int = 1,
                  temperature: float = 2.0, compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,

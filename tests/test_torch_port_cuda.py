@@ -58,6 +58,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def _traced_kernels(fn, tries=3):
+    """(names of the device kernels one call of ``fn`` launched, by
+    ``torch.profiler``; the call's result).  A profiler session now and
+    then delivers no device events (chip_smoke.py's ``device_ms`` meets the
+    same), so an empty one is run again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names, out
+
+
 def _bf16_ulp(scale):
     return 2.0 ** (int(torch.tensor(scale).log2().floor().item()) - 7)
 
@@ -429,9 +447,6 @@ def test_k4_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
 def test_k4_routes_by_dtype_and_channels(cuda, dtype, c_in, kernel):
     """bf16 of any C_in runs on the tensor cores, f32 on the CUDA cores: one
     launch, of that kernel, in K4's profile row."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
         _group,
     )
@@ -439,10 +454,7 @@ def test_k4_routes_by_dtype_and_channels(cuda, dtype, c_in, kernel):
     x, _, w_all = _s2_inputs(cuda, 2, c_in, 16, 32, 32, getattr(torch, dtype), 15)
     conv_s2.conv3x3s2(x, w_all, 32, 32)  # built and loaded before the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        conv_s2.conv3x3s2(x, w_all, 32, 32)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names, _ = _traced_kernels(lambda: conv_s2.conv3x3s2(x, w_all, 32, 32))
     assert len(names) == 1 and kernel in names[0], names
     assert _group(names[0]) == "K4 conv3x3s2", names
 
@@ -510,9 +522,6 @@ def test_k4dx_on_unaligned_operands(cuda, n, c_in, c_out, h, w, dtype):
 def test_k4dx_routes_by_dtype(cuda, dtype, c_in, kernel):
     """bf16 of any C_in runs on the tensor cores, f32 on the CUDA cores: one
     launch, of that kernel, in K4dx's profile row."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
         _group,
     )
@@ -520,10 +529,7 @@ def test_k4dx_routes_by_dtype(cuda, dtype, c_in, kernel):
     _, dy, w_all = _s2_inputs(cuda, 2, c_in, 16, 32, 32, getattr(torch, dtype), 17)
     conv_s2.conv3x3s2_dx(dy, w_all, 32, 32)  # built and loaded before the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        conv_s2.conv3x3s2_dx(dy, w_all, 32, 32)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names, _ = _traced_kernels(lambda: conv_s2.conv3x3s2_dx(dy, w_all, 32, 32))
     assert len(names) == 1 and kernel in names[0], names
     assert _group(names[0]) == "K4dx conv3x3s2_dx", names
 
@@ -952,9 +958,6 @@ def test_k6dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
     """On the card conv3x3_b8_dx folds the flip into the kernel's wall
     reads: it builds no flipped copy of the wall, and one call launches one
     kernel, K6's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
         _group,
     )
@@ -970,10 +973,7 @@ def test_k6dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
     monkeypatch.setattr(conv_chw, "flip_wall", refuse)
     monkeypatch.setattr(conv_b8, "flip_wall", refuse)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names, got = _traced_kernels(lambda: conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16))
     assert len(names) == 1 and _group(names[0]).startswith("K6 "), names
     scale = want.float().abs().max().item()
     atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
@@ -1140,3 +1140,78 @@ def test_augment_pipeline_refuses_mixed_devices(cuda):
     with pytest.raises(RuntimeError):
         augment.make_batch_train_pipeline(name, (64, 64), (48, 48))(
             draws, images.to(cuda), labels.to(cuda))
+
+
+def test_running_score_on_card_matches_cpu(cuda):
+    """The validation metric's confusion update on the card (an
+    ``index_add_``, no read back) against the CPU on the same label maps,
+    true labels outside [0, C) included."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metrics import (
+        RunningScore,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    got, want = RunningScore(4, device=cuda), RunningScore(4, device="cpu")
+    for _ in range(3):
+        true = torch.randint(-1, 6, (20, 192, 192), generator=gen, dtype=torch.int32)
+        pred = torch.randint(0, 4, (20, 192, 192), generator=gen)
+        got.update(true.to(cuda), pred.to(cuda))
+        want.update(true, pred)
+    assert got.confusion_matrix.device.type == cuda.type
+    assert torch.equal(got.confusion_matrix.cpu(), want.confusion_matrix)
+    assert got.get_scores() == want.get_scores()
+
+
+def test_one_epoch_loop_on_card_checkpoints_and_loads_back(cuda, tmp_path):
+    """``train_network`` for one epoch at 32x32, batch 4, bf16, on the card:
+    finite losses, K1 launched; the best checkpoint loads into a predictor
+    that validates as the loop did, and a snapshot loads back bit for bit."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        ExperimentConfig,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        EvalBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        SyntheticSegDataset,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import (
+        checkpoint,
+        driver,
+    )
+
+    cfg = ExperimentConfig.from_dict({"data": {"pad_size": [40, 40, 1],
+                                               "crop_size": [32, 32, 1]},
+                                      "learning": {"batch_size": 4, "lr": 1e-3}})
+    trainer = CooperativeTrainer(cfg.latent_DA, learning_rate=1e-3,
+                                 compute_dtype=torch.bfloat16, device=cuda)
+    val = SyntheticSegDataset(length=2, pad_size=(40, 40), seed=1)
+    conv_chw.conv3x3_chw.launches = 0
+    result = driver.train_network("card", SyntheticSegDataset(length=4, pad_size=(40, 40)),
+                                  val, trainer, cfg, str(tmp_path), seed=0, max_epochs=1)
+    assert conv_chw.conv3x3_chw.launches > 0
+    assert result.best_epoch == 0
+    assert bool(torch.isfinite(torch.from_numpy(result.epochs[0].losses)).all())
+    for tag in ("best", "0"):
+        predictor = CooperativePredictor(compute_dtype=torch.bfloat16, device=cuda, seed=3)
+        checkpoint.load_model(predictor, str(tmp_path / tag / "checkpoints"))
+        for (ka, a), (kb, b) in zip(trainer.model.state_dict().items(),
+                                    predictor.state_dict().items()):
+            assert ka == kb and torch.equal(a, b), ka
+        running = driver.eval_dispatch(predictor, EvalBatcher(val, 4, (40, 40), (32, 32),
+                                                              device=cuda))
+        assert torch.equal(running.confusion_matrix.cpu(),
+                           torch.from_numpy(result.epochs[0].confusion))
+    path = checkpoint.save_snapshot(trainer, str(tmp_path), epoch=1)
+    other = CooperativeTrainer(cfg.latent_DA, learning_rate=1e-3,
+                               compute_dtype=torch.bfloat16, device=cuda, seed=5)
+    assert checkpoint.load_snapshot(other, path) == 1
+    for (ka, a), (kb, b) in zip(trainer.model.state_dict().items(),
+                                other.model.state_dict().items()):
+        assert ka == kb and torch.equal(a, b), ka
+    for p, q in zip(trainer.model.parameters(), other.model.parameters()):
+        a, b = trainer.optimizer.state[p], other.optimizer.state[q]
+        assert b["step"].device.type == "cpu" and float(a["step"]) == float(b["step"]) == 2
+        assert b["exp_avg"].device.type == cuda.type
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
