@@ -15,7 +15,9 @@ downsamples on kernel K4, with K4dx and K4dw in the backward); and
 ``conv_nl=True`` (its ``PALLAS_CONV_NL=1``: the residual stages'
 64..128-channel 3x3 convs at 24x24 and 12x12 on kernel K5, with K5 on
 flipped weights for dx and K5dw in the backward).  Then it runs the
-training augmentation pipeline into the train step, and last the port's
+training augmentation pipeline into the train step, the training loop
+through the port's command line, the held-out evaluation of the loop's
+best checkpoint through the port's test entry, and last the port's
 ``bench_b8_conv``, the path of the blocked conv K6 (with its dx and K6dw).
 
 Phases, each printing its seconds when it ends:
@@ -110,7 +112,20 @@ Phases, each printing its seconds when it ends:
    confusion matrix of that epoch, a snapshot loads back bit for bit, and
    every kernel launched as often as the drawn branches
    (``expected_launches``) and the validations' predicts require;
-10. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
+10. eval: the held-out evaluation through the port's test entry
+   (``cli.test``'s ``parse_args``, ``load_predictor`` and ``run``) of the
+   loop phase's best checkpoint, float32, ``predict(n_iter=2)``, on the
+   synthetic ACDC tree's test list that the port's writer
+   (``cli.make_synthetic_acdc``) puts in a temporary directory: 20 pids x
+   ED/ES, 40 volumes of 10 slices at 224x224, chunks of 10 slices, with the
+   launch counts set to 0 just before and read just after.  It fails
+   unless ``detail.csv`` holds 40 rows of finite Dice, K1 launched on every
+   chunk as often as the predict has stride-1 convs of at most 64 channels
+   and no other kernel launched, and the per-volume Dice of 2 volumes,
+   recomputed on the CPU with the plain versions, lies within 0.01 of the
+   card's for each class; it prints the seconds a volume, K1's launches a
+   chunk, the largest Dice gap and the card's ``nvidia-smi`` line;
+11. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
    before and read just after; it must launch K6, K6dx and K6dw.
@@ -201,6 +216,14 @@ AUG_TRAIN_STEPS = 3      # train steps on batches the card's pipeline made
 LOOP_CONFIG = os.path.join("configs", "ACDC", "cooperative_training.json")
 LOOP_EPOCHS = 5
 LOOP_SAVE_EVERY = 2
+# the eval phase: the held-out test list (20 pids x ED/ES) of the synthetic
+# ACDC tree, 10 slices at 224x224 a volume, evaluated from the loop's best
+# checkpoint by the port's test entry (float32, chunks of 10 slices); two
+# volumes recomputed on the CPU
+EVAL_SLICES = 10
+EVAL_CHUNK = 10
+EVAL_CPU_VOLUMES = 2
+EVAL_DICE_ATOL = 0.01
 
 
 @contextmanager
@@ -1005,12 +1028,11 @@ def augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod, wrapper
     return total
 
 
-def loop_phase(torch, wrappers, predict_k1):
-    """The loop phase (see the module docstring).  ``predict_k1(model)``:
-    K1 launches of one ``predict(n_iter=2)``.  Returns the launches by
-    wrapper over the loop."""
-    import tempfile
-
+def loop_phase(torch, wrappers, predict_k1, tmp):
+    """The loop phase (see the module docstring), its run under the
+    directory ``tmp``.  ``predict_k1(model)``: K1 launches of one
+    ``predict(n_iter=2)``.  Returns the launches by wrapper over the loop
+    and the best checkpoint's directory."""
     import numpy as np
 
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
@@ -1027,74 +1049,73 @@ def loop_phase(torch, wrappers, predict_k1):
     )
 
     config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--json_config_path", config, "--synthetic", "--bf16", "--max_epochs",
-                str(LOOP_EPOCHS), "--save_dir", tmp, "--log"]
-        args = cli.parse_args(argv)
-        cfg, name = cli.load_config(args)
-        cfg.output.save_epoch_every_num_epochs = LOOP_SAVE_EVERY
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        trainer, result = cli.run(args, cfg, name)
-        loop_sec = time.perf_counter() - t0
-        got = {k: w.launches for k, w in wrappers.items()}
-        log_dir, model_dir = driver.experiment_dirs(tmp, cfg.data.dataset_name,
-                                                    args.data_setting, cfg.data.num_classes,
-                                                    name, args.cval)
-        std = driver.LOSS_KEYS.index("loss/standard/total")
-        for e in result.epochs:
-            print(f"  epoch {e.epoch}: {e.steps} steps, train {e.train_sec:.4f} s, val "
-                  f"{e.val_sec:.4f} s, drawing {e.draw_sec * 1e3:.3f} ms on the host "
-                  f"({e.draw_sec / e.train_sec:.4f} of train); loss/standard/total "
-                  f"{float(e.losses[:, std].mean()):.5f}, Mean IoU {e.iou:.5f}; branches "
-                  f"{e.branches}", flush=True)
-        print(f"  train_network: {loop_sec:.3f} s for {LOOP_EPOCHS} epochs (host clock, "
-              f"trainer build and checkpoints included); best epoch {result.best_epoch}, "
-              f"Mean IoU {result.best_score:.5f}", flush=True)
-        first = float(result.epochs[0].losses[:, std].mean())
-        last = float(result.epochs[-1].losses[:, std].mean())
-        if not last < first:
-            raise AssertionError(f"the standard loss did not fall: {first} -> {last}")
-        with open(os.path.join(log_dir, "scalars.jsonl")) as f:
-            ious = [r["value"] for r in map(json.loads, f) if r["tag"] == "iou/val_iou"]
-        if len(ious) != LOOP_EPOCHS or not all(math.isfinite(v) for v in ious):
-            raise AssertionError(f"logged Mean IoUs {ious}")
-        if result.best_epoch != int(np.argmax(ious)):
-            raise AssertionError(f"best epoch {result.best_epoch}, logged IoUs {ious}")
-        saved = ["best"] + [str(e) for e in range(LOOP_EPOCHS)
-                            if (e + 1) % LOOP_SAVE_EVERY == 0 or e == 0]
-        if sorted(d for d in os.listdir(model_dir) if d != "interrupted") != sorted(saved):
-            raise AssertionError(f"checkpoints {sorted(os.listdir(model_dir))}, want {saved}")
-        for d in saved:
-            files = sorted(os.listdir(os.path.join(model_dir, d, "checkpoints")))
-            if files != sorted(f"{m}.pth" for m in MODULE_NAMES):
-                raise AssertionError(f"{d}/checkpoints holds {files}")
-        # the best checkpoint validates as the trainer did at its epoch
-        predictor = checkpoint.load_model(
-            CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=1,
-                                 conv_s2=args.conv_s2, conv_nl=args.conv_nl),
-            os.path.join(model_dir, "best", "checkpoints"))
-        _, val_set = cli.build_datasets(cfg, args)
-        evals = EvalBatcher(val_set, cfg.learning.batch_size, cfg.data.pad_hw, cfg.data.crop_hw,
-                            device="cuda")
-        confusion = driver.eval_dispatch(predictor, evals).confusion_matrix.cpu().numpy()
-        if not np.array_equal(confusion, result.epochs[result.best_epoch].confusion):
-            raise AssertionError(f"best checkpoint's validation {confusion.tolist()}, the "
-                                 f"loop's {result.epochs[result.best_epoch].confusion.tolist()}")
-        # a snapshot loads back bit for bit
-        path = checkpoint.save_snapshot(trainer, model_dir, result.last_epoch)
-        other = cli.build_trainer(cfg, cli.parse_args(argv + ["--seed", str(args.seed + 1)]))
-        if checkpoint.load_snapshot(other, path) != result.last_epoch:
-            raise AssertionError("the snapshot's epoch")
-        same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
-                                                     other.model.state_dict().values()))
-        for p, q in zip(trainer.model.parameters(), other.model.parameters()):
-            a, b = trainer.optimizer.state[p], other.optimizer.state[q]
-            same &= float(a["step"]) == float(b["step"]) and all(
-                torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq"))
-        if not same:
-            raise AssertionError("the snapshot did not load back bit for bit")
+    argv = ["--json_config_path", config, "--synthetic", "--bf16", "--max_epochs",
+            str(LOOP_EPOCHS), "--save_dir", tmp, "--log"]
+    args = cli.parse_args(argv)
+    cfg, name = cli.load_config(args)
+    cfg.output.save_epoch_every_num_epochs = LOOP_SAVE_EVERY
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trainer, result = cli.run(args, cfg, name)
+    loop_sec = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    log_dir, model_dir = driver.experiment_dirs(tmp, cfg.data.dataset_name,
+                                                args.data_setting, cfg.data.num_classes,
+                                                name, args.cval)
+    std = driver.LOSS_KEYS.index("loss/standard/total")
+    for e in result.epochs:
+        print(f"  epoch {e.epoch}: {e.steps} steps, train {e.train_sec:.4f} s, val "
+              f"{e.val_sec:.4f} s, drawing {e.draw_sec * 1e3:.3f} ms on the host "
+              f"({e.draw_sec / e.train_sec:.4f} of train); loss/standard/total "
+              f"{float(e.losses[:, std].mean()):.5f}, Mean IoU {e.iou:.5f}; branches "
+              f"{e.branches}", flush=True)
+    print(f"  train_network: {loop_sec:.3f} s for {LOOP_EPOCHS} epochs (host clock, "
+          f"trainer build and checkpoints included); best epoch {result.best_epoch}, "
+          f"Mean IoU {result.best_score:.5f}", flush=True)
+    first = float(result.epochs[0].losses[:, std].mean())
+    last = float(result.epochs[-1].losses[:, std].mean())
+    if not last < first:
+        raise AssertionError(f"the standard loss did not fall: {first} -> {last}")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        ious = [r["value"] for r in map(json.loads, f) if r["tag"] == "iou/val_iou"]
+    if len(ious) != LOOP_EPOCHS or not all(math.isfinite(v) for v in ious):
+        raise AssertionError(f"logged Mean IoUs {ious}")
+    if result.best_epoch != int(np.argmax(ious)):
+        raise AssertionError(f"best epoch {result.best_epoch}, logged IoUs {ious}")
+    saved = ["best"] + [str(e) for e in range(LOOP_EPOCHS)
+                        if (e + 1) % LOOP_SAVE_EVERY == 0 or e == 0]
+    if sorted(d for d in os.listdir(model_dir) if d != "interrupted") != sorted(saved):
+        raise AssertionError(f"checkpoints {sorted(os.listdir(model_dir))}, want {saved}")
+    for d in saved:
+        files = sorted(os.listdir(os.path.join(model_dir, d, "checkpoints")))
+        if files != sorted(f"{m}.pth" for m in MODULE_NAMES):
+            raise AssertionError(f"{d}/checkpoints holds {files}")
+    # the best checkpoint validates as the trainer did at its epoch
+    predictor = checkpoint.load_model(
+        CooperativePredictor(compute_dtype=torch.bfloat16, device="cuda", seed=1,
+                             conv_s2=args.conv_s2, conv_nl=args.conv_nl),
+        os.path.join(model_dir, "best", "checkpoints"))
+    _, val_set = cli.build_datasets(cfg, args)
+    evals = EvalBatcher(val_set, cfg.learning.batch_size, cfg.data.pad_hw, cfg.data.crop_hw,
+                        device="cuda")
+    confusion = driver.eval_dispatch(predictor, evals).confusion_matrix.cpu().numpy()
+    if not np.array_equal(confusion, result.epochs[result.best_epoch].confusion):
+        raise AssertionError(f"best checkpoint's validation {confusion.tolist()}, the "
+                             f"loop's {result.epochs[result.best_epoch].confusion.tolist()}")
+    # a snapshot loads back bit for bit
+    path = checkpoint.save_snapshot(trainer, model_dir, result.last_epoch)
+    other = cli.build_trainer(cfg, cli.parse_args(argv + ["--seed", str(args.seed + 1)]))
+    if checkpoint.load_snapshot(other, path) != result.last_epoch:
+        raise AssertionError("the snapshot's epoch")
+    same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                 other.model.state_dict().values()))
+    for p, q in zip(trainer.model.parameters(), other.model.parameters()):
+        a, b = trainer.optimizer.state[p], other.optimizer.state[q]
+        same &= float(a["step"]) == float(b["step"]) and all(
+            torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq"))
+    if not same:
+        raise AssertionError("the snapshot did not load back bit for bit")
     # every launch of the loop: its steps' and its validations' predicts
     want = Counter()
     for e in result.epochs:
@@ -1109,10 +1130,108 @@ def loop_phase(torch, wrappers, predict_k1):
     steps = sum(e.steps for e in result.epochs)
     print(f"  launches over the loop ({steps} steps, {LOOP_EPOCHS} validations), as its "
           f"branches and predicts require: {got}", flush=True)
+    return got, os.path.join(model_dir, "best", "checkpoints")
+
+
+def eval_phase(torch, wrappers, predict_k1, best_dir, tmp, smi):
+    """The eval phase (see the module docstring): the loop's best checkpoint
+    ``best_dir`` evaluated on a synthetic tree written under ``tmp``.
+    ``predict_k1(model)``: K1 launches of one ``predict(n_iter=2)``.
+    Returns the launches by wrapper over the evaluation."""
+    import csv
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        make_synthetic_acdc,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        test as cli_test,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.splits import (
+        TEST_LIST,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.tester import (
+        TestSegmentationNetwork,
+    )
+
+    tree, out = os.path.join(tmp, "synthetic_ACDC"), os.path.join(tmp, "eval")
+    t0 = time.perf_counter()
+    make_synthetic_acdc.main(["--out_root", tree, "--pids", *TEST_LIST,
+                              "--n_slices", str(EVAL_SLICES)])
+    write_sec = time.perf_counter() - t0
+    argv = ["--checkpoint", best_dir, "--acdc_root", tree, "--n_iter", str(N_ITER),
+            "--save_dir", out]
+    args = cli_test.parse_args(argv)
+    predictor = cli_test.load_predictor(args)
+    # the predicts' share of the host clock: each call timed to its end
+    predict, predict_sec = predictor.predict, []
+
+    def timed_predict(x, **kw):
+        t = time.perf_counter()
+        out = predict(x, **kw)
+        torch.cuda.synchronize()
+        predict_sec.append(time.perf_counter() - t)
+        return out
+
+    predictor.predict = timed_predict
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    results = cli_test.run(args, predictor)
+    torch.cuda.synchronize()
+    eval_sec = time.perf_counter() - t0
+    del predictor.predict
+    got = {k: w.launches for k, w in wrappers.items()}
+    with open(os.path.join(out, "ACDC", "detail.csv"), newline="") as f:
+        header, *rows = list(csv.reader(f))
+    n_volumes = 2 * len(TEST_LIST)
+    if header != ["patient_id", "LV_Dice", "MYO_Dice", "RV_Dice"] or len(rows) != n_volumes:
+        raise AssertionError(f"detail.csv: {header}, {len(rows)} rows, want {n_volumes}")
+    card = {r[0]: [float(v) for v in r[1:]] for r in rows}
+    if not all(math.isfinite(v) for dice in card.values() for v in dice):
+        raise AssertionError(f"a Dice is not finite: {card}")
+    chunks = n_volumes * -(-EVAL_SLICES // EVAL_CHUNK)
+    per_chunk = predict_k1(predictor)
+    want = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    want["conv3x3_chw"] = chunks * per_chunk
+    if got != want:
+        raise AssertionError(f"launches over the evaluation {got}, expected {want}")
+    # EVAL_CPU_VOLUMES volumes again on the CPU: the plain versions, the same
+    # checkpoint and preprocessing
+    cpu_args = cli_test.parse_args(argv[:-2] + ["--device", "cpu"])
+    cpu = cli_test.load_predictor(cpu_args)
+    dataset = cli_test.build_datasets(cpu_args, cpu_args.cval)["ACDC"]
+    tester = TestSegmentationNetwork(dataset, lambda x: cpu.predict(x, n_iter=N_ITER),
+                                     chunk_size=EVAL_CHUNK, device="cpu")
+    gaps = []
+    for i in range(EVAL_CPU_VOLUMES):
+        img, gt = dataset.get_patient_data_for_testing(i)
+        pred = tester.predict_volume(img).argmax(dim=-1).to(torch.int32).numpy()
+        row = tester.metric.update(dataset.get_id(i), pred, gt,
+                                   voxel_spacing=dataset.get_voxel_spacing(i))
+        gaps += [abs(a - b) for a, b in zip(row[1:], card[row[0]])]
+        print(f"  {row[0]}: Dice card {card[row[0]]}, CPU {[float(v) for v in row[1:]]}",
+              flush=True)
+    gap = max(gaps)
+    print(f"  eval: {n_volumes} volumes of {EVAL_SLICES} slices from the loop's best "
+          f"checkpoint, float32, predict(n_iter={N_ITER}): {eval_sec:.3f} s, "
+          f"{eval_sec / n_volumes:.4f} s a volume (host clock: reading, preprocessing, "
+          f"prediction, metrics), of which predict {sum(predict_sec):.3f} s in "
+          f"{len(predict_sec)} calls (median {statistics.median(predict_sec) * 1e3:.3f} ms, "
+          f"first {predict_sec[0] * 1e3:.3f} ms; each to a synchronize); writing the tree "
+          f"{write_sec:.3f} s; K1 launches "
+          f"{got['conv3x3_chw']} over {chunks} chunks of {EVAL_CHUNK} slices, "
+          f"{got['conv3x3_chw'] / chunks:g} a chunk; mean Dice " + ", ".join(
+              f"{k} {v:.4f}" for k, v in results["ACDC"].items() if k.endswith("_mean"))
+          + f"; card against CPU on {EVAL_CPU_VOLUMES} volumes: largest class-volume "
+          f"Dice gap {gap:.6f} (bound {EVAL_DICE_ATOL}); {smi}", flush=True)
+    if not gap <= EVAL_DICE_ATOL:
+        raise AssertionError(f"card against CPU Dice gap {gap} > {EVAL_DICE_ATOL}")
     return got
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1473,10 +1592,17 @@ def main():
                                      wrappers)
         torch.cuda.empty_cache()
 
-    with phase("loop"):
-        loop_launches = loop_phase(torch, wrappers,
-                                   lambda model: convs_per_request(model, conv_chw.Conv.uses_k1))
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        def k1_per_predict(model):
+            return convs_per_request(model, conv_chw.Conv.uses_k1)
+
+        with phase("loop"):
+            loop_launches, best_dir = loop_phase(torch, wrappers, k1_per_predict, tmp)
+            torch.cuda.empty_cache()
+
+        with phase("eval"):
+            eval_launches = eval_phase(torch, wrappers, k1_per_predict, best_dir, tmp, smi)
+            torch.cuda.empty_cache()
 
     with phase("b8"):
         for w in wrappers.values():
@@ -1529,7 +1655,7 @@ def main():
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
                 + sum(run[0][k] for run in runs.values()) + aug_launches[k] + loop_launches[k]
-                + b8_launches[k]
+                + eval_launches[k] + b8_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

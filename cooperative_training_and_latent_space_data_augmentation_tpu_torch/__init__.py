@@ -15,8 +15,13 @@ conv kernels K4-K6, the on-device training augmentation
 (:mod:`.ops.augment`, :mod:`.ops.spline`; plain PyTorch ops), the training
 loop (:func:`.train.driver.train_network`: the datasets, batchers,
 validation metric and checkpoints around the train step) and its
-``--synthetic`` command line (:mod:`.cli.train`), and the converters in
-:mod:`.convert`.
+``--synthetic`` command line (:mod:`.cli.train`), the held-out evaluation
+(the NIfTI/NRRD readers, the split policies and the ACDC and M&Ms
+datasets in :mod:`.data`, the volume metrics and the tester in
+:mod:`.eval`, the synthetic ACDC tree's writer
+:mod:`.cli.make_synthetic_acdc` and the test entry :mod:`.cli.test`), and
+the converters in :mod:`.convert`, a reader of the JAX package's
+checkpoints among them.
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,9 @@ is none, unless ``--device cpu`` asks for the CPU.  Checkpoints go under
 ``{save_dir}/train_{dataset}_{data_setting}_n_cls_{k}/{config}/{cval}/model``
 (:func:`..train.driver.experiment_dirs`).  ``--conv_s2`` and ``--conv_nl``
 stand for the JAX package's ``PALLAS_CONV_S2=1`` and ``PALLAS_CONV_NL=1``.
-Only ``--synthetic`` data is supported: real ACDC volumes come with the
-held-out evaluation.
+Only ``--synthetic`` data is supported for training; the port reads ACDC
+volumes for the held-out evaluation (:mod:`.test`), but training on their
+train and validate splits is not ported yet.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ def load_config(args: argparse.Namespace):
 def build_datasets(cfg: ExperimentConfig, args: argparse.Namespace):
     """(train, validation) datasets: phantoms from seeds 0 and 1."""
     if not args.synthetic:
-        raise NotImplementedError("the port trains on --synthetic data only; real ACDC "
-                                  "volumes come with the port's held-out evaluation")
+        raise NotImplementedError("the port trains on --synthetic data only; training on "
+                                  "ACDC volumes is not ported yet")
     train = SyntheticSegDataset(length=args.synthetic_train_length, pad_size=cfg.data.pad_hw,
                                 num_classes=cfg.data.num_classes, seed=0)
     val = SyntheticSegDataset(length=args.synthetic_val_length, pad_size=cfg.data.pad_hw,

@@ -17,15 +17,27 @@ Adam state: its first and second moments ``mu`` and ``nu`` have the
 params' tree and go through the same maps, and its ``count`` is the step.
 :meth:`..train.cooperative.CooperativeTrainer.load_train_state` loads the
 result, so a JAX run can be resumed in the port.
+
+``load_jax_checkpoint(dir)`` reads the per-module ``{module}.msgpack``
+files the JAX solver's ``save_model`` writes (``train/cooperative.py:
+954-966``) into what ``from_jax`` returns, through
+:func:`read_flax_msgpack`, a msgpack decoder on ``struct`` (no ``msgpack``
+package, which the card's machine may lack).
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
-from typing import Dict, Mapping
+from os.path import join
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+    MODULE_NAMES,
+)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -152,3 +164,110 @@ def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state) -> Tr
 
     return TrainState(from_jax(params, batch_stats), moments(adam.mu), moments(adam.nu),
                       int(np.asarray(adam.count)))
+
+
+# ------------------------------------------------------ flax msgpack files
+# msgpack's fixed-width types: first byte -> (struct format, byte count)
+_FIXED = {0xca: (">f", 4), 0xcb: (">d", 8), 0xcc: (">B", 1), 0xcd: (">H", 2),
+          0xce: (">I", 4), 0xcf: (">Q", 8), 0xd0: (">b", 1), 0xd1: (">h", 2),
+          0xd2: (">i", 4), 0xd3: (">q", 8)}
+_LENGTH = {1: ">B", 2: ">H", 4: ">I"}  # a length field of n bytes
+# first byte -> (kind, bytes of its length field) for str, bin, array, map, ext
+_SIZED = {0xd9: ("str", 1), 0xda: ("str", 2), 0xdb: ("str", 4),
+          0xc4: ("bin", 1), 0xc5: ("bin", 2), 0xc6: ("bin", 4),
+          0xdc: ("array", 2), 0xdd: ("array", 4), 0xde: ("map", 2), 0xdf: ("map", 4),
+          0xc7: ("ext", 1), 0xc8: ("ext", 2), 0xc9: ("ext", 4)}
+_FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+_FLAX_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
+
+
+class _Reader:
+    """A cursor over one msgpack buffer."""
+
+    def __init__(self, buf: bytes):
+        self.buf = memoryview(buf)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError(f"msgpack: truncated at byte {self.pos} (needs {n} more)")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str, n: int):
+        return struct.unpack(fmt, self.take(n))[0]
+
+    def value(self) -> Any:
+        b = self.unpack(">B", 1)
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self.map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self.array(b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return str(self.take(b & 0x1f), "utf-8")
+        if b == 0xc0:
+            return None
+        if b in (0xc2, 0xc3):
+            return b == 0xc3
+        if b in _FIXED:
+            return self.unpack(*_FIXED[b])
+        if b in _FIXEXT:
+            return self.ext(_FIXEXT[b])
+        if b in _SIZED:
+            kind, width = _SIZED[b]
+            n = self.unpack(_LENGTH[width], width)
+            if kind == "str":
+                return str(self.take(n), "utf-8")
+            if kind == "bin":
+                return bytes(self.take(n))
+            return getattr(self, kind)(n)
+        raise ValueError(f"msgpack: unknown type byte 0x{b:02x} at byte {self.pos - 1}")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def ext(self, n: int) -> np.ndarray:
+        code = self.unpack(">b", 1)
+        data = bytes(self.take(n))
+        if code != _FLAX_NDARRAY:
+            raise ValueError(f"msgpack: ext type {code} is not flax's ndarray (1)")
+        # flax packs (shape, dtype name, C-order bytes)
+        shape, dtype, raw = _Reader(data).value()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+
+
+def read_flax_msgpack(path: str) -> Any:
+    """The tree a flax ``serialization.to_bytes`` file holds, as
+    ``flax.serialization.msgpack_restore`` returns it: maps as dicts,
+    arrays as lists, flax's ndarray extension (type 1) as numpy arrays."""
+    with open(path, "rb") as f:
+        reader = _Reader(f.read())
+    tree = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError(f"{path}: {len(reader.buf) - reader.pos} bytes after the tree")
+    return tree
+
+
+def load_jax_checkpoint(checkpoint_dir: str) -> Dict[str, StateDict]:
+    """A JAX checkpoint directory (``.../model/best/checkpoints``: one
+    ``{module}.msgpack`` of ``{"params": ..., "batch_stats": ...}`` a
+    module) -> ``{module: state_dict}`` for
+    :meth:`..train.predictor.CooperativePredictor.load_state_dicts`."""
+    params, stats = {}, {}
+    for name in MODULE_NAMES:
+        tree = read_flax_msgpack(join(checkpoint_dir, f"{name}.msgpack"))
+        params[name], stats[name] = tree["params"], tree["batch_stats"]
+    return from_jax(params, stats)

@@ -1,1 +1,2 @@
-"""Synthetic phantom data, made from a seed with numpy."""
+"""Datasets: synthetic phantoms made from a seed, and ACDC-layout volume
+trees read from NIfTI or NRRD files."""

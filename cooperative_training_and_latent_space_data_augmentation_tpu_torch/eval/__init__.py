@@ -1,1 +1,1 @@
-"""Validation metrics."""
+"""Validation and held-out evaluation metrics, and the tester."""

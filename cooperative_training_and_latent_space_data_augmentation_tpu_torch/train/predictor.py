@@ -66,9 +66,9 @@ class CooperativePredictor(nn.Module):
     two stages and the decoders' first) run on kernel K5; the code
     decoupler's stay on ``F.conv2d``, as in the JAX package.  The two
     combine freely.
-    ``seed``: parameters are drawn from it (He normal convs, BN scale 1 +
-    0.02 N(0, 1), zero biases, running stats 0 and 1, as the JAX package
-    initialises); load trained weights with :meth:`load_state_dicts`.
+    ``seed``: parameters are drawn from it by :func:`init_parameters`
+    (from the JAX package's initial distributions, not from its random
+    numbers); load trained weights with :meth:`load_state_dicts`.
 
     :meth:`predict` and :meth:`slow_refinement` always compute in eval mode
     (the JAX package's ``train=False``), whatever mode the modules are in.
@@ -193,18 +193,32 @@ class CooperativePredictor(nn.Module):
         return (s_t, internal) if save_internal_predicts else s_t
 
 
+# flax's he_normal: a normal truncated at +-2 of its std, the std scaled up
+# by 1 / 0.87962566..., the std of that truncated unit normal, so that the
+# variance stays 2 / fan_in (jax.nn.initializers.variance_scaling)
+TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, seed: int) -> None:
-    """Draw every parameter from ``seed`` on the CPU: He-normal conv
-    kernels (std sqrt(2 / fan_in)), zero biases, BN scale 1 + 0.02 N(0, 1),
-    BN bias 0, running mean 0 and variance 1."""
+    """Draw every parameter from ``seed`` on the CPU, from the distributions
+    the JAX package draws from (``models/blocks.py:49,79-82``): each conv
+    and transposed-conv kernel from flax's ``he_normal``, a normal of std
+    ``s = sqrt(2 / fan_in) / 0.8796...`` truncated at +-2 s, so its
+    variance is 2 / fan_in and no weight exceeds 2.274 sqrt(2 / fan_in)
+    (fan_in = C_in kh kw for both: flax reads a transposed kernel's
+    (kh, kw, C_in, C_out) with ``in_axis=-2``); zero biases; BN scale
+    1 + 0.02 N(0, 1), BN bias 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (Conv, ConvTranspose2x2)):
             w = m.weight
             fan_in = (w.shape[0] if isinstance(m, ConvTranspose2x2) else w.shape[1]) \
                 * w.shape[2] * w.shape[3]
-            w.copy_(torch.randn(w.shape, generator=gen) * math.sqrt(2.0 / fan_in))
+            std = math.sqrt(2.0 / fan_in) / TRUNC_STD
+            draw = torch.empty(w.shape)
+            torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            w.copy_(draw)
             m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape, generator=gen))

@@ -1215,3 +1215,100 @@ def test_one_epoch_loop_on_card_checkpoints_and_loads_back(cuda, tmp_path):
         assert b["exp_avg"].device.type == cuda.type
         assert torch.equal(a["exp_avg"], b["exp_avg"])
         assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+def _eval_tree(tmp_path):
+    """Pid 007 x ED/ES of the synthetic ACDC tree (two volumes of 10 slices
+    at 224x224) as the test entry reads it."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        make_synthetic_acdc,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        test as cli_test,
+    )
+
+    root = str(tmp_path / "tree")
+    make_synthetic_acdc.main(["--out_root", root, "--pids", "007"])
+    return cli_test.build_datasets(cli_test.parse_args(["--acdc_root", root]), 0)["ACDC"]
+
+
+def test_eval_on_card_matches_cpu_and_launches_k1_per_chunk(cuda, tmp_path):
+    """The held-out evaluation (``eval/tester.py``, float32,
+    ``predict(n_iter=2)``) of a model loaded through ``convert.from_jax``
+    from a JAX-initialised state (``torch_port_flax.to_flax`` of weights
+    drawn from JAX's initial distributions), on the card against the CPU on
+    2 volumes: each class-volume Dice within 0.01 (chip_smoke.py's eval
+    bound), the predictions on at least 99.9 % of the pixels equal, and K1
+    launched on every chunk, as often as the predict has stride-1 convs
+    with at most 64 channels."""
+    from torch_port_flax import to_flax
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import convert
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
+        module_state_dicts,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.tester import (
+        TestSegmentationNetwork,
+    )
+
+    state = convert.from_jax(*to_flax(module_state_dicts(CooperativePredictor(device="cpu",
+                                                                              seed=7))))
+    gpu = CooperativePredictor(device=cuda, seed=0)
+    cpu = CooperativePredictor(device="cpu", seed=0)
+    gpu.load_state_dicts(state)
+    cpu.load_state_dicts(state)
+    dataset = _eval_tree(tmp_path)
+    runs = {}
+    for name, model, dev in (("card", gpu, cuda), ("cpu", cpu, "cpu")):
+        tester = TestSegmentationNetwork(dataset, lambda x, m=model: m.predict(x, n_iter=2),
+                                         device=dev)
+        conv_chw.conv3x3_chw.launches = 0
+        tester.run()
+        runs[name] = (tester, conv_chw.conv3x3_chw.launches)
+    card, cpu_run = runs["card"][0], runs["cpu"][0]
+    assert len(card.rows) == len(cpu_run.rows) == 2
+    for g, w in zip(card.rows, cpu_run.rows):
+        assert g[0] == w[0]
+        for a, b in zip(g[1:], w[1:]):
+            assert abs(a - b) <= 0.01 or (a != a and b != b), (g, w)
+    for g, w in zip(card.patient_results, cpu_run.patient_results):
+        assert (g["pred"] == w["pred"]).mean() >= 0.999
+    per_chunk = sum(isinstance(c, conv_chw.Conv) and c.uses_k1()
+                    for m in (gpu.image_encoder, gpu.segmentation_decoder, gpu.shape_encoder,
+                              gpu.shape_decoder) for c in m.modules())
+    assert per_chunk > 0
+    assert runs["card"][1] == 2 * per_chunk  # two volumes of one chunk each
+    assert runs["cpu"][1] == 0
+
+
+def test_test_entry_on_card(cuda, tmp_path):
+    """``cli.test`` on the card (its default device) from a checkpoint of
+    the port's ``.pth`` files: 2 rows of finite Dice, the same as the CPU
+    entry's within 0.01."""
+    import csv
+    import types
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        make_synthetic_acdc,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        test as cli_test,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import (
+        checkpoint,
+    )
+
+    ckpt = checkpoint.save_model(types.SimpleNamespace(model=CooperativePredictor(
+        device="cpu", seed=11)), str(tmp_path / "model"), "best")
+    make_synthetic_acdc.main(["--out_root", str(tmp_path / "tree"), "--pids", "008"])
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        cli_test.main(["--checkpoint", ckpt, "--acdc_root", str(tmp_path / "tree"),
+                       "--save_dir", str(out)] + (["--device", "cpu"] if dev == "cpu" else []))
+        with open(out / "ACDC" / "detail.csv", newline="") as f:
+            rows[dev] = list(csv.reader(f))[1:]
+    assert [r[0] for r in rows["cuda"]] == [r[0] for r in rows["cpu"]] == ["008_ED", "008_ES"]
+    for g, w in zip(rows["cuda"], rows["cpu"]):
+        for a, b in zip(g[1:], w[1:]):
+            assert abs(float(a) - float(b)) <= 0.01, (g, w)

@@ -64,10 +64,11 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     check_step_masks,
     jax_generation,
     jax_train_state,
+    one_torch_thread,
     random_variables,
     replay_augment_draws,
     replay_draws,
@@ -123,18 +124,6 @@ IMAGE_ATOL = 5e-5
 UNSURE = 1e-3
 LOSS_RTOL = 1e-4
 STATS_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU work on one thread.  With torch's OpenMP pool on every
-    core, this file's train steps ran about 10x slower on a loaded machine
-    (a snapshot test: 145 s against 17 s with one thread, 8 busy processes
-    beside it); the parallel test run is such a machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ datasets

@@ -52,13 +52,14 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops impor
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     check_step_masks,
     check_step_metrics,
     check_step_moments_and_update,
     check_step_running_stats,
     jax_train_state,
     make_solver,
+    one_torch_thread,
     random_variables,
     replay_draws,
     run_step_case,

@@ -37,7 +37,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch import co
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     BATCH,
     HW,
     STEP_KEYS,
@@ -45,6 +45,7 @@ from torch_port_util import (
     jax_generation,
     jax_train_state,
     make_solver,
+    one_torch_thread,
     random_variables,
     replay_draws,
     saliency_of,

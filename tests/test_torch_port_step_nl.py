@@ -39,7 +39,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops impor
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     BATCH,
     HW,
     check_step_masks,
@@ -47,6 +47,7 @@ from torch_port_util import (
     check_step_moments_and_update,
     check_step_running_stats,
     make_solver,
+    one_torch_thread,
     random_variables,
     replay_draws,
     run_step_case,

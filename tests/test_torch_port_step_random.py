@@ -6,11 +6,12 @@ test_torch_port_step.py; the checks are torch_port_util.check_step_*.
 
 import pytest
 
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     check_step_masks,
     check_step_metrics,
     check_step_moments_and_update,
     check_step_running_stats,
+    one_torch_thread,
     run_step_case,
 )
 

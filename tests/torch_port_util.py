@@ -32,6 +32,19 @@ HW = 32
 BATCH = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work on one thread, for a test module that imports
+    this fixture.  With torch's OpenMP pool on every core, the loop test's
+    train steps ran about 10x slower on a loaded machine (a snapshot test:
+    145 s against 17 s with one thread, 8 busy processes beside it); the
+    parallel test run is such a machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_solver(compute_dtype=None) -> CooperativeTripletSolver:
     return CooperativeTripletSolver(input_hw=(HW, HW), compute_dtype=compute_dtype)
 
