@@ -17,8 +17,10 @@ downsamples on kernel K4, with K4dx and K4dw in the backward); and
 flipped weights for dx and K5dw in the backward).  Then it runs the
 training augmentation pipeline into the train step, the training loop
 through the port's command line, the held-out evaluation of the loop's
-best checkpoint through the port's test entry, and last the port's
-``bench_b8_conv``, the path of the blocked conv K6 (with its dx and K6dw).
+best checkpoint through the port's test entry, the robustness protocol
+(training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
+table), and last the port's ``bench_b8_conv``, the path of the blocked
+conv K6 (with its dx and K6dw).
 
 Phases, each printing its seconds when it ends:
 
@@ -125,7 +127,28 @@ Phases, each printing its seconds when it ends:
    recomputed on the CPU with the plain versions, lies within 0.01 of the
    card's for each class; it prints the seconds a volume, K1's launches a
    chunk, the largest Dice gap and the card's ``nvidia-smi`` line;
-11. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
+11. robustness: the paper's protocol through the command lines'
+   functions, with the launch counts set to 0 just before and read just
+   after each step.  ``cli.make_synthetic_acdc`` writes a tree of the
+   "10" policy's 10 training and 5 validation pids of cval 0 and 4 pids of
+   the test list, 10 slices at 224x224 a volume; ``cli.train`` trains
+   ``configs/ACDC/standard_training.json`` and
+   ``cooperative_training.json`` on it (``--root_dir``, ``--bf16``, 2
+   epochs of 20 steps, batches of 10 slices augmented and as they are),
+   each launching exactly what its drawn
+   branches and validation predicts require (no K3 in standard training);
+   ``cli.generate_acdc_c`` writes ACDC-C of the 4 test pids x ED/ES x the
+   four attacks, seed 0, on the card, launching no kernel, and one volume
+   of each attack, recomputed on the CPU with the same draws, must lie
+   within 1e-4 of the card's file; ``cli.test --checkpoint_template``
+   evaluates both methods on ACDC and the four subsets: 30 rows (LV, MYO
+   and RV Dice) of finite means in ``aggregated.csv``, K1 launched 26 times
+   a chunk of 10 slices and nothing else.  Where the checkout holds the
+   TPU checkpoints of ``saved/train_ACDC_10_n_cls_4``, the same template
+   evaluates them and their clean rows are printed beside
+   ``saved/robustness_synthetic/aggregated.csv``.  It prints the seconds
+   of writing, of each training, of generating and of evaluating;
+12. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
    before and read just after; it must launch K6, K6dx and K6dw.
@@ -224,6 +247,19 @@ EVAL_SLICES = 10
 EVAL_CHUNK = 10
 EVAL_CPU_VOLUMES = 2
 EVAL_DICE_ATOL = 0.01
+# the robustness phase: the protocol on ACDC-layout volumes through the
+# command lines' functions: a tree of the "10" policy's 10 training and 5
+# validation pids of cval 0 and 4 pids of the test list (EVAL_SLICES slices
+# each); standard and cooperative training on it, ROBUST_EPOCHS each; ACDC-C
+# of the 4 test pids (seed 0, the four attacks) on the card; the template
+# evaluation of both methods, and of the TPU checkpoints where the checkout
+# holds them
+ROBUST_METHODS = ("standard_training", "cooperative_training")
+ROBUST_TEST_PIDS = 4
+ROBUST_EPOCHS = 2
+ACDC_C_ATOL = 1e-4   # card against CPU on the [0, 1] scale: cuFFT against pocketfft
+TPU_RUNS = os.path.join("saved", "train_ACDC_10_n_cls_4")
+TPU_TABLE = os.path.join("saved", "robustness_synthetic", "aggregated.csv")
 
 
 @contextmanager
@@ -1229,6 +1265,189 @@ def eval_phase(torch, wrappers, predict_k1, best_dir, tmp, smi):
     return got
 
 
+def _corrupted_average(rows, method):
+    """Mean over the four corruption subsets of the LV, MYO and RV Dice
+    means of ``method`` in an aggregated table's rows."""
+    vals = [r[3] for r in rows if r[0] != "ACDC" and r[1] == method]
+    return sum(vals) / len(vals)
+
+
+def robustness_phase(torch, wrappers, predict_k1, tmp, smi):
+    """The robustness phase (see the module docstring), under the directory
+    ``tmp``.  ``predict_k1(model)``: K1 launches of one ``predict(n_iter=2)``.
+    Returns the launches by wrapper over the phase."""
+    import csv
+
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        generate_acdc_c,
+        make_synthetic_acdc,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        test as cli_test,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        EvalBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.nifti import (
+        read_nrrd,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.splits import (
+        TEST_LIST,
+        get_ACDC_split_policy,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import corruptions
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "robustness")
+    tree, acdc_c, runs = (os.path.join(root, d) for d in ("ACDC", "ACDC-C", "runs"))
+    policy = get_ACDC_split_policy("10", 0)
+    test_pids = TEST_LIST[:ROBUST_TEST_PIDS]
+    secs, launches = {}, Counter()
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    t0 = time.perf_counter()
+    make_synthetic_acdc.main(["--out_root", tree, "--pids", *policy["train"],
+                              *policy["validate"], *test_pids, "--n_slices", str(EVAL_SLICES)])
+    secs["writing the tree"] = time.perf_counter() - t0
+
+    # both methods on the tree, bf16, into the template's layout
+    for method in ROBUST_METHODS:
+        argv = ["--json_config_path", os.path.join(here, "configs", "ACDC", f"{method}.json"),
+                "--root_dir", tree, "--bf16", "--max_epochs", str(ROBUST_EPOCHS),
+                "--save_dir", runs]
+        args = cli_train.parse_args(argv)
+        cfg, name = cli_train.load_config(args)
+        zero()
+        t0 = time.perf_counter()
+        trainer, result = cli_train.run(args, cfg, name)
+        secs[f"training {method}"] = time.perf_counter() - t0
+        got = read()
+        train_set, val_set = cli_train.build_datasets(cfg, args)
+        n_val = len(EvalBatcher(val_set, cfg.learning.batch_size, cfg.data.pad_hw,
+                                cfg.data.crop_hw, device="cuda"))
+        want = Counter()
+        for e in result.epochs:
+            for branches in e.branches:
+                want.update(trainer.expected_launches(branches))
+        want["conv3x3_chw"] += len(result.epochs) * n_val * predict_k1(trainer.model)
+        want = {k: want.get(k, 0) for k in LAUNCH_COUNTERS}
+        if got != want:
+            raise AssertionError(f"{method}: launches {got}, expected {want}")
+        if (got["percentile_mask"] > 0) != (method == "cooperative_training"):
+            raise AssertionError(f"{method}: K3 launched {got['percentile_mask']} times")
+        losses = np.concatenate([e.losses for e in result.epochs])
+        if not np.isfinite(losses).all() or not math.isfinite(result.best_score):
+            raise AssertionError(f"{method}: losses or Mean IoU not finite")
+        steps = sum(e.steps for e in result.epochs)
+        print(f"  {method}: {steps} steps on {len(train_set)} "
+              f"slices, {len(result.epochs)} epochs, {secs[f'training {method}']:.3f} s; best "
+              f"epoch {result.best_epoch}, Mean IoU {result.best_score:.5f}; launches {got}, "
+              f"as its branches and {len(result.epochs) * n_val} validation predicts require",
+              flush=True)
+        launches.update(got)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # ACDC-C on the card; one volume of each attack again on the CPU
+    zero()
+    t0 = time.perf_counter()
+    written = generate_acdc_c.main(["--acdc_root", tree, "--out_root", acdc_c, "--seeds", "0"])
+    secs["generating ACDC-C"] = time.perf_counter() - t0
+    if any(read().values()):
+        raise AssertionError(f"the generator launched a kernel: {read()}")
+    n_written = len(test_pids) * 2 * len(corruptions.NAMES)
+    if len(written) != n_written:
+        raise AssertionError(f"the generator wrote {len(written)} volumes, want {n_written}")
+    pid, frame, crop = test_pids[0], "ED", 192
+    vol, _ = read_nrrd(os.path.join(tree, pid, f"{frame}_img.nrrd"))
+    cropped, h_s, w_s, _, _ = generate_acdc_c.crop_with_offsets(vol.astype(np.float32), crop)
+    cropped = generate_acdc_c.per_slice_minmax(cropped)
+    errs = {}
+    for attack in corruptions.NAMES:
+        draws = generate_acdc_c.crc_draws(attack, pid, frame, 0, *cropped.shape)
+        cpu = corruptions.corrupt_volume(draws, torch.from_numpy(cropped)).numpy()
+        card, _ = read_nrrd(os.path.join(acdc_c, attack, f"{pid}_0", f"{frame}_img.nrrd"))
+        inside = card[:, h_s:h_s + crop, w_s:w_s + crop]
+        outside = card.copy()
+        outside[:, h_s:h_s + crop, w_s:w_s + crop] = 0.0
+        if outside.any() or not np.isfinite(inside).all():
+            raise AssertionError(f"{attack}: not pasted onto a zero canvas, or not finite")
+        errs[attack] = float(np.abs(inside - cpu).max())
+    print(f"  ACDC-C: {len(written)} volumes of {EVAL_SLICES} slices ({len(test_pids)} pids x "
+          f"ED/ES x {len(corruptions.NAMES)} attacks, seed 0) in "
+          f"{secs['generating ACDC-C']:.3f} s (host clock, reading and writing included); "
+          f"{pid} {frame} card against CPU on the same draws, largest difference: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {ACDC_C_ATOL})", flush=True)
+    if max(errs.values()) > ACDC_C_ATOL:
+        raise AssertionError(f"ACDC-C card against CPU {errs} > {ACDC_C_ATOL}")
+
+    n_datasets = 1 + len(corruptions.NAMES)
+    n_rows = len(ROBUST_METHODS) * n_datasets * 3
+    chunks = len(ROBUST_METHODS) * n_datasets * 2 * len(test_pids) * -(-EVAL_SLICES // EVAL_CHUNK)
+
+    def evaluate(template, out, what):
+        args = cli_test.parse_args(["--checkpoint_template", template, "--cvals", "0",
+                                    "--acdc_root", tree, "--acdc_c_root", acdc_c,
+                                    "--save_dir", out])
+        per_chunk = predict_k1(cli_test.load_predictor(args))
+        zero()
+        t0 = time.perf_counter()
+        per_run, rows = cli_test.run_template(args)
+        torch.cuda.synchronize()
+        secs[f"evaluating {what}"] = time.perf_counter() - t0
+        got = read()
+        with open(os.path.join(out, "aggregated.csv")) as f:
+            lines = f.read().splitlines()
+        if (len(rows) != n_rows or len(lines) != n_rows + 1
+                or not all(math.isfinite(r[3]) for r in rows)):
+            raise AssertionError(f"{what}: {len(rows)} rows ({len(lines)} lines), want {n_rows} "
+                                 f"with finite means: {rows}")
+        want = dict.fromkeys(LAUNCH_COUNTERS, 0)
+        want["conv3x3_chw"] = chunks * per_chunk
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        avg = {m: _corrupted_average(rows, m) for m in ROBUST_METHODS}
+        gain = avg[ROBUST_METHODS[1]] - avg[ROBUST_METHODS[0]]
+        print(f"  template over {what}: {len(per_run)} runs, {n_rows} rows, "
+              f"{secs[f'evaluating {what}']:.3f} s for {chunks} volumes; K1 launches "
+              f"{got['conv3x3_chw']}, {got['conv3x3_chw'] / chunks:g} a chunk of {EVAL_CHUNK} "
+              f"slices; corrupted average Dice " + ", ".join(
+                  f"{m} {v:.4f}" for m, v in avg.items())
+              + f", cooperative minus standard {gain:+.4f}",
+              flush=True)
+        launches.update(got)
+        return rows
+
+    evaluate(os.path.join(runs, "train_ACDC_10_n_cls_4", "{method}", "{cval}", "model", "best",
+                          "checkpoints"), os.path.join(root, "eval"), "this phase's checkpoints")
+    tpu = os.path.join(here, TPU_RUNS, "{method}", "{cval}", "model", "best", "checkpoints")
+    if all(os.path.isdir(tpu.format(method=m, cval=0)) for m in ROBUST_METHODS):
+        rows = evaluate(tpu, os.path.join(root, "eval_tpu"), "the TPU checkpoints")
+        with open(os.path.join(here, TPU_TABLE)) as f:
+            saved = {tuple(r[:3]): float(r[3]) for r in list(csv.reader(f))[1:]}
+        print(f"  clean rows of the TPU checkpoints, the port on {len(test_pids)} pids beside "
+              f"{TPU_TABLE} (20 pids): " + "; ".join(
+                  f"{r[1]} {r[2]} {r[3]:.4f} / {saved[tuple(r[:3])]:.4f}"
+                  for r in rows if r[0] == "ACDC"), flush=True)
+    else:
+        print(f"  the TPU checkpoints ({TPU_RUNS}/{{method}}/0/model/best) are not in this "
+              f"copy of the repository: not evaluated", flush=True)
+    print("  robustness seconds (host clock): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()) + f"; {smi}", flush=True)
+    return {k: launches.get(k, 0) for k in LAUNCH_COUNTERS}
+
+
 def main():
     import tempfile
 
@@ -1604,6 +1823,9 @@ def main():
             eval_launches = eval_phase(torch, wrappers, k1_per_predict, best_dir, tmp, smi)
             torch.cuda.empty_cache()
 
+        with phase("robustness"):
+            robust_launches = robustness_phase(torch, wrappers, k1_per_predict, tmp, smi)
+
     with phase("b8"):
         for w in wrappers.values():
             w.launches = 0
@@ -1655,7 +1877,7 @@ def main():
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
                 + sum(run[0][k] for run in runs.values()) + aug_launches[k] + loop_launches[k]
-                + eval_launches[k] + b8_launches[k]
+                + eval_launches[k] + robust_launches[k] + b8_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

@@ -1,19 +1,30 @@
 """Evaluation entry point of the port: held-out per-volume metrics of one
-checkpoint.
+checkpoint, or the methods x cvals x datasets table of many.
 
-Counterpart of the JAX package's ``cli/test.py`` on one checkpoint (its
-``--checkpoint`` path; the methods x cvals aggregation of
-``--checkpoint_template`` is not ported), which mirrors
+Counterpart of the JAX package's ``cli/test.py``, which mirrors
 ``medseg/test_ACDC_triplet_segmentation.py`` (:80-158): it evaluates
 patient-wise Dice (and optionally HD, ASD, VolError, VolSim) on the ACDC
 test split, M&Ms and the ACDC-C corruption subsets, and writes
-``summary.csv`` and ``detail.csv`` per dataset::
+``summary.csv`` and ``detail.csv`` per dataset.  One checkpoint::
 
     python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.test \\
         --checkpoint /tmp/runs/.../model/best/checkpoints \\
         --acdc_root /tmp/synthetic_ACDC --save_dir /tmp/eval
 
-``--checkpoint`` is a directory of the port's per-module ``.pth`` files
+The reference's full results table from one command
+(test_ACDC_triplet_segmentation.py:115-158), ``{method}`` and ``{cval}``
+filled in from ``--methods`` and ``--cvals``::
+
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.test \\
+        --checkpoint_template '/tmp/runs/train_ACDC_10_n_cls_4/{method}/{cval}/model/best/checkpoints' \\
+        --cvals 0 --acdc_root /tmp/synthetic_ACDC --acdc_c_root /tmp/ACDC-C --save_dir /tmp/eval
+
+writes each run's CSVs under ``{save_dir}/{method}/cv{cval}/{dataset}/``
+and the mean and std across cvals per dataset x method x metric to
+``{save_dir}/aggregated.csv``, and prints that table as CSV; a missing
+checkpoint directory is reported and skipped.
+
+A checkpoint is a directory of the port's per-module ``.pth`` files
 (:func:`..train.checkpoint.save_model`) or of the JAX package's
 ``.msgpack`` files (:func:`..convert.load_jax_checkpoint`), told apart by
 the files present.  Prediction is float32 (the JAX entry builds its
@@ -48,8 +59,13 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.mnm 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
     SyntheticSegDataset,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metrics import (
+    write_csv_rows,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.tester import (
+    AGG_COLUMNS,
     evaluate_cross_domain,
+    evaluate_methods_across_cvals,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
     load_model,
@@ -66,6 +82,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--checkpoint", type=str, default=None,
                    help="a directory of per-module .pth (the port's) or .msgpack "
                         "(the JAX package's) files; without it, weights from seed 0")
+    p.add_argument("--checkpoint_template", type=str, default=None,
+                   help="a checkpoint path with {method} and {cval} placeholders: "
+                        "evaluate --methods x --cvals and aggregate across cvals")
+    p.add_argument("--methods", nargs="+",
+                   default=["standard_training", "cooperative_training"])
+    p.add_argument("--cvals", nargs="+", type=int, default=[0, 1, 2])
+    p.add_argument("--network_type", type=str, default=CooperativePredictor.network_type)
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--n_iter", type=int, default=2,
                    help="1: FTN only; >=2: FTN + STN refinement")
@@ -132,15 +155,20 @@ def build_datasets(args: argparse.Namespace, cval: int) -> Dict[str, object]:
     return datasets
 
 
-def load_predictor(args: argparse.Namespace) -> CooperativePredictor:
-    """The float32 predictor on ``args.device``, with ``--checkpoint``'s
-    weights (``.pth`` or ``.msgpack`` files, by what the directory holds)."""
+def load_predictor(args: argparse.Namespace,
+                   checkpoint: Optional[str] = None) -> CooperativePredictor:
+    """The float32 predictor on ``args.device``, with the weights of
+    ``checkpoint`` (default ``--checkpoint``; ``.pth`` or ``.msgpack``
+    files, by what the directory holds)."""
+    if args.network_type != CooperativePredictor.network_type:
+        raise NotImplementedError(f"network_type {args.network_type!r}: the port has "
+                                  f"{CooperativePredictor.network_type!r} only")
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu to "
                            f"evaluate on the CPU")
     predictor = CooperativePredictor(num_classes=args.num_classes, n_iter=args.n_iter,
                                      device=args.device, seed=0)
-    ckpt = args.checkpoint
+    ckpt = checkpoint or args.checkpoint
     if ckpt is None:
         return predictor
     if os.path.exists(os.path.join(ckpt, "image_encoder.pth")):
@@ -175,8 +203,36 @@ def print_summary(results: Dict[str, Dict]) -> None:
         w.writerow([name] + [summary.get(k, "") for k in keys])
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict]:
+def run_template(args: argparse.Namespace):
+    """``--checkpoint_template`` over ``--methods`` x ``--cvals``:
+    ``(per_run, aggregated)`` of :func:`..eval.tester.evaluate_methods_across_cvals`."""
+
+    def make_predict_fn(method: str, cval: int):
+        ckpt = args.checkpoint_template.format(method=method, cval=cval)
+        if not os.path.isdir(ckpt):
+            print(f"{method}:{ckpt} not found. ")  # the reference prints and skips
+            return None
+        predictor = load_predictor(args, ckpt)
+        return lambda images: predictor.predict(images, n_iter=args.n_iter)
+
+    per_run, aggregated = evaluate_methods_across_cvals(
+        make_predict_fn, lambda cval: build_datasets(args, cval), methods=args.methods,
+        cvals=args.cvals, save_dir=args.save_dir, num_classes=args.num_classes,
+        metrics_list=args.metrics, device=args.device)
+    if aggregated is None:
+        raise SystemExit("no (method, cval) runs were evaluated; check "
+                         "--checkpoint_template and the data roots")
+    return per_run, aggregated
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """One checkpoint: {dataset: summary}.  ``--checkpoint_template``:
+    ``(per_run, aggregated)``, the table printed as CSV."""
     args = parse_args(argv)
+    if args.checkpoint_template:
+        per_run, aggregated = run_template(args)
+        write_csv_rows(sys.stdout, AGG_COLUMNS, aggregated)
+        return per_run, aggregated
     results = run(args, load_predictor(args))
     print_summary(results)
     return results

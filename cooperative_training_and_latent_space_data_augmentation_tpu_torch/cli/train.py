@@ -1,4 +1,5 @@
-"""Training entry point of the port: the synthetic-phantom protocol.
+"""Training entry point of the port: ACDC-layout volumes or the
+synthetic-phantom protocol.
 
 Counterpart of the JAX package's ``cli/train.py`` (``parse_args``,
 ``build_datasets``, ``main``), which mirrors the reference's
@@ -7,22 +8,25 @@ Counterpart of the JAX package's ``cli/train.py`` (``parse_args``,
 (argparse at train...py:292-324)::
 
     python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.train \\
-        --json_config_path configs/ACDC/cooperative_training.json --synthetic --bf16 \\
-        --max_epochs 5 --save_dir /tmp/runs --log
+        --json_config_path configs/ACDC/cooperative_training.json \\
+        --root_dir /tmp/synthetic_ACDC --bf16 --save_dir /tmp/runs --log
 
-It trains on the card (``--device cuda``, the default) and raises if there
-is none, unless ``--device cpu`` asks for the CPU.  Checkpoints go under
+trains on the ACDC train and validate splits of ``--data_setting`` and
+``--cval`` under ``data.root_dir`` (``--root_dir`` overrides it), one
+``CardiacACDCDataset`` per frame of ``data.frame``, their file names probed
+when the configured pattern matches nothing (``.nii.gz`` or ``.nrrd``);
+``--synthetic`` trains on phantoms instead.  It trains on the card
+(``--device cuda``, the default) and raises if there is none, unless
+``--device cpu`` asks for the CPU.  Checkpoints go under
 ``{save_dir}/train_{dataset}_{data_setting}_n_cls_{k}/{config}/{cval}/model``
 (:func:`..train.driver.experiment_dirs`).  ``--conv_s2`` and ``--conv_nl``
 stand for the JAX package's ``PALLAS_CONV_S2=1`` and ``PALLAS_CONV_NL=1``.
-Only ``--synthetic`` data is supported for training; the port reads ACDC
-volumes for the held-out evaluation (:mod:`.test`), but training on their
-train and validate splits is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -30,6 +34,13 @@ import torch
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
     ExperimentConfig,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.acdc import (
+    CardiacACDCDataset,
+    probe_format_names,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.base import (
+    ConcatDataset,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
     SyntheticSegDataset,
@@ -57,6 +68,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=40)
     p.add_argument("--resume_path", type=str, default=None,
                    help="a snapshot ({model_dir}/interrupted/checkpoints/*.pth) to resume")
+    p.add_argument("--root_dir", type=str, default=None,
+                   help="override the configuration's data.root_dir")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic phantom dataset")
     p.add_argument("--synthetic_train_length", type=int, default=20)
@@ -83,6 +96,8 @@ def load_config(args: argparse.Namespace):
     path = args.json_config_path
     cfg = ExperimentConfig.from_json(path) if path else ExperimentConfig()
     name = os.path.splitext(os.path.basename(path))[0] if path else "default"
+    if args.root_dir is not None:
+        cfg.data.root_dir = args.root_dir
     if args.batch_size is not None:
         cfg.learning.batch_size = args.batch_size
     if args.lr is not None:
@@ -91,14 +106,38 @@ def load_config(args: argparse.Namespace):
 
 
 def build_datasets(cfg: ExperimentConfig, args: argparse.Namespace):
-    """(train, validation) datasets: phantoms from seeds 0 and 1."""
-    if not args.synthetic:
-        raise NotImplementedError("the port trains on --synthetic data only; training on "
-                                  "ACDC volumes is not ported yet")
-    train = SyntheticSegDataset(length=args.synthetic_train_length, pad_size=cfg.data.pad_hw,
-                                num_classes=cfg.data.num_classes, seed=0)
-    val = SyntheticSegDataset(length=args.synthetic_val_length, pad_size=cfg.data.pad_hw,
-                              num_classes=cfg.data.num_classes, seed=1)
+    """(train, validation) datasets: the ACDC train and validate splits, a
+    ``CardiacACDCDataset`` per frame joined by ``ConcatDataset``, or with
+    ``--synthetic`` phantoms from seeds 0 and 1."""
+    if args.synthetic:
+        train = SyntheticSegDataset(length=args.synthetic_train_length,
+                                    pad_size=cfg.data.pad_hw,
+                                    num_classes=cfg.data.num_classes, seed=0)
+        val = SyntheticSegDataset(length=args.synthetic_val_length, pad_size=cfg.data.pad_hw,
+                                  num_classes=cfg.data.num_classes, seed=1)
+        return train, val
+    data = cfg.data
+    img_fmt, lbl_fmt = data.image_format_name, data.label_format_name
+    # the reference's configs say .nii.gz, its own preprocessor writes
+    # .nrrd: probe the tree when the configured pattern matches nothing
+    if not glob.glob(os.path.join(data.root_dir,
+                                  img_fmt.format(p_id="*", frame=data.frame[0]))):
+        img_fmt, lbl_fmt = probe_format_names(data.root_dir, frame=data.frame[0])
+    sets = {"train": [], "validate": []}
+    for split, per_frame in sets.items():
+        for frame in data.frame:
+            per_frame.append(CardiacACDCDataset(
+                root_dir=data.root_dir, frame=frame, split=split,
+                data_setting=args.data_setting, cval=args.cval, image_format_name=img_fmt,
+                label_format_name=lbl_fmt, pad_size=data.pad_hw, num_classes=data.num_classes,
+                myocardium_only=data.myocardium_only,
+                right_ventricle_only=data.right_ventricle_only, use_cache=data.use_cache,
+                seed=args.seed))
+    train, val = ConcatDataset(sets["train"]), ConcatDataset(sets["validate"])
+    if len(train) == 0:
+        raise FileNotFoundError(f"no ACDC training volumes of data_setting {args.data_setting} "
+                                f"cval {args.cval} under {data.root_dir!r}; pass --root_dir "
+                                f"or --synthetic")
     return train, val
 
 

@@ -337,16 +337,22 @@ def _csv_field(v):
     return v
 
 
+def write_csv_rows(f, header: Sequence[str], rows: Sequence[Sequence]) -> None:
+    """``rows`` under ``header`` to the open text stream ``f``, as
+    :func:`write_csv` lays them out."""
+    w = csv.writer(f, lineterminator="\n")
+    w.writerow(header)
+    for row in rows:
+        w.writerow([_csv_field(v) for v in row])
+
+
 def write_csv(path: str, header: Sequence[str], rows: Sequence[Sequence]) -> None:
     """``rows`` under ``header``, laid out byte for byte as the JAX
     package's ``pd.DataFrame(rows, columns=header).to_csv(path,
     index=False)`` writes them (the csv module's minimal quoting, ``\\n``
     line ends)."""
     with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(header)
-        for row in rows:
-            w.writerow([_csv_field(v) for v in row])
+        write_csv_rows(f, header, rows)
 
 
 SUPPORTED_METRICS = ("Dice", "HD", "ASD", "VolError", "VolSim")

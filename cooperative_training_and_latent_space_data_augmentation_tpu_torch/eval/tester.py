@@ -1,11 +1,14 @@
-"""Volume-wise evaluation: the patient loop and the cross-domain driver.
+"""Volume-wise evaluation: the patient loop, the cross-domain driver and
+the methods x cvals table.
 
-Counterpart of the JAX package's ``eval/tester.py`` (``TestSegmentationNetwork``
-and ``evaluate_cross_domain``), the re-design of
+Counterpart of the JAX package's ``eval/tester.py`` (``TestSegmentationNetwork``,
+``evaluate_cross_domain``, ``evaluate_methods_across_cvals`` and
+``aggregate_across_cvals``), the re-design of
 ``medseg/test_basic_segmentation_solver.py`` (TestSegmentationNetwork:29-199:
 patient-wise volume iteration, chunked inference at <= 10 slices,
 spacing-aware metric updates, CSV reports, top-k/worst-k) and of the
-per-dataset loop of ``medseg/test_ACDC_triplet_segmentation.py`` (:80-158).
+per-dataset loop of ``medseg/test_ACDC_triplet_segmentation.py`` (:80-158)
+and of its results loop over methods and cvals (:115-158).
 
 A volume's slices are padded to a multiple of ``chunk_size`` by repeating
 the last one, as the JAX package pads them for its jitted predict (the
@@ -16,6 +19,7 @@ the host.
 
 from __future__ import annotations
 
+import math
 import os
 from os.path import join
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -28,9 +32,11 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.nift
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metrics import (
     RunningSegmentationScore,
+    write_csv,
 )
 
 IDX2CLS = {0: "BG", 1: "LV", 2: "MYO", 3: "RV"}  # test_ACDC...py:25-30
+AGG_COLUMNS = ("dataset", "method", "metric", "mean", "std", "n_cvals")
 
 
 class TestSegmentationNetwork:
@@ -144,3 +150,95 @@ def evaluate_cross_domain(predict_fn: Callable[[torch.Tensor], torch.Tensor],
         print(f"[{name}] " + " ".join(
             f"{k}={v:.4f}" for k, v in results[name].items() if k.endswith("_mean")))
     return results
+
+
+def evaluate_methods_across_cvals(
+        make_predict_fn: Callable[[str, int], Optional[Callable]],
+        dataset_builder: Callable[[int], Dict[str, object]],
+        methods: Sequence[str],
+        cvals: Sequence[int],
+        save_dir: Optional[str] = None,
+        crop_size: Tuple[int, int] = (192, 192),
+        num_classes: int = 4,
+        metrics_list: Sequence[str] = ("Dice",),
+        device: Union[str, torch.device] = "cuda"):
+    """The reference's full results loop
+    (test_ACDC_triplet_segmentation.py:115-158): methods x cvals x datasets.
+
+    ``make_predict_fn(method, cval)`` returns a predict function (or None
+    to skip, e.g. a missing checkpoint: the reference prints and goes on,
+    :137-139); ``dataset_builder(cval)`` returns the {name: dataset}
+    registry of that fold.  Returns ``(per_run, aggregated)``: per_run maps
+    (method, cval, dataset) -> summary dict (each run writes its CSVs under
+    ``{save_dir}/{method}/cv{cval}/{dataset}/``), aggregated is
+    :func:`aggregate_across_cvals`'s table, written to
+    ``{save_dir}/aggregated.csv``."""
+    per_run: Dict[Tuple[str, int, str], Dict] = {}
+    for cval in cvals:
+        predicts = {}
+        for method in methods:
+            fn = make_predict_fn(method, cval)
+            if fn is None:
+                print(f"{method}: cval {cval} unavailable, skipped")
+                continue
+            predicts[method] = fn
+        if not predicts:
+            continue
+        datasets = dataset_builder(cval)
+        for method, predict_fn in predicts.items():
+            sub = join(save_dir, method, f"cv{cval}") if save_dir else None
+            results = evaluate_cross_domain(
+                predict_fn, datasets, save_dir=sub, crop_size=crop_size,
+                num_classes=num_classes, metrics_list=metrics_list, device=device)
+            for ds_name, summary in results.items():
+                per_run[(method, cval, ds_name)] = summary
+    aggregated = aggregate_across_cvals(per_run)
+    if save_dir is not None and aggregated is not None:
+        os.makedirs(save_dir, exist_ok=True)
+        write_csv(join(save_dir, "aggregated.csv"), AGG_COLUMNS, aggregated)
+    return per_run, aggregated
+
+
+def _group_mean(values: Sequence[float]) -> float:
+    """pandas' groupby mean: a Kahan-compensated sum over the count."""
+    total = compensation = 0.0
+    for v in values:
+        y = v - compensation
+        t = total + y
+        compensation = t - total - y
+        if compensation != compensation:  # inf - inf
+            compensation = 0.0
+        total = t
+    return total / len(values) if values else math.nan
+
+
+def _group_std(values: Sequence[float]) -> float:
+    """pandas' groupby std (1 degree of freedom): Welford's online update."""
+    mean = m2 = 0.0
+    for n, v in enumerate(values, start=1):
+        old = mean
+        mean += (v - old) / n
+        m2 += (v - mean) * (v - old)
+    return math.sqrt(m2 / (len(values) - 1)) if len(values) > 1 else math.nan
+
+
+def aggregate_across_cvals(per_run: Dict[Tuple[str, int, str], Dict]) -> Optional[List[Tuple]]:
+    """{(method, cval, dataset) -> summary} to the tidy mean/std-across-cvals
+    table, one row (dataset, method, metric, mean, std, n_cvals) per
+    dataset x method x ``*_mean`` metric, sorted by those three; None when
+    there is no run.  The arithmetic is pandas' groupby's, so the CSV is
+    the JAX package's byte for byte: NaN values are left out, std is NaN
+    (an empty field) at n_cvals 1."""
+    groups: Dict[Tuple[str, str, str], List[float]] = {}
+    for (method, _cval, ds_name), summary in per_run.items():
+        for key, value in summary.items():
+            if key.endswith("_mean"):
+                groups.setdefault((ds_name, method, key[:-len("_mean")]), []).append(
+                    float(value))
+    if not groups:
+        return None
+    rows = []
+    for key in sorted(groups):
+        values = [v for v in groups[key] if not math.isnan(v)]
+        rows.append((*key, _group_mean(values), _group_std(values), len(values)))
+    return rows

@@ -22,9 +22,10 @@ label classes 1..C-1 (scipy 'nearest' coefficients, the ascending
 ``>= 0.5`` overwrite) share one coefficient stack and one gather, the
 arithmetic of the JAX package's per-pixel gather (``FUSED_WARP=1``).
 
-Left out: the ``SEQ_WARP`` arm, the separate ``warp_image`` /
-``warp_label`` path (``FUSED_WARP=0``), ``Transformations``,
-``motion_estimation`` and ``clahe``.
+:func:`warp_image` samples an image alone (the corruptions' motion
+model).  Left out: the ``SEQ_WARP`` arm, the separate ``warp_image`` /
+``warp_label`` path of the pipeline (``FUSED_WARP=0``),
+``Transformations``, ``motion_estimation`` and ``clahe``.
 """
 
 from __future__ import annotations
@@ -623,6 +624,19 @@ def _fused_warp_scores(imgs: torch.Tensor, labels: torch.Tensor, ys: torch.Tenso
     big = _fused_warp_coeffs(imgs, labels, num_classes)
     iy, ix, wy, wx = _fused_warp_prep(ys, xs, h, w)
     return spline.gather_4x4(big, iy, ix, wy, wx)
+
+
+def warp_image(img_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """An HWC image sampled at the (H_out, W_out) coordinates (ys, xs),
+    zero outside the source frame ``[0, h-1] x [0, w-1]``: order-3
+    B-splines with 'reflect' coefficients, scipy's
+    ``map_coordinates(order=3, mode='reflect')`` (the JAX package's
+    ``warp_image`` at its default order; the corruptions' motion model
+    samples with it)."""
+    h, w = img_hwc.shape[0], img_hwc.shape[1]
+    out = spline.map_coordinates_cubic(img_hwc, ys, xs, mode="reflect")
+    valid = ((ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1))[..., None]
+    return torch.where(valid, out, 0.0).to(img_hwc.dtype)
 
 
 def warp_image_and_label_batch(imgs: torch.Tensor, labels: torch.Tensor, ys: torch.Tensor,

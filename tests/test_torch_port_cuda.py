@@ -12,8 +12,9 @@ K6dw refusing unaligned bf16 operands, the input checks (no fallback), the
 launch counts, the profile scripts' device busy without
 ``record_function`` ranges, and the predictor and the train step on the
 card against the CPU, with the default route, with ``conv_s2=True`` and
-with ``conv_nl=True``; and the training augmentation pipeline and its warp
-on the card against the CPU on the same draws.
+with ``conv_nl=True``; the training augmentation pipeline and its warp
+on the card against the CPU on the same draws; and the ACDC-C corruptions
+and their generator on the card against the CPU.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -1312,3 +1313,103 @@ def test_test_entry_on_card(cuda, tmp_path):
     for g, w in zip(rows["cuda"], rows["cpu"]):
         for a, b in zip(g[1:], w[1:]):
             assert abs(float(a) - float(b)) <= 0.01, (g, w)
+
+
+@pytest.mark.parametrize("name", ["RandomBias", "RandomSpike", "RandomGhosting", "RandomMotion"])
+def test_corruption_on_card_matches_cpu(cuda, name):
+    """Each ACDC-C corruption of a 10-slice 192x192 volume on the card
+    against the CPU on the same draws (three seeds), within chip_smoke.py's
+    ACDC_C_ATOL; the spike positions and ghost lines computed on the card
+    equal the CPU's; every slice in [0, 1]."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        corruptions,
+    )
+
+    smoke = _chip_smoke()
+    vol = torch.rand(10, 192, 192, generator=torch.Generator().manual_seed(3))
+    vol[3] *= 0.25
+    for seed in range(3):
+        draws = corruptions.draw_corruption(torch.Generator().manual_seed(seed), name)
+        want = corruptions.corrupt_volume(draws, vol)
+        on_card = draws.to(cuda)
+        got = corruptions.corrupt_volume(on_card, vol.to(cuda))
+        assert got.device.type == cuda.type and got.dtype == torch.float32
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= smoke.ACDC_C_ATOL, (name, seed, err)
+        assert got.amin().item() >= -1e-6 and got.amax().item() <= 1 + 1e-6
+        if name == "RandomSpike":
+            for a, b in zip(corruptions.spike_positions(on_card, 192, 192),
+                            corruptions.spike_positions(draws, 192, 192)):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_generator_on_card_matches_cpu(cuda, tmp_path):
+    """``cli.generate_acdc_c`` on the card (its default device) against the
+    same command on the CPU: the same files, every image within
+    ACDC_C_ATOL."""
+    import os
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        generate_acdc_c,
+        make_synthetic_acdc,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.nifti import (
+        read_nrrd,
+    )
+
+    smoke = _chip_smoke()
+    tree = str(tmp_path / "tree")
+    make_synthetic_acdc.main(["--out_root", tree, "--pids", "007", "--n_slices", "4"])
+    argv = ["--acdc_root", tree, "--seeds", "0", "1"]
+    card = generate_acdc_c.main(argv + ["--out_root", str(tmp_path / "card")])
+    cpu = generate_acdc_c.main(argv + ["--out_root", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert [os.path.relpath(p, tmp_path / "card") for p in card] == [
+        os.path.relpath(p, tmp_path / "cpu") for p in cpu]
+    assert len(card) == 2 * 4 * 2
+    for a, b in zip(card, cpu):
+        (x, sx), (y, sy) = read_nrrd(a), read_nrrd(b)
+        assert sx == sy and x.shape == y.shape
+        assert float(abs(x - y).max()) <= smoke.ACDC_C_ATOL, a
+
+
+def test_loop_first_batch_and_step_on_card_match_cpu(cuda):
+    """``cli.train --synthetic``'s first batch and first train step (the
+    loop's batcher, draw source and trainer, seed 40, float32, batch 4) on
+    the card against the same on the CPU: equal initial weights, images
+    within AUG_IMAGE_ATOL, at most AUG_MAX_UNSURE of the labels apart, each
+    loss within 1e-3 of the CPU's, relative."""
+    from functools import partial
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        CooperativeBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import driver
+
+    smoke = _chip_smoke()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = cli_train.parse_args(["--synthetic", "--seed", "40", "--batch_size", "4",
+                                     "--device", dev])
+        cfg, _ = cli_train.load_config(args)
+        train_set, _ = cli_train.build_datasets(cfg, args)
+        trainer = cli_train.build_trainer(cfg, args)
+        weights = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        batcher = CooperativeBatcher(
+            train_set, batch_size=cfg.learning.batch_size, policy_name=cfg.data.data_aug_policy,
+            pad_hw=cfg.data.pad_hw, crop_hw=cfg.data.crop_hw, num_classes=trainer.num_classes,
+            seed=args.seed, device=dev)
+        source = driver._OnDevice(driver.GeneratorDraws(args.seed + 1), torch.device(dev))
+        batch = next(iter(batcher.epoch(partial(source.augment, 0))))
+        draws = source.step(batch["image"].shape[0], cfg.data.crop_hw, trainer.latent_da)
+        metrics = trainer.train_step(batch["image"], batch["label"], draws)
+        runs[dev] = dict(weights=weights, image=batch["image"].cpu(), label=batch["label"].cpu(),
+                         losses={k: float(v) for k, v in metrics.items()})
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert all(torch.equal(cpu["weights"][k], card["weights"][k]) for k in cpu["weights"])
+    assert (card["image"] - cpu["image"]).abs().max().item() <= smoke.AUG_IMAGE_ATOL
+    assert (card["label"] != cpu["label"]).float().mean().item() <= smoke.AUG_MAX_UNSURE
+    for k, v in cpu["losses"].items():
+        assert abs(card["losses"][k] - v) <= 1e-3 * abs(v), (k, card["losses"][k], v)

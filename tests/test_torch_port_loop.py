@@ -668,6 +668,6 @@ def test_cli_refuses_without_cuda_or_synthetic_data(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--synthetic", "--max_epochs", "1", "--save_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    with pytest.raises(FileNotFoundError, match="--root_dir or --synthetic"):
         cli.main(["--device", "cpu", "--save_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
