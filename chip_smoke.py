@@ -85,6 +85,15 @@ Phases, each printing its seconds when it ends:
    Adam's first moment (0.1 x the gradient, against the CPU step's own
    sensitivity to a rounding-sized move of its input), the running
    statistics and the masks;
+7a. variants: the step's other configurations (``separate_training``, the
+   ablation network types ``FCN_16_standard_share_code`` and
+   ``FCN_16_standard_w_o_filter``, layer dropout at encoder 0.3 and decoder
+   0.2, ``remat``, the saliency-BN arm) at full width: two bf16 steps of
+   batch 20 each on the hand kernels (latent DA ``random``; dropout masks
+   from ``draw_step``), every wrapper launched exactly as
+   ``expected_launches`` says for the drawn branches (``remat``'s recompute
+   adds its K1 forwards, printed apart), finite losses, the step time and
+   the peak device memory; then each configuration's train-check as in 7;
 8. augment: the port's training augmentation (``ops/augment.py``) on 10
    phantom slices at 224x224: ``make_batch_train_pipeline`` with the
    configuration's policy (ACDC_affine_elastic_intensity; [augmented ||
@@ -806,10 +815,11 @@ def assert_masks_agree(torch, got_mask, want_mask, got_sal, want_sal, p, what):
     return int(differ.sum())
 
 
-def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False, conv_nl=False):
+def train_check(torch, cfg, coop, draws_mod, image, label, **trainer_kw):
     """One f32 step on the card against the same step on the CPU (see the
-    module docstring), in the default configuration, ``conv_s2=True`` or
-    ``conv_nl=True``.
+    module docstring), in the default configuration or with the trainer
+    keywords ``trainer_kw`` (``conv_s2=True``, ``conv_nl=True``, or one of
+    the step's other configurations, phase 7a).
     Tolerances, f32 sums in other orders:
 
     * losses: within 1e-4 of their value;
@@ -828,15 +838,14 @@ def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False, conv_n
     * the masks: equal, or swapped only next to the threshold."""
     lda = cfg.LatentDAConfig(image_code=cfg.MaskConfig("mse", "channel"),
                              shape_code=cfg.MaskConfig("ce", "spatial"))
-    draws = draws_mod.draw_step(torch.Generator().manual_seed(1), CHECK_BATCH, (192, 192), lda)
     img, lbl = torch.from_numpy(image[:CHECK_BATCH]), torch.from_numpy(label[:CHECK_BATCH])
-    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1, conv_s2=conv_s2,
-                                  conv_nl=conv_nl)
+    gpu = coop.CooperativeTrainer(lda, device="cuda", seed=1, **trainer_kw)
+    draws = draws_mod.draw_step(torch.Generator().manual_seed(1), CHECK_BATCH, (192, 192), lda,
+                                **gpu.draw_kwargs())
     got_m = gpu.train_step(img.to("cuda"), lbl.to("cuda"), draws.to("cuda"))
 
     def cpu_step(x):
-        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1, conv_s2=conv_s2,
-                                          conv_nl=conv_nl)
+        trainer = coop.CooperativeTrainer(lda, device="cpu", seed=1, **trainer_kw)
         return trainer, trainer.train_step(x, lbl, draws)
 
     t0 = time.perf_counter()
@@ -893,6 +902,68 @@ def train_check(torch, cfg, coop, draws_mod, image, label, conv_s2=False, conv_n
                                       float(getattr(draws, key).p), key)
     print(f"  masks (channel on the image code, spatial on the shape code): "
           f"{swapped} elements swapped next to the threshold", flush=True)
+
+
+# phase 7a's configurations of the step (trainer keywords)
+STEP_VARIANTS = {
+    "separate_training": {"separate_training": True},
+    "share_code": {"network_type": "FCN_16_standard_share_code"},
+    "w_o_filter": {"network_type": "FCN_16_standard_w_o_filter"},
+    "dropout": {"encoder_dropout": 0.3, "decoder_dropout": 0.2},
+    "remat": {"remat": True},
+    "saliency_bn_update": {"saliency_bn_update": True},
+}
+VARIANT_STEPS = 2
+
+
+def variants_phase(torch, wrappers, cfg, coop, draws_mod, image, label):
+    """Phase 7a (see the module docstring).  Returns the launches by wrapper
+    over the phase's bf16 steps."""
+    img = torch.from_numpy(image).to("cuda")
+    lbl = torch.from_numpy(label).to("cuda")
+    total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    for name, kw in STEP_VARIANTS.items():
+        lda = cfg.LatentDAConfig()
+        trainer = coop.CooperativeTrainer(lda, compute_dtype=torch.bfloat16, device="cuda",
+                                          seed=0, **kw)
+        plain = coop.CooperativeTrainer(lda, compute_dtype=torch.bfloat16, device="cpu")
+        gen = torch.Generator().manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(VARIANT_STEPS):
+            draws = draws_mod.draw_step(gen, TRAIN_BATCH, (192, 192), lda, device="cuda",
+                                        **trainer.draw_kwargs())
+            for k in LAUNCH_COUNTERS:
+                wrappers[k].launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(img, lbl, draws)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = {k: wrappers[k].launches for k in LAUNCH_COUNTERS}
+            branches = {"image": draws.image.branch, "shape": draws.shape.branch}
+            want = {**dict.fromkeys(LAUNCH_COUNTERS, 0), **trainer.expected_launches(branches)}
+            if got != want:
+                raise AssertionError(f"{name} step {i}, branches {branches}: launches {got}, "
+                                     f"expected {want}")
+            for k in LAUNCH_COUNTERS:
+                total[k] += got[k]
+            values = {k: float(v) for k, v in metrics.items()}
+            if not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"{name}: non-finite loss: {values}")
+            extra = got["conv3x3_chw"] - plain.expected_launches(branches)["conv3x3_chw"]
+            masks = len(draws.dropout) if draws.dropout is not None else 0
+            print(f"  {name} step {i} branches image {branches['image']} shape "
+                  f"{branches['shape']}: {sec * 1e3:.3f} ms, launches K1/K1dx/K2/K3 "
+                  f"{[got[k] for k in LAUNCH_COUNTERS[:4]]} (K1 {extra:+d} against the "
+                  f"default step), dropout masks {masks}, loss/total "
+                  f"{values['loss/total']:.4f}", flush=True)
+        print(f"  {name}: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+              f"GiB", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+        train_check(torch, cfg, coop, draws_mod, image, label, **kw)
+    return total
 
 
 def per_call(calls, recs, key):
@@ -1806,6 +1877,11 @@ def main():
             print(f"  {name}:", flush=True)
             train_check(torch, cfg, coop, draws_mod, train_image, train_label, **flags)
 
+    with phase("variants"):
+        variant_launches = variants_phase(torch, wrappers, cfg, coop, draws_mod, train_image,
+                                          train_label)
+        torch.cuda.empty_cache()
+
     with phase("augment"):
         aug_launches = augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod,
                                      wrappers)
@@ -1876,7 +1952,8 @@ def main():
         for which, name in (("fwd", base), ("dx", f"{base}_dx"), ("dw", f"{base}_dw")):
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
-                + sum(run[0][k] for run in runs.values()) + aug_launches[k] + loop_launches[k]
+                + sum(run[0][k] for run in runs.values()) + variant_launches[k]
+                + aug_launches[k] + loop_launches[k]
                 + eval_launches[k] + robust_launches[k] + b8_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []

@@ -3,7 +3,7 @@ score each best checkpoint on the synthetic ACDC tree's test list.
 
 For each seed it runs the port's own entries, as a user would type them::
 
-    cli.train --synthetic --bf16 --max_epochs 300 --seed s --save_dir {work}/seed{s}
+    cli.train --synthetic --bf16 --max_epochs 300 --seed s --save_dir {work}/seed{s} [--log]
     cli.test --checkpoint {best}/checkpoints --acdc_root {tree} --save_dir {work}/eval{s}
 
 on a tree that ``cli.make_synthetic_acdc --pids`` of the test list writes
@@ -50,6 +50,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--work_dir", type=str, required=True)
     p.add_argument("--out", type=str, required=True, help="JSON lines, one per seed")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--log", action="store_true",
+                   help="cli.train's --log: per-epoch scalars under each seed's log dir")
     return p.parse_args(argv)
 
 
@@ -57,7 +59,8 @@ def run_seed(seed: int, tree: str, args: argparse.Namespace) -> Dict:
     """Train and evaluate one seed through the command lines' ``main``."""
     train_args = cli_train.parse_args([
         "--synthetic", "--bf16", "--max_epochs", str(args.max_epochs), "--seed", str(seed),
-        "--save_dir", os.path.join(args.work_dir, f"seed{seed}"), "--device", args.device])
+        "--save_dir", os.path.join(args.work_dir, f"seed{seed}"), "--device", args.device]
+        + (["--log"] if args.log else []))
     cfg, name = cli_train.load_config(train_args)
     t0 = time.perf_counter()
     _, result = cli_train.run(train_args, cfg, name)

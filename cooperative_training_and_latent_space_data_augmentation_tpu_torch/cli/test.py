@@ -71,6 +71,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.che
     load_model,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+    NETWORK_TYPES,
     CooperativePredictor,
 )
 
@@ -88,7 +89,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--methods", nargs="+",
                    default=["standard_training", "cooperative_training"])
     p.add_argument("--cvals", nargs="+", type=int, default=[0, 1, 2])
-    p.add_argument("--network_type", type=str, default=CooperativePredictor.network_type)
+    p.add_argument("--network_type", type=str, default="FCN_16_standard")
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--n_iter", type=int, default=2,
                    help="1: FTN only; >=2: FTN + STN refinement")
@@ -160,14 +161,15 @@ def load_predictor(args: argparse.Namespace,
     """The float32 predictor on ``args.device``, with the weights of
     ``checkpoint`` (default ``--checkpoint``; ``.pth`` or ``.msgpack``
     files, by what the directory holds)."""
-    if args.network_type != CooperativePredictor.network_type:
+    if args.network_type not in NETWORK_TYPES:
         raise NotImplementedError(f"network_type {args.network_type!r}: the port has "
-                                  f"{CooperativePredictor.network_type!r} only")
+                                  f"{NETWORK_TYPES}")
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu to "
                            f"evaluate on the CPU")
     predictor = CooperativePredictor(num_classes=args.num_classes, n_iter=args.n_iter,
-                                     device=args.device, seed=0)
+                                     device=args.device, seed=0,
+                                     network_type=args.network_type)
     ckpt = checkpoint or args.checkpoint
     if ckpt is None:
         return predictor

@@ -20,7 +20,12 @@ when the configured pattern matches nothing (``.nii.gz`` or ``.nrrd``);
 ``--device cpu`` asks for the CPU.  Checkpoints go under
 ``{save_dir}/train_{dataset}_{data_setting}_n_cls_{k}/{config}/{cval}/model``
 (:func:`..train.driver.experiment_dirs`).  ``--conv_s2`` and ``--conv_nl``
-stand for the JAX package's ``PALLAS_CONV_S2=1`` and ``PALLAS_CONV_NL=1``.
+stand for the JAX package's ``PALLAS_CONV_S2=1`` and ``PALLAS_CONV_NL=1``,
+``--saliency_bn_update`` for its ``SALIENCY_BN_UPDATE=1``; ``--remat`` is
+its ``--remat``.  The configuration's ``network_type`` (the three of
+``train.predictor.NETWORK_TYPES``), ``encoder_dropout``,
+``decoder_dropout`` and ``separate_training`` reach the trainer as they
+reach the JAX package's.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.dri
     train_network,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
-    CooperativePredictor,
+    NETWORK_TYPES,
 )
 
 
@@ -85,6 +90,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="the encoders' stride-2 downsamples on kernel K4")
     p.add_argument("--conv_nl", action="store_true",
                    help="the residual stages' large-channel convs on kernel K5")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise each module forward in the backward")
+    p.add_argument("--saliency_bn_update", action="store_true",
+                   help="the saliency forwards track BN running statistics (the reference's)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -145,13 +154,8 @@ def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> Cooperativ
     """The cooperative trainer of the configuration on ``args.device``,
     weights drawn from ``args.seed``."""
     model, learning = cfg.segmentation_model, cfg.learning
-    if model.network_type != CooperativePredictor.network_type:
-        raise NotImplementedError(f"network_type {model.network_type!r}: the port has "
-                                  f"{CooperativePredictor.network_type!r} only")
-    if model.encoder_dropout is not None or model.decoder_dropout is not None:
-        raise NotImplementedError("layer dropout is not ported")
-    if learning.separate_training:
-        raise NotImplementedError("separate_training is not ported")
+    if model.network_type not in NETWORK_TYPES:
+        raise ValueError(f"network_type {model.network_type!r}: not one of {NETWORK_TYPES}")
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu to "
                            f"train on the CPU")
@@ -160,14 +164,23 @@ def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> Cooperativ
         input_noise_std=learning.input_noise_std, learning_rate=learning.lr,
         compute_dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
         seed=args.seed, image_ch=model.image_ch, num_classes=cfg.data.num_classes,
-        conv_s2=args.conv_s2, conv_nl=args.conv_nl)
+        conv_s2=args.conv_s2, conv_nl=args.conv_nl, network_type=model.network_type,
+        encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
+        separate_training=learning.separate_training, remat=args.remat,
+        saliency_bn_update=args.saliency_bn_update)
 
 
 def run(args: argparse.Namespace, cfg: ExperimentConfig,
         config_name: str) -> Tuple[CooperativeTrainer, TrainResult]:
     """Build the datasets and the trainer and train: (trainer, result)."""
     train_set, val_set = build_datasets(cfg, args)
-    trainer = build_trainer(cfg, args)
+    return run_trainer(args, cfg, config_name, build_trainer(cfg, args), train_set, val_set)
+
+
+def run_trainer(args: argparse.Namespace, cfg: ExperimentConfig, config_name: str,
+                trainer: CooperativeTrainer, train_set,
+                val_set) -> Tuple[CooperativeTrainer, TrainResult]:
+    """Train ``trainer`` on the datasets as :func:`run` does."""
     log_dir, model_dir = experiment_dirs(args.save_dir, cfg.data.dataset_name,
                                          args.data_setting, cfg.data.num_classes,
                                          config_name, args.cval)

@@ -17,12 +17,19 @@ BatchNorm has the JAX package's three modes: eval (running statistics),
 train (batch statistics, running statistics updated) and train with
 frozen statistics (batch statistics, no update; :func:`frozen_stats`), the
 reference's ``_disable_tracking_bn_stats``.
+
+Layer dropout (the JAX package's ``encoder_dropout``/``decoder_dropout``):
+channel dropout at the end of each :class:`ResCore` in train mode, one
+keep mask shared over H and W.  The masks are operands: a caller hands a
+module forward its (N, C) keep masks in forward order with
+:func:`dropout_masks`, and a train-mode ResCore with a rate refuses to run
+without one.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -111,6 +118,45 @@ def frozen_stats(*modules: nn.Module):
             bn.update_stats = flag
 
 
+_MASKS: list = []  # the active dropout_masks blocks' iterators, innermost last
+
+
+@contextmanager
+def dropout_masks(masks: Sequence[torch.Tensor]):
+    """Hand the train-mode ResCores that run in the block their channel
+    keep masks, one (N, C) 0/1 tensor each, in forward order; the block
+    must consume every one (``RuntimeError`` otherwise)."""
+    it = [iter(masks), len(masks), 0]
+    _MASKS.append(it)
+    try:
+        yield
+    finally:
+        _MASKS.pop()
+    if it[2] != it[1]:
+        raise RuntimeError(f"dropout: {it[1]} keep masks given, {it[2]} used")
+
+
+def _next_mask() -> torch.Tensor:
+    if not _MASKS:
+        raise RuntimeError("layer dropout in train mode needs its keep masks "
+                           "(models.blocks.dropout_masks; StepDraws.dropout in a train step)")
+    it = _MASKS[-1]
+    try:
+        mask = next(it[0])
+    except StopIteration:
+        raise RuntimeError(f"dropout: all {it[1]} keep masks used, another asked for") from None
+    it[2] += 1
+    return mask
+
+
+def channel_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate, broadcast_dims=(1, 2))`` on NCHW ``x``
+    with the (N, C) keep mask ``keep``: ``where(keep, x / (1 - rate), 0)``
+    in x's dtype."""
+    keep = keep.to(device=x.device, dtype=torch.bool).view(*keep.shape, *([1] * (x.dim() - 2)))
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class LeakyReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(x)
@@ -135,17 +181,23 @@ class ResCore(nn.Module):
     """LeakyReLU(conv1x1(x) + [conv3-BN-LReLU-conv3-BN](x)): the JAX
     package's ``_ResCore``, with the reference's names ``conv_input`` (the
     1x1 shortcut) and ``conv`` (the residual branch).  ``conv_nl`` reaches
-    the residual branch's two 3x3 convs only, never the shortcut."""
+    the residual branch's two 3x3 convs only, never the shortcut.  With a
+    ``dropout`` rate, train mode ends with :func:`channel_dropout` on the
+    next mask of :func:`dropout_masks`."""
 
     def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype],
-                 conv_nl: bool = False):
+                 conv_nl: bool = False, dropout: Optional[float] = None):
         super().__init__()
         self.conv_input = Conv(c_in, features, 1, dtype=dtype)
         self.conv = conv_bn_stack(c_in, features, dtype, conv_nl)
+        self.dropout = dropout if dropout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(x)
-        return leaky_relu(self.conv_input(x).to(h.dtype) + h)
+        out = leaky_relu(self.conv_input(x).to(h.dtype) + h)
+        if self.dropout is not None and self.training:
+            out = channel_dropout(out, _next_mask(), self.dropout)
+        return out
 
 
 class ResConvDown(ResCore):
@@ -161,8 +213,8 @@ class ResConvDown(ResCore):
     ``conv_nl`` reaches the residual core, never the downsample."""
 
     def __init__(self, c_in: int, features: int, dtype: Optional[torch.dtype],
-                 conv_s2: bool = False, conv_nl: bool = False):
-        super().__init__(c_in, features, dtype, conv_nl)
+                 conv_s2: bool = False, conv_nl: bool = False, dropout: Optional[float] = None):
+        super().__init__(c_in, features, dtype, conv_nl, dropout)
         self.down = Conv(c_in, c_in, 3, stride=2, padding=1, dtype=dtype,
                          k4=conv_s2 and eligible_channels(c_in, features))
 
@@ -195,11 +247,12 @@ def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class ResUp(ResCore):
     """x2 upsample ('NN' nearest or 'Conv2' k2s2 transposed conv), then the
-    residual core (``conv_nl`` as for :class:`ResCore`)."""
+    residual core (``conv_nl`` and ``dropout`` as for :class:`ResCore`)."""
 
     def __init__(self, c_in: int, features: int, up_type: str,
-                 dtype: Optional[torch.dtype], conv_nl: bool = False):
-        super().__init__(c_in, features, dtype, conv_nl)
+                 dtype: Optional[torch.dtype], conv_nl: bool = False,
+                 dropout: Optional[float] = None):
+        super().__init__(c_in, features, dtype, conv_nl, dropout)
         if up_type == "Conv2":
             self.up = ConvTranspose2x2(c_in, c_in, dtype)
         elif up_type != "NN":

@@ -17,7 +17,10 @@ K4 (:class:`..models.blocks.ResConvDown`).  ``conv_nl`` is its
 residual stages whose channels pass the NL rule run on kernel K5 (at full
 width the encoders' ``down3`` and ``down4``, four convs a pass, and the
 decoders' ``up1``, one).  The two combine freely.  The code decoupler never
-takes K5 (:func:`code_decoupler`).
+takes K5 (:func:`code_decoupler`).  ``dropout``: the rate of the channel
+dropout after each residual stage (the JAX package's ``encoder_dropout``
+and ``decoder_dropout``; :class:`..models.blocks.ResCore`); the code
+decoupler has none.
 """
 
 from __future__ import annotations
@@ -46,14 +49,15 @@ class Encoder(nn.Module):
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
                  act: Optional[str] = "relu", dtype: Optional[torch.dtype] = None,
-                 conv_s2: bool = False, conv_nl: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False,
+                 dropout: Optional[float] = None):
         super().__init__()
         f = feature_reduce
         widths = (64 // f, 128 // f, 256 // f, 512 // f, 512 // f)
         self.inc = conv_bn_stack(in_ch, widths[0], dtype, conv_nl)
         for i in range(4):
-            self.add_module(f"down{i + 1}",
-                            ResConvDown(widths[i], widths[i + 1], dtype, conv_s2, conv_nl))
+            self.add_module(f"down{i + 1}", ResConvDown(widths[i], widths[i + 1], dtype,
+                                                        conv_s2, conv_nl, dropout))
         self.final_conv = nn.Sequential(
             Conv(widths[4], widths[4], 1, dtype=torch.float32), BatchNorm(widths[4]))
         self.act = _ACTS[act]
@@ -72,13 +76,14 @@ class Decoder(nn.Module):
 
     def __init__(self, output_channel: int, feature_reduce: int = 4,
                  up_type: str = "NN", last_act: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None, conv_nl: bool = False):
+                 dtype: Optional[torch.dtype] = None, conv_nl: bool = False,
+                 dropout: Optional[float] = None):
         super().__init__()
         f = feature_reduce
         widths = (512 // f, 256 // f, 128 // f, 64 // f, 64 // f)
         for i in range(4):
-            self.add_module(f"up{i + 1}",
-                            ResUp(widths[i], widths[i + 1], up_type, dtype, conv_nl))
+            self.add_module(f"up{i + 1}", ResUp(widths[i], widths[i + 1], up_type, dtype,
+                                                conv_nl, dropout))
         self.final_conv = Conv(widths[4], output_channel, 1, dtype=torch.float32)
         self.last_act = _ACTS[last_act]
 
@@ -110,10 +115,10 @@ class DualBranchEncoder(nn.Module):
 
     def __init__(self, in_ch: int, feature_reduce: int = 4,
                  dtype: Optional[torch.dtype] = None, conv_s2: bool = False,
-                 conv_nl: bool = False):
+                 conv_nl: bool = False, dropout: Optional[float] = None):
         super().__init__()
         self.general_encoder = Encoder(in_ch, feature_reduce, "relu", dtype, conv_s2,
-                                       conv_nl)
+                                       conv_nl, dropout)
         self.code_decoupler = code_decoupler(512 // feature_reduce)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,42 +3,55 @@ augmentation.
 
 Counterpart of the training surface of the JAX package's
 ``train/cooperative.py:CooperativeTripletSolver``: ``standard_training``,
-``_frozen_decoder_fn``, ``hard_example_generation`` (its default arm),
+``_frozen_decoder_fn``, ``hard_example_generation`` (with its
+``SALIENCY_BN_UPDATE=1`` arm as the ``saliency_bn_update`` keyword),
 ``hard_example_training`` and the sequential loss path of
-``make_train_step`` with ``separate_training=False`` (the configuration's;
-the STN's loss trains the FTN through its prediction).  One :meth:`CooperativeTrainer.train_step` is one
-jitted JAX step: input noise and clip, the four standard losses (BN
-running statistics updated), hard-example generation by latent masking
-through frozen decoders, the four hard losses (BN statistics frozen), one
-backward over the sum and one Adam update of all five subnetworks.
+``make_train_step``, for every configuration its ``cli/train.py`` accepts:
+the three network types, ``separate_training`` (the STN's input detached,
+so its loss does not train the FTN), layer dropout and ``remat``.  One
+:meth:`CooperativeTrainer.train_step` is one jitted JAX step: input noise
+and clip, the four standard losses (BN running statistics updated),
+hard-example generation by latent masking through frozen decoders, the
+four hard losses (BN statistics frozen), one backward over the sum and one
+Adam update of all five subnetworks.
 
 Layouts: :meth:`~CooperativeTrainer.train_step` takes the JAX batch
 layout, an (N, H, W, 1) float32 image and (N, H, W) integer labels; the
 other methods take NCHW tensors.  Random draws come in as a
 :class:`..train.draws.StepDraws`.
+
+Every module forward of a step goes through :meth:`CooperativeTrainer.
+_module_call` (the predictor's ``module_call`` hook): it hands the module
+its dropout masks, the next ones of ``StepDraws.dropout``, and with
+``remat`` wraps the forward in ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint`` around each submodule apply), the recompute
+running with BN statistics frozen so that they move once, as the JAX
+package's pure recompute leaves them.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
     LatentDAConfig,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.convert import TrainState
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
+    ResCore,
+    dropout_masks,
     frozen_stats,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
     Conv,
     full_f32,
 )
-from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.image import one_hot
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.losses import (
     cross_entropy_2d,
 )
@@ -74,35 +87,111 @@ class CooperativeTrainer:
     ``latent_da``: the latent DA configuration (None trains without hard
     examples).  ``compute_dtype``, ``device`` (``"cuda"`` unless the caller
     asks for ``"cpu"``), ``seed``, ``conv_s2`` (the JAX package's
-    ``PALLAS_CONV_S2``: the encoders' stride-2 downsamples on kernel K4) and
+    ``PALLAS_CONV_S2``: the encoders' stride-2 downsamples on kernel K4),
     ``conv_nl`` (its ``PALLAS_CONV_NL``: the residual stages' large-channel
-    3x3 convs on kernel K5) are the predictor's.
+    3x3 convs on kernel K5), ``network_type``, ``encoder_dropout`` and
+    ``decoder_dropout`` are the predictor's.  ``separate_training``: the
+    STN reads the FTN's prediction detached, in the standard and the hard
+    pass.  ``remat``: rematerialise each module forward in the backward.
+    ``saliency_bn_update``: each perturbed code's decoder also runs once on
+    the unmasked code with its BN statistics tracked, kept where the branch
+    was targeted (the JAX package's ``SALIENCY_BN_UPDATE=1``, the
+    reference's raw train-mode saliency forward).
     """
 
     def __init__(self, latent_da: Optional[LatentDAConfig], *, input_noise_std: float = 0.05,
                  learning_rate: float = 1e-4, compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
                  image_ch: int = 1, num_classes: int = 4, temperature: float = 2.0,
-                 conv_s2: bool = False, conv_nl: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False,
+                 network_type: str = "FCN_16_standard",
+                 encoder_dropout: Optional[float] = None,
+                 decoder_dropout: Optional[float] = None, separate_training: bool = False,
+                 remat: bool = False, saliency_bn_update: bool = False):
         self.model = CooperativePredictor(image_ch=image_ch, num_classes=num_classes,
                                           temperature=temperature,
                                           compute_dtype=compute_dtype, device=device,
-                                          seed=seed, conv_s2=conv_s2, conv_nl=conv_nl)
+                                          seed=seed, conv_s2=conv_s2, conv_nl=conv_nl,
+                                          network_type=network_type,
+                                          encoder_dropout=encoder_dropout,
+                                          decoder_dropout=decoder_dropout)
         self.model.train()
         self.latent_da = latent_da
         self.input_noise_std = input_noise_std
         self.num_classes = num_classes
+        self.separate_training = separate_training
+        self.remat = remat
+        self.saliency_bn_update = saliency_bn_update
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=learning_rate)
         # the last step's generation per code ("image", "shape"), for checks
         self.generation: Dict[str, Generation] = {}
+        # {module: (rate, the channels of each of its dropout sites in forward
+        # order)} for the modules with layer dropout: what
+        # draw_step(dropout_sites=...) draws masks for
+        self.dropout_sites = self._dropout_sites(self.model)
+        self._masks: List[torch.Tensor] = []
+        self._used = 0
 
     @property
     def use_latent_da(self) -> bool:
         lda = self.latent_da
         return lda is not None and (lda.gen_corrupted_image or lda.gen_corrupted_seg)
 
+    @staticmethod
+    def _dropout_sites(model: CooperativePredictor) -> Dict[str, Tuple[float, List[int]]]:
+        out = {}
+        for name in MODULE_NAMES:
+            cores = [c for c in getattr(model, name).modules()
+                     if isinstance(c, ResCore) and c.dropout is not None]
+            if cores:
+                out[name] = (cores[0].dropout, [c.conv_input.weight.shape[0] for c in cores])
+        return out
+
+    def draw_kwargs(self) -> Dict[str, object]:
+        """The keywords of ``draw_step`` this trainer's steps need (none on
+        the main path)."""
+        kw: Dict[str, object] = {}
+        if self.dropout_sites:
+            kw["dropout_sites"] = self.dropout_sites
+        if self.saliency_bn_update:
+            kw["saliency_bn_update"] = True
+        return kw
+
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), device=next(self.model.parameters()).device)
+
+    # ------------------------------------------------------ module forwards
+    def _take_masks(self, name: str) -> List[torch.Tensor]:
+        """The next dropout masks of the step, as many as ``name`` has sites."""
+        sites = self.dropout_sites.get(name)
+        if sites is None:
+            return []
+        k = len(sites[1])
+        if self._used + k > len(self._masks):
+            raise RuntimeError(f"dropout: the step's {len(self._masks)} keep masks ran out at "
+                               f"a forward of {name}")
+        masks = self._masks[self._used:self._used + k]
+        self._used += k
+        return masks
+
+    def _module_call(self, name: str, x: torch.Tensor):
+        """One module forward of the loss graph: its dropout masks and,
+        with ``remat`` where a gradient is taken, the checkpointed forward
+        whose recompute leaves the BN statistics alone."""
+        module = getattr(self.model, name)
+        masks = self._take_masks(name)
+        if not (self.remat and torch.is_grad_enabled()):
+            with dropout_masks(masks):
+                return module(x)
+        calls = []
+
+        def fwd(x):
+            calls.append(1)
+            with (frozen_stats(module) if len(calls) > 1 else contextlib.nullcontext()), \
+                    dropout_masks(masks):
+                return module(x)
+
+        return checkpoint(fwd, x, use_reentrant=False)
 
     # ------------------------------------------------------------ losses
     def standard_training(self, clean: torch.Tensor, label: torch.Tensor,
@@ -116,23 +205,24 @@ class CooperativeTrainer:
         with contextlib.nullcontext() if update_stats else frozen_stats(m):
             (z_i, z_s), y0 = m.fast_predict(perturbed)
             seg = cross_entropy_2d(y0, label)
-            image = 0.5 * torch.mean((m.image_decoder(z_i) - clean) ** 2)
+            image = 0.5 * torch.mean((m.decode_image(z_i) - clean) ** 2)
             gt_shape = self._zero()
             if compute_gt_recon:
-                gt_recon = m.decode_shape(m.shape_encoder(one_hot(label, self.num_classes)))
-                gt_shape = cross_entropy_2d(gt_recon, label)
-            shape = cross_entropy_2d(m.recon_shape(y0), label)
+                gt_shape = cross_entropy_2d(m.decode_shape(m.encode_label(label)), label)
+            y0_in = y0.detach() if self.separate_training else y0
+            shape = cross_entropy_2d(m.recon_shape(y0_in), label)
         return {"seg": seg, "image": image, "gt_shape": gt_shape, "shape": shape}, (z_i, z_s)
 
     def _frozen_decoder(self, name: str):
         """The decoder ``name`` with detached parameters (no parameter
         gradient, so no K2 launch and no ``.grad``) and frozen BN
-        statistics: the JAX package's ``_frozen_decoder_fn``."""
+        statistics: the JAX package's ``_frozen_decoder_fn``.  Each call
+        takes its own dropout masks."""
         module = getattr(self.model, name)
         frozen = {k: v.detach() for k, v in module.named_parameters()}
 
         def fn(z: torch.Tensor) -> torch.Tensor:
-            with frozen_stats(module):
+            with frozen_stats(module), dropout_masks(self._take_masks(name)):
                 return functional_call(module, frozen, (z,))
 
         return fn
@@ -159,8 +249,21 @@ class CooperativeTrainer:
                 code.detach(), dec, target, settings, code_draws, self.num_classes)
             with torch.no_grad():
                 perturbed[key] = dec(masked)
+            if self.saliency_bn_update:
+                self._saliency_stats(decoder, code.detach(), code_draws.branch)
             self.generation[key] = Generation(code_draws.branch, mask, saliency)
         return perturbed["image"], perturbed["shape"]
+
+    @torch.no_grad()
+    def _saliency_stats(self, name: str, code: torch.Tensor, branch: int) -> None:
+        """The ``saliency_bn_update`` arm: the decoder ``name`` once on the
+        unmasked code in train mode, its BN running statistics moved where
+        ``branch`` was targeted (a dropout branch runs no saliency forward),
+        its dropout masks taken either way."""
+        module = getattr(self.model, name)
+        with (contextlib.nullcontext() if branch != 0 else frozen_stats(module)), \
+                dropout_masks(self._take_masks(name)):
+            module(code)
 
     def hard_example_training(self, perturbed_image: Optional[torch.Tensor],
                               clean: torch.Tensor, perturbed_seg: Optional[torch.Tensor],
@@ -185,11 +288,33 @@ class CooperativeTrainer:
         """One cooperative step on an (N, H, W, 1) float32 image and (N, H,
         W) integer labels with ``draws`` (on the model's device).  Returns
         the JAX step's metrics under its keys, as 0-d device tensors; reads
-        nothing back to the host."""
+        nothing back to the host.  With layer dropout the step uses every
+        mask of ``draws.dropout`` (``RuntimeError`` otherwise)."""
         clean = image.permute(0, 3, 1, 2).contiguous()
         label = label.long()
         noised = torch.clamp(clean + self.input_noise_std * draws.noise, 0.0, 1.0)
         self.optimizer.zero_grad(set_to_none=True)
+        if self.dropout_sites and draws.dropout is None:
+            raise RuntimeError("layer dropout: the step's draws carry no keep masks "
+                               "(draw_step(dropout_sites=trainer.dropout_sites))")
+        self._masks, self._used = list(draws.dropout or []), 0
+        self.model.module_call = self._module_call
+        try:
+            total, metrics = self._losses(clean, label, noised, draws)
+        finally:
+            self.model.module_call = None
+        if self._used != len(self._masks):
+            raise RuntimeError(f"dropout: the step used {self._used} of its "
+                               f"{len(self._masks)} keep masks")
+        with full_f32(torch.float32):  # the backward of the f32 cuDNN convs, too
+            total.backward()
+        for p in self.model.parameters():
+            if p.grad is None:  # a module the loss does not reach (the code
+                p.grad = torch.zeros_like(p)  # decoupler without a filter): optax's zero step
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _losses(self, clean, label, noised, draws):
         std, (z_i, z_s) = self.standard_training(clean, label, noised)
         standard = std["seg"] + std["image"] + std["shape"] + std["gt_shape"]
         metrics = {
@@ -215,10 +340,7 @@ class CooperativeTrainer:
                 "loss/hard/total", "loss/hard/seg", "loss/hard/image", "loss/hard/shape")})
         total = standard + hard_loss
         metrics["loss/total"] = total
-        with full_f32(torch.float32):  # the backward of the f32 cuDNN convs, too
-            total.backward()
-        self.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return total, metrics
 
     # ------------------------------------------------------------- state
     def load_train_state(self, state: TrainState) -> None:
@@ -273,7 +395,11 @@ class CooperativeTrainer:
         and K4dw once per encoder pass: its input comes after the encoder's
         ``inc`` block, so it always needs a gradient, and generation runs no
         encoder.  The image encoder runs once per FTN pass, the shape
-        encoder once per recon."""
+        encoder once per recon.  Under ``separate_training`` a predicted
+        recon's first conv launches no dx.  ``saliency_bn_update`` adds one forward of
+        each perturbed code's decoder; ``remat`` one more forward (K1, K4,
+        K5) of every conv of the loss graph, its recompute in the
+        backward."""
         m = self.model
         lda = self.latent_da
 
@@ -288,23 +414,28 @@ class CooperativeTrainer:
             shp_first = int(uses(m.shape_encoder.inc[0]))
             ftn = k["image_encoder"] + k["segmentation_decoder"] + k["image_decoder"]
             stn = k["shape_encoder"] + k["shape_decoder"]
+            # a predicted recon's first conv reads the FTN's prediction,
+            # which needs no gradient under separate_training
+            pred = stn - shp_first * self.separate_training
             # standard pass: FTN, ground-truth recon, predicted recon
             fwd = ftn + 2 * stn
-            dx = (ftn - img_first) + (stn - shp_first) + stn
+            dx = (ftn - img_first) + (stn - shp_first) + pred
             if self.use_latent_da:
                 if lda.gen_corrupted_image:  # hard FTN + its predicted recon
                     fwd += ftn + stn
-                    dx += (ftn - img_first) + stn
+                    dx += (ftn - img_first) + pred
                 if lda.gen_corrupted_seg:    # recon of the perturbed segmentation
                     fwd += stn
                     dx += stn - shp_first
             dw = fwd
+            if self.remat:
+                fwd += dw
             if self.use_latent_da:
                 for key, on, dec in (("image", lda.gen_corrupted_image, "image_decoder"),
                                      ("shape", lda.gen_corrupted_seg, "segmentation_decoder")):
                     if on:
                         targeted = branches[key] != 0
-                        fwd += k[dec] * (2 if targeted else 1)
+                        fwd += k[dec] * (1 + targeted + self.saliency_bn_update)
                         dx += k[dec] if targeted else 0
             return fwd, dx, dw
 
@@ -318,6 +449,6 @@ class CooperativeTrainer:
         s2 = ftn_passes * k4["image_encoder"] + recons * k4["shape_encoder"]
         k1, k5 = stride1(Conv.uses_k1), stride1(Conv.uses_k5)
         return {"conv3x3_chw": k1[0], "conv3x3_chw_dx": k1[1], "conv3x3_chw_dw": k1[2],
-                "percentile_mask": mask, "conv3x3s2": s2, "conv3x3s2_dx": s2,
+                "percentile_mask": mask, "conv3x3s2": s2 * (1 + self.remat), "conv3x3s2_dx": s2,
                 "conv3x3s2_dw": s2, "conv3x3_nl": k5[0], "conv3x3_nl_dx": k5[1],
                 "conv3x3_nl_dw": k5[2]}

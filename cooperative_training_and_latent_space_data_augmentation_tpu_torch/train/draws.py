@@ -7,12 +7,17 @@ made by :func:`draw_step` from an explicit ``torch.Generator`` (tests
 replay the JAX key schedule into one, so both packages see the same
 numbers).  Branch choices are Python ints drawn on the host, so the step
 takes its branch without waiting for the device.
+
+Layer dropout's keep masks are operands too: one (N, C) mask for every
+dropout site of every module forward of the step, in the order the step
+runs them (:func:`forward_plan`), where the JAX package folds a per-forward
+counter into a third key (``cooperative.py:82-115,611-612``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -48,17 +53,61 @@ class CodeDraws:
 @dataclass
 class StepDraws:
     """Draws of one train step: ``noise`` (N, 1, H, W) standard normal
-    (the step scales it by its noise std), and the image and shape codes'
-    :class:`CodeDraws` (None where latent DA leaves the code alone)."""
+    (the step scales it by its noise std), the image and shape codes'
+    :class:`CodeDraws` (None where latent DA leaves the code alone), and
+    ``dropout``, the layer-dropout keep masks ((N, C) 0/1 float32, in the
+    step's forward order; None without layer dropout)."""
 
     noise: torch.Tensor
     image: Optional[CodeDraws] = None
     shape: Optional[CodeDraws] = None
+    dropout: Optional[List[torch.Tensor]] = None
 
     def to(self, device) -> "StepDraws":
         return StepDraws(self.noise.to(device),
                          None if self.image is None else self.image.to(device),
-                         None if self.shape is None else self.shape.to(device))
+                         None if self.shape is None else self.shape.to(device),
+                         None if self.dropout is None else [m.to(device) for m in self.dropout])
+
+
+def forward_plan(latent_da: Optional[LatentDAConfig], branches: Dict[str, int],
+                 saliency_bn_update: bool = False) -> List[str]:
+    """The module forwards of one train step, by module name, in the order
+    the step runs them (the JAX package's trace order): the standard pass
+    (FTN, ground-truth recon, predicted recon); per perturbed code (image,
+    then shape; ``branches`` {"image": b, "shape": b}) the decoder's
+    saliency forward (targeted branches only), its decode of the masked
+    code and, with ``saliency_bn_update``, its forward on the unmasked
+    code; then the hard pass (FTN and the recon of its prediction on the
+    hard image; the recon of the perturbed segmentation)."""
+    ftn = ["image_encoder", "segmentation_decoder", "image_decoder"]
+    stn = ["shape_encoder", "shape_decoder"]
+    plan = ftn + stn + stn
+    if latent_da is None or not (latent_da.gen_corrupted_image or latent_da.gen_corrupted_seg):
+        return plan
+    codes = (("image", latent_da.gen_corrupted_image, "image_decoder"),
+             ("shape", latent_da.gen_corrupted_seg, "segmentation_decoder"))
+    for key, on, decoder in codes:
+        if on:
+            plan += [decoder] * ((branches[key] != 0) + 1 + saliency_bn_update)
+    if latent_da.gen_corrupted_image:
+        plan += ftn + stn
+    if latent_da.gen_corrupted_seg:
+        plan += stn
+    return plan
+
+
+def draw_dropout(generator: torch.Generator, n: int, plan: Sequence[str],
+                 sites: Dict[str, Tuple[float, Sequence[int]]]) -> List[torch.Tensor]:
+    """Keep masks for the forwards of ``plan``: for a module with
+    ``sites[name] = (rate, channels)``, one (n, c) ``bernoulli(1 - rate)``
+    mask per channel count, in order."""
+    masks = []
+    for name in plan:
+        rate, channels = sites.get(name, (None, ()))
+        for c in channels:
+            masks.append(torch.bernoulli(torch.full((n, c), 1.0 - rate), generator=generator))
+    return masks
 
 
 def draw_code(generator: torch.Generator, cfg: MaskConfig, n: int, c: int,
@@ -96,11 +145,15 @@ def _check_host(generator: torch.Generator) -> None:
 
 def draw_step(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
               latent_da: Optional[LatentDAConfig], latent_ch: int = 128,
-              image_ch: int = 1, device: Union[str, torch.device, None] = None
-              ) -> StepDraws:
+              image_ch: int = 1, device: Union[str, torch.device, None] = None,
+              dropout_sites: Optional[Dict[str, Tuple[float, Sequence[int]]]] = None,
+              saliency_bn_update: bool = False) -> StepDraws:
     """The draws of one step for a batch of ``n`` images of ``image_hw``
     (latent (latent_ch, H/16, W/16)) from a CPU ``generator``, moved to
-    ``device`` (default: left on the CPU)."""
+    ``device`` (default: left on the CPU).  ``dropout_sites`` ({module:
+    (rate, channels of its dropout sites)}, the trainer's
+    ``dropout_sites``) adds the layer-dropout masks of the step's
+    :func:`forward_plan`."""
     _check_host(generator)
     h, w = image_hw
     latent_hw = (h // 16, w // 16)
@@ -110,5 +163,10 @@ def draw_step(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
         image = draw_code(generator, latent_da.image_code, n, latent_ch, latent_hw)
     if latent_da is not None and latent_da.gen_corrupted_seg:
         shape = draw_code(generator, latent_da.shape_code, n, latent_ch, latent_hw)
-    draws = StepDraws(noise, image, shape)
+    masks = None
+    if dropout_sites:
+        branches = {k: c.branch for k, c in (("image", image), ("shape", shape)) if c is not None}
+        masks = draw_dropout(generator, n, forward_plan(latent_da, branches, saliency_bn_update),
+                             dropout_sites)
+    draws = StepDraws(noise, image, shape, masks)
     return draws if device is None else draws.to(device)

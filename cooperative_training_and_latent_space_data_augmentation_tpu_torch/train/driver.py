@@ -13,8 +13,9 @@ and orbax checkpoints are left out.
 Random draws come from a draw source, where the JAX package splits keys:
 an object with ``augment(epoch, policy, n, pad_hw)``, the next batch's
 :class:`..ops.augment.AugmentDraws` for ``n`` raw samples of ``epoch``, and
-``step(n, hw, latent_da)``, the next step's :class:`..train.draws.
-StepDraws`.  The default, :class:`GeneratorDraws`, draws both from one CPU
+``step(n, hw, latent_da, **kw)``, the next step's :class:`..train.draws.
+StepDraws` (``kw``: the trainer's ``draw_kwargs()``, empty on the main
+path).  The default, :class:`GeneratorDraws`, draws both from one CPU
 ``torch.Generator`` seeded ``seed + 1``; the loop moves the draws to the
 trainer's device.  (The JAX package splits an epoch key off ``PRNGKey(seed
 + 1)`` each epoch and each batch's key off it, and each step's key off
@@ -100,8 +101,8 @@ class GeneratorDraws:
     def augment(self, epoch: int, policy, n: int, pad_hw):
         return draw_augment(self.generator, policy, n, pad_hw)
 
-    def step(self, n: int, hw, latent_da):
-        return draw_step(self.generator, n, hw, latent_da)
+    def step(self, n: int, hw, latent_da, **kw):
+        return draw_step(self.generator, n, hw, latent_da, **kw)
 
 
 class _OnDevice:
@@ -122,8 +123,8 @@ class _OnDevice:
     def augment(self, epoch, policy, n, pad_hw):
         return self._timed(self.source.augment, epoch, policy, n, pad_hw)
 
-    def step(self, n, hw, latent_da):
-        return self._timed(self.source.step, n, hw, latent_da)
+    def step(self, n, hw, latent_da, **kw):
+        return self._timed(partial(self.source.step, **kw), n, hw, latent_da)
 
 
 def eval_dispatch(model: CooperativePredictor, eval_batcher: EvalBatcher,
@@ -220,6 +221,7 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     stop_flag = False
     n_epochs = max_epochs if max_epochs is not None else learning.n_epochs
     network = trainer.model.network_type
+    draw_kw = trainer.draw_kwargs()
     try:
         for i_epoch in range(start_epoch, n_epochs):
             if stop_flag:
@@ -231,7 +233,7 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
                 if stop_flag:
                     break
                 step_draws = source.step(batch["image"].shape[0], data_cfg.crop_hw,
-                                         trainer.latent_da)
+                                         trainer.latent_da, **draw_kw)
                 step_metrics.append(trainer.train_step(batch["image"], batch["label"],
                                                        step_draws))
                 branches.append(_branches(step_draws))

@@ -6,6 +6,10 @@ Counterpart of the eval-mode surface of the JAX package's
 ``encode_shape``, ``decode_shape``, ``recon_shape``, ``predict`` and
 ``slow_refinement``.
 
+Every module forward of the building blocks goes through
+:meth:`CooperativePredictor.run`, where a train step hooks in
+(``module_call``: dropout masks, rematerialisation).
+
 Layouts: ``predict`` and ``slow_refinement`` keep the JAX layout, NHWC
 (B, H, W, C) float32 in and out.  The building blocks in between
 (``encode_image`` ... ``recon_shape``) take and return NCHW tensors, the
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -33,6 +37,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.en
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import Conv
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.image import (
     construct_input,
+    one_hot,
 )
 
 MODULE_NAMES = (
@@ -41,6 +46,12 @@ MODULE_NAMES = (
     "shape_encoder",
     "shape_decoder",
     "image_decoder",
+)
+
+NETWORK_TYPES = (
+    "FCN_16_standard",
+    "FCN_16_standard_share_code",  # ablation: z_i := z_s
+    "FCN_16_standard_w_o_filter",  # ablation: z_s := z_i
 )
 
 
@@ -53,9 +64,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class CooperativePredictor(nn.Module):
-    """The five subnetworks of the cooperative solver (the FCN_16_standard
-    plan; the JAX package's two ablation variants are not ported), in eval
-    mode, on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
+    """The five subnetworks of the cooperative solver, in eval mode, on
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
+
+    ``network_type``: one of :data:`NETWORK_TYPES`, the FCN_16 plan and the
+    JAX package's two ablations, which share the modules and differ in
+    :meth:`encode_image` only: ``_share_code`` decodes the image from the
+    filtered code (z_i := z_s), ``_w_o_filter`` segments from the unfiltered
+    one (z_s := z_i).  ``encoder_dropout``, ``decoder_dropout``: the rates of
+    the channel dropout after each residual stage of the encoders and of
+    the decoders (None: none), active in train mode only.
 
     ``compute_dtype``: the conv stacks' dtype (``torch.bfloat16`` on the
     card; None keeps float32).  ``conv_s2``: the JAX package's
@@ -74,23 +92,29 @@ class CooperativePredictor(nn.Module):
     (the JAX package's ``train=False``), whatever mode the modules are in.
     """
 
-    network_type = "FCN_16_standard"
-
     def __init__(self, image_ch: int = 1, num_classes: int = 4, n_iter: int = 1,
                  temperature: float = 2.0, compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
-                 conv_s2: bool = False, conv_nl: bool = False):
+                 conv_s2: bool = False, conv_nl: bool = False,
+                 network_type: str = "FCN_16_standard",
+                 encoder_dropout: Optional[float] = None,
+                 decoder_dropout: Optional[float] = None):
         super().__init__()
+        if network_type not in NETWORK_TYPES:
+            raise ValueError(f"network_type {network_type!r}: not one of {NETWORK_TYPES}")
+        self.network_type = network_type
         self.num_classes = num_classes
         self.n_iter = n_iter
         self.temperature = temperature
         f = 4  # FCN_16: feature_reduce 4
-        dt = compute_dtype
-        self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2, conv_nl)
-        self.segmentation_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl)
-        self.shape_encoder = Encoder(num_classes, f, "relu", dt, conv_s2, conv_nl)
-        self.shape_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl)
-        self.image_decoder = Decoder(image_ch, f, "Conv2", "sigmoid", dt, conv_nl)
+        dt, ed, dd = compute_dtype, encoder_dropout, decoder_dropout
+        self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2, conv_nl, ed)
+        self.segmentation_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl, dd)
+        self.shape_encoder = Encoder(num_classes, f, "relu", dt, conv_s2, conv_nl, ed)
+        self.shape_decoder = Decoder(num_classes, f, "NN", None, dt, conv_nl, dd)
+        self.image_decoder = Decoder(image_ch, f, "Conv2", "sigmoid", dt, conv_nl, dd)
+        # a train step's hook around each module forward: (name, x) -> output
+        self.module_call: Optional[Callable] = None
         init_parameters(self, seed)
         self.to(device)
         self.eval()
@@ -105,12 +129,27 @@ class CooperativePredictor(nn.Module):
             getattr(self, name).load_state_dict(state_dicts[name])
 
     # --------------------------------------------------- NCHW building blocks
+    def run(self, name: str, x: torch.Tensor):
+        """The module ``name`` on ``x``, through ``module_call`` when a train
+        step has set it."""
+        if self.module_call is not None:
+            return self.module_call(name, x)
+        return getattr(self, name)(x)
+
     def encode_image(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(z_i, z_s)."""
-        return self.image_encoder(x)
+        """(z_i, z_s), with the network type's code sharing."""
+        z_i, z_s = self.run("image_encoder", x)
+        if self.network_type == "FCN_16_standard_share_code":
+            z_i = z_s
+        elif self.network_type == "FCN_16_standard_w_o_filter":
+            z_s = z_i
+        return z_i, z_s
 
     def decode_segmentation(self, z_s: torch.Tensor) -> torch.Tensor:
-        return self.segmentation_decoder(z_s)
+        return self.run("segmentation_decoder", z_s)
+
+    def decode_image(self, z_i: torch.Tensor) -> torch.Tensor:
+        return self.run("image_decoder", z_i)
 
     def fast_predict(self, x: torch.Tensor):
         """((z_i, z_s), y0): the FTN forward."""
@@ -118,10 +157,14 @@ class CooperativePredictor(nn.Module):
         return (z_i, z_s), self.decode_segmentation(z_s)
 
     def encode_shape(self, logits: torch.Tensor) -> torch.Tensor:
-        return self.shape_encoder(construct_input(logits, self.temperature))
+        return self.run("shape_encoder", construct_input(logits, self.temperature))
+
+    def encode_label(self, labels: torch.Tensor) -> torch.Tensor:
+        """The STN encoder on (N, H, W) integer labels, one-hot."""
+        return self.run("shape_encoder", one_hot(labels, self.num_classes))
 
     def decode_shape(self, z: torch.Tensor) -> torch.Tensor:
-        return self.shape_decoder(z)
+        return self.run("shape_decoder", z)
 
     def recon_shape(self, logits: torch.Tensor) -> torch.Tensor:
         """STN refinement S -> STN(softmax(S / T))."""
@@ -197,6 +240,25 @@ class CooperativePredictor(nn.Module):
 # by 1 / 0.87962566..., the std of that truncated unit normal, so that the
 # variance stays 2 / fan_in (jax.nn.initializers.variance_scaling)
 TRUNC_STD = 0.87962566103423978
+TRUNC_CUT = 2.0
+
+
+def _unit_normal(gen: torch.Generator, shape, cut: Optional[float] = None) -> torch.Tensor:
+    """Float64 unit normals by the inverse CDF of float64 uniforms from the
+    CPU generator ``gen``, truncated to [-cut, cut] when ``cut`` is given.
+
+    Written out here rather than taken from ``torch.nn.init.trunc_normal_``
+    or ``torch.randn``, whose algorithms change between torch releases (a
+    rejection sampler in one, an inverse CDF in another): a seed gives the
+    same numbers under every torch version, so a model drawn on one machine
+    equals the one drawn on another."""
+    lo = 0.0 if cut is None else 0.5 * (1.0 + math.erf(-cut / math.sqrt(2.0)))
+    hi = 1.0 if cut is None else 0.5 * (1.0 + math.erf(cut / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    # keep 2 v - 1 inside (-1, 1): erfinv(-1) is -inf
+    v = (lo + (hi - lo) * u).clamp(1e-300, 1.0 - 2.0 ** -53)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * v - 1.0)
+    return z if cut is None else z.clamp(-cut, cut)
 
 
 @torch.no_grad()
@@ -208,7 +270,9 @@ def init_parameters(model: nn.Module, seed: int) -> None:
     variance is 2 / fan_in and no weight exceeds 2.274 sqrt(2 / fan_in)
     (fan_in = C_in kh kw for both: flax reads a transposed kernel's
     (kh, kw, C_in, C_out) with ``in_axis=-2``); zero biases; BN scale
-    1 + 0.02 N(0, 1), BN bias 0, running mean 0 and variance 1."""
+    1 + 0.02 N(0, 1), BN bias 0, running mean 0 and variance 1.  The
+    normals come from :func:`_unit_normal`, so a seed gives the same
+    weights under any torch version."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (Conv, ConvTranspose2x2)):
@@ -216,12 +280,10 @@ def init_parameters(model: nn.Module, seed: int) -> None:
             fan_in = (w.shape[0] if isinstance(m, ConvTranspose2x2) else w.shape[1]) \
                 * w.shape[2] * w.shape[3]
             std = math.sqrt(2.0 / fan_in) / TRUNC_STD
-            draw = torch.empty(w.shape)
-            torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-            w.copy_(draw)
+            w.copy_(std * _unit_normal(gen, w.shape, TRUNC_CUT))
             m.bias.zero_()
         elif isinstance(m, BatchNorm):
-            m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape, generator=gen))
+            m.weight.copy_(1.0 + 0.02 * _unit_normal(gen, m.weight.shape))
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)

@@ -13,8 +13,12 @@ launch counts, the profile scripts' device busy without
 ``record_function`` ranges, and the predictor and the train step on the
 card against the CPU, with the default route, with ``conv_s2=True`` and
 with ``conv_nl=True``; the training augmentation pipeline and its warp
-on the card against the CPU on the same draws; and the ACDC-C corruptions
-and their generator on the card against the CPU.
+on the card against the CPU on the same draws; the ACDC-C corruptions
+and their generator on the card against the CPU; ``cli.train``'s start at
+seed 40 against the numbers recorded on the CPU of a machine without a
+card; and the step's other configurations (``separate_training``, the
+two ablation network types, layer dropout, ``remat``, the saliency-BN
+arm) on the card against the CPU.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -1413,3 +1417,114 @@ def test_loop_first_batch_and_step_on_card_match_cpu(cuda):
     assert (card["label"] != cpu["label"]).float().mean().item() <= smoke.AUG_MAX_UNSURE
     for k, v in cpu["losses"].items():
         assert abs(card["losses"][k] - v) <= 1e-3 * abs(v), (k, card["losses"][k], v)
+
+
+# what cli/fingerprint.py printed for ``cli.train --synthetic --seed 40``
+# on the CPU of the machine without a card (torch 2.13, float32): the
+# initial weights per module [sum, sum of magnitudes], the loop's first
+# batch and its draws, and the printed total loss of epoch 0
+SEED40_FINGERPRINT = {
+    "weights": {
+        "image_encoder": [1174.6895386615265, 47123.90627765826],
+        "segmentation_decoder": [250.83442858121276, 8428.824090746222],
+        "shape_encoder": [891.244073824254, 36820.035105427545],
+        "shape_decoder": [275.2300761273185, 8412.937298341498],
+        "image_decoder": [228.19469987941488, 13517.991796717994]},
+    "batch": {"image_sum": 405823.92228704784, "image_sq_sum": 264139.75596719305,
+              "label_counts": [660856, 15348, 17525, 43551]},
+    "augment_draws": {
+        "flip_h": 4.783311486244202, "flip_v": 5.672303020954132,
+        "contrast": 4.70240718126297, "brightness": 5.855767846107483,
+        "rotation": 4.08722859621048, "shift_y": 4.724246621131897,
+        "shift_x": 5.42367559671402, "shear": 6.553830981254578, "zoom": 4.454823434352875,
+        "group": 45.0, "elastic_alpha": 4.129169523715973,
+        "elastic_sigma": 5.670035779476166, "elastic_dx": 251031.32354009151,
+        "elastic_dy": 251061.2032110095, "gate_intensity": 5.7052541971206665,
+        "gate_elastic": 4.536974132061005},
+    "step_draws": {"noise": -877.4557992038802, "image.branch": 0, "image.keep": 1297.0,
+                   "shape.branch": 2, "shape.p": 0.3797607123851776,
+                   "shape.soft": 622.9784609973431},
+    "epoch0_total": 17.236066818237305,
+}
+EPOCH0_RTOL = 1e-2
+
+
+def test_seed40_start_on_card_equals_the_cpu_run(cuda):
+    """``cli.train --synthetic --bf16 --seed 40`` on the card starts where
+    the same command starts on the CPU of a machine with another torch
+    release: the initial weights' sums within 1e-9 (relative), the draws'
+    sums equal (the same CPU generator), the first batch's image sums
+    within 1e-6 (the card's augmentation is within 3e-5 a pixel of the
+    CPU's) and its label counts within 0.1 % of each class, and epoch 0's
+    printed total loss, on the hand kernels in bf16, within EPOCH0_RTOL =
+    1e-2 of the CPU's float32 one (measured: 17.259 against 17.236)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.fingerprint import (
+        fingerprint,
+    )
+
+    want = SEED40_FINGERPRINT
+    got = fingerprint(seed=40, epochs=1, bf16=True, device="cuda")
+    for name, (s, a) in want["weights"].items():
+        assert got["weights"][name][0] == pytest.approx(s, rel=1e-9, abs=1e-9), name
+        assert got["weights"][name][1] == pytest.approx(a, rel=1e-9), name
+    for group in ("augment_draws", "step_draws"):
+        assert set(got[group]) == set(want[group]), group
+        for k, v in want[group].items():
+            assert got[group][k] == pytest.approx(v, rel=1e-12, abs=1e-12), (group, k)
+    for k in ("image_sum", "image_sq_sum"):
+        assert got["batch"][k] == pytest.approx(want["batch"][k], rel=1e-6), k
+    for g, w in zip(got["batch"]["label_counts"], want["batch"]["label_counts"]):
+        assert abs(g - w) <= 1e-3 * w
+    assert got["epochs"][0]["total"] == pytest.approx(want["epoch0_total"], rel=EPOCH0_RTOL)
+
+
+# the configurations of the step beside the main path's (trainer keywords)
+STEP_VARIANTS = {
+    "separate_training": {"separate_training": True},
+    "share_code": {"network_type": "FCN_16_standard_share_code"},
+    "w_o_filter": {"network_type": "FCN_16_standard_w_o_filter"},
+    "dropout": {"encoder_dropout": 0.3, "decoder_dropout": 0.2},
+    "remat": {"remat": True},
+    "saliency_bn_update": {"saliency_bn_update": True},
+}
+
+
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+def test_train_step_variant_on_card_matches_cpu(cuda, variant):
+    """An f32 step of each configuration on the card against the plain path
+    on the CPU, held as test_train_step_nl_on_card_matches_cpu holds
+    ``conv_nl``'s (losses within 1e-4, Adam's first moments within twice
+    the CPU step's own move under a 1e-6 input move), and K1's, K1 dx's,
+    K2's and K3's launches equal to ``expected_launches`` (``remat``'s
+    recompute adds a K1 forward per conv of the loss graph)."""
+    kw = STEP_VARIANTS[variant]
+    lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                         shape_code=MaskConfig("ce", "spatial"))
+    plan = CooperativeTrainer(lda, device="cpu", **kw)
+    draws = draw_step(torch.Generator().manual_seed(0), 2, (64, 64), lda, **plan.draw_kwargs())
+    gen = torch.Generator().manual_seed(0)
+    image = torch.rand((2, 64, 64, 1), generator=gen)
+    label = torch.randint(0, 4, (2, 64, 64), generator=gen)
+
+    def step(device, x):
+        trainer = CooperativeTrainer(lda, device=device, seed=0, **kw)
+        metrics = trainer.train_step(x.to(device), label.to(device), draws.to(device))
+        mu, _ = trainer.adam_moments()
+        return metrics, torch.cat([v.detach().cpu().double().flatten()
+                                   for m in mu for v in mu[m].values()])
+
+    wrappers = (conv_chw.conv3x3_chw, conv_chw.conv3x3_chw_dx, conv_chw.conv3x3_chw_dw,
+                pmask.percentile_mask)
+    before = [f.launches for f in wrappers]
+    got, g_mu = step(cuda, image)
+    want_launches = plan.expected_launches({"image": draws.image.branch,
+                                            "shape": draws.shape.branch})
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        want_launches[k] for k in ("conv3x3_chw", "conv3x3_chw_dx", "conv3x3_chw_dw",
+                                   "percentile_mask")]
+    want, c_mu = step("cpu", image)
+    sign = torch.randint(0, 2, image.shape, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    _, m_mu = step("cpu", image * (1 + 1e-6 * sign))
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-7, k
+    assert (g_mu - c_mu).norm() <= 2 * (m_mu - c_mu).norm()

@@ -65,13 +65,12 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
+    JaxKeys,
     check_step_masks,
     jax_generation,
     jax_train_state,
     one_torch_thread,
     random_variables,
-    replay_augment_draws,
-    replay_draws,
 )
 
 from cooperative_training_and_latent_space_data_augmentation_tpu.config import (
@@ -277,31 +276,6 @@ def test_config_reads_the_reference_json():
 
 
 # ------------------------------------------------------------- the whole loop
-class JaxKeys:
-    """JAX's ``train_network`` key schedule as a draw source: an epoch key splits
-    off ``PRNGKey(seed + 1)`` at each epoch's first batch, each batch's key
-    off the epoch key, each step's key off ``PRNGKey(seed + 1)``; the
-    draws behind each key are replayed.  Keeps what it drew."""
-
-    def __init__(self, seed):
-        self.rng = jax.random.PRNGKey(seed + 1)
-        self.epoch = None
-        self.drawn, self.steps = [], []
-
-    def augment(self, epoch, policy, n, pad_hw):
-        if epoch != self.epoch:
-            self.rng, self.epoch_key = jax.random.split(self.rng)
-            self.epoch = epoch
-        self.epoch_key, key = jax.random.split(self.epoch_key)
-        self.drawn.append(replay_augment_draws(key, policy, n, pad_hw))
-        return self.drawn[-1]
-
-    def step(self, n, hw, latent_da):
-        self.rng, key = jax.random.split(self.rng)
-        self.steps.append(replay_draws(key, latent_da, n, hw))
-        return self.steps[-1]
-
-
 @pytest.fixture(scope="module")
 def loops(tmp_path_factory):
     root = tmp_path_factory.mktemp("loops")

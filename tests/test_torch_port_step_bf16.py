@@ -42,6 +42,7 @@ from torch_port_util import (  # noqa: F401 - one_torch_thread is a fixture
     HW,
     STEP_KEYS,
     assert_masks_agree,
+    bf16_close_sets,
     jax_generation,
     jax_train_state,
     make_solver,
@@ -95,20 +96,10 @@ def steps():
     return out
 
 
-def _bf16_close(triples, what):
-    """Over all (got, want16, want32) triples together: largest and mean
-    |got - want16| at most twice those of |want16 - want32|."""
-    got, want16, want32 = (np.concatenate([np.asarray(t[j], np.float64).ravel()
-                                           for t in triples]) for j in range(3))
-    own, diff = np.abs(want16 - want32), np.abs(got - want16)
-    assert diff.max() <= 2 * own.max(), (what, diff.max(), own.max())
-    assert diff.mean() <= 2 * own.mean(), (what, diff.mean(), own.mean())
-
-
 def test_bf16_metrics(steps):
     """The 20 metrics of the two steps together (ten scalars per step are
     too few for a largest and a mean of their own)."""
-    _bf16_close([(float(rec["port_metrics"][k]), rec["m16"][k], rec["m32"][k])
+    bf16_close_sets([(float(rec["port_metrics"][k]), rec["m16"][k], rec["m32"][k])
                  for rec in steps for k in rec["m16"]], "metrics")
 
 
@@ -123,7 +114,7 @@ def test_bf16_adam_moments(steps, i):
     w16, w32 = _ts(rec["bf16"]), _ts(rec["f32"])
     for what, got, a16, a32 in (("mu", got_mu, w16.exp_avg, w32.exp_avg),
                                 ("nu", got_nu, w16.exp_avg_sq, w32.exp_avg_sq)):
-        _bf16_close([(got[name][k], a16[name][k], a32[name][k])
+        bf16_close_sets([(got[name][k], a16[name][k], a32[name][k])
                      for name in a16 for k in a16[name]], what)
 
 
@@ -140,7 +131,7 @@ def test_bf16_update_and_running_stats(steps, i):
                 old = 0 if stats else before.state_dicts[name][k].numpy()
                 triples.append((rec["port_state"][name][k].numpy() - old, v.numpy() - old,
                                 w32.state_dicts[name][k].numpy() - old))
-        _bf16_close(triples, "running statistics" if stats else "update")
+        bf16_close_sets(triples, "running statistics" if stats else "update")
 
 
 @pytest.fixture(scope="module")

@@ -174,12 +174,54 @@ def replay_code_draws(key, cfg, n: int, c: int, latent_hw) -> CodeDraws:
     return CodeDraws(branch, p=_t(p), soft=_t(soft))
 
 
+@contextlib.contextmanager
+def record_jax_dropout():
+    """Record the layer-dropout keep masks the JAX package draws, in the
+    order its step runs them: flax's ``nn.Dropout`` is replaced by a class
+    of the same name (so flax's module paths, and so its dropout keys, stay
+    the same) that computes the same mask from the same ``make_rng`` and
+    hands it to the host with an ordered ``jax.debug.callback``.  Yields
+    the list the masks land in, each as an (N, C) float32 array; clear it
+    before a step and read it after ``jax.effects_barrier()``."""
+    import flax.linen as nn
+    from flax.linen.module import merge_param
+
+    masks = []
+
+    def record(mask):
+        m = np.asarray(mask, np.float32)
+        masks.append(m.reshape(m.shape[0], -1))
+
+    class Dropout(nn.Dropout):
+        @nn.compact
+        def __call__(self, inputs, deterministic=None, rng=None):
+            deterministic = merge_param("deterministic", self.deterministic, deterministic)
+            if self.rate == 0.0 or deterministic:
+                return inputs
+            keep_prob = 1.0 - self.rate
+            if rng is None:
+                rng = self.make_rng(self.rng_collection)
+            shape = list(inputs.shape)
+            for d in self.broadcast_dims:
+                shape[d] = 1
+            mask = jax.random.bernoulli(rng, p=keep_prob, shape=shape)
+            jax.debug.callback(record, mask, ordered=True)
+            mask = jnp.broadcast_to(mask, inputs.shape)
+            return jax.lax.select(mask, inputs / keep_prob, jnp.zeros_like(inputs))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn, "Dropout", Dropout)
+        yield masks
+
+
 def replay_draws(key, latent_da, n: int, hw, latent_ch: int = 128,
-                 image_ch: int = 1) -> StepDraws:
+                 image_ch: int = 1, dropout=None) -> StepDraws:
     """The draws of ``CooperativeTripletSolver.make_train_step``'s step
     with key ``key``: ``k_noise, k_da, k_drop = split(key, 3)``, the unit
     normal noise ``normal(k_noise, (n, H, W, image_ch))`` (as NCHW), and
-    ``k_img, k_seg = split(k_da)`` for the two codes."""
+    ``k_img, k_seg = split(k_da)`` for the two codes.  ``dropout``: the
+    layer-dropout masks the JAX step drew from ``k_drop``, as
+    :func:`record_jax_dropout` recorded them."""
     h, w = hw
     k_noise, k_da, _ = jax.random.split(key, 3)
     noise = jax.random.normal(k_noise, (n, h, w, image_ch), jnp.float32)
@@ -190,7 +232,8 @@ def replay_draws(key, latent_da, n: int, hw, latent_ch: int = 128,
         image = replay_code_draws(k_img, latent_da.image_code, n, latent_ch, latent_hw)
     if latent_da is not None and latent_da.gen_corrupted_seg:
         shape = replay_code_draws(k_seg, latent_da.shape_code, n, latent_ch, latent_hw)
-    return StepDraws(_t(noise).permute(0, 3, 1, 2).contiguous(), image, shape)
+    masks = None if dropout is None else [_t(m) for m in dropout]
+    return StepDraws(_t(noise).permute(0, 3, 1, 2).contiguous(), image, shape, masks)
 
 
 def jax_train_state(solver: CooperativeTripletSolver, params, stats):
@@ -552,3 +595,194 @@ def _replay_augment_one(key, policy, h: int, w: int, image_ch: int, port_augment
             k1, k2 = jax.random.split(k_coarse)
             d.update(coarse_dx=g(k1, (3, 3)), coarse_dy=g(k2, (3, 3)), gate_coarse=u(k_pe2))
     return d
+
+
+class JaxKeys:
+    """JAX's ``train_network`` key schedule as a draw source: an epoch key
+    splits off ``PRNGKey(seed + 1)`` at each epoch's first batch, each
+    batch's key off the epoch key, each step's key off ``PRNGKey(seed +
+    1)``; the draws behind each key are replayed.  Keeps what it drew."""
+
+    def __init__(self, seed):
+        self.rng = jax.random.PRNGKey(seed + 1)
+        self.epoch = None
+        self.drawn, self.steps = [], []
+
+    def augment(self, epoch, policy, n, pad_hw):
+        if epoch != self.epoch:
+            self.rng, self.epoch_key = jax.random.split(self.rng)
+            self.epoch = epoch
+        self.epoch_key, key = jax.random.split(self.epoch_key)
+        self.drawn.append(replay_augment_draws(key, policy, n, pad_hw))
+        return self.drawn[-1]
+
+    def step(self, n, hw, latent_da):
+        self.rng, key = jax.random.split(self.rng)
+        self.steps.append(replay_draws(key, latent_da, n, hw))
+        return self.steps[-1]
+
+
+def bf16_close_sets(triples, what):
+    """bf16 parity over a whole set: over all (got, want16, want32) triples
+    together, the largest and the mean |got - want16| at most twice those
+    of |want16 - want32|."""
+    got, want16, want32 = (np.concatenate([np.asarray(t[j], np.float64).ravel()
+                                           for t in triples]) for j in range(3))
+    own, diff = np.abs(want16 - want32), np.abs(got - want16)
+    assert diff.max() <= 2 * own.max(), (what, diff.max(), own.max())
+    assert diff.mean() <= 2 * own.mean(), (what, diff.mean(), own.mean())
+
+
+# ------------------------------------------- the step's other configurations
+# The step files of the configurations (test_torch_port_step_variants.py,
+# _separate.py, _dropout.py, _remat.py) each import the four
+# ``test_variant_*`` checks below, which pytest then collects there, and
+# define a module fixture ``variant`` over their configurations:
+# ``(name, run_variant(name))``.
+DROPOUT = {"encoder_dropout": 0.3, "decoder_dropout": 0.2}
+# per configuration: the JAX solver's and make_train_step's keywords, the
+# environment JAX reads, and the port trainer's keywords
+VARIANTS = {
+    "separate_training": {"step": {"separate_training": True},
+                          "trainer": {"separate_training": True}},
+    "share_code": {"solver": {"network_type": "FCN_16_standard_share_code"},
+                   "trainer": {"network_type": "FCN_16_standard_share_code"}},
+    "w_o_filter": {"solver": {"network_type": "FCN_16_standard_w_o_filter"},
+                   "trainer": {"network_type": "FCN_16_standard_w_o_filter"}},
+    "dropout": {"solver": DROPOUT, "trainer": DROPOUT},
+    "remat": {"solver": {"remat": True}, "trainer": {"remat": True}},
+    "saliency_bn_update": {"env": {"SALIENCY_BN_UPDATE": "1"},
+                           "trainer": {"saliency_bn_update": True}},
+}
+
+
+def _data():
+    rng = np.random.RandomState(1)
+    image = rng.uniform(0, 1, (BATCH, HW, HW, 1)).astype(np.float32)
+    label = rng.randint(0, 4, (BATCH, HW, HW)).astype(np.int32)
+    return image, label, rng
+
+
+def _port_state(trainer):
+    return {name: {k: v.clone() for k, v in getattr(trainer.model, name).state_dict().items()}
+            for name in MODULE_NAMES}
+
+
+def run_variant(name: str):
+    """JAX's two steps under the configuration ``name`` (with its own
+    sensitivity: the same steps on N_MOVES moved images), then the port's
+    from the same states on the replayed draws; one record per step, as
+    ``torch_port_util.run_step_case`` makes them."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import convert
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
+        CooperativeTrainer,
+    )
+
+    v = VARIANTS[name]
+    dropout = "encoder_dropout" in v.get("solver", {})
+    with pytest.MonkeyPatch.context() as mp, record_jax_dropout() as recorded:
+        for k, val in v.get("env", {}).items():
+            mp.setenv(k, val)
+        solver = CooperativeTripletSolver(input_hw=(HW, HW), **v.get("solver", {}))
+        params, stats = random_variables(solver, seed=0)
+        image, label, rng = _data()
+        jlda, lda = step_configs("random")
+        step = solver.make_train_step(latent_da=jlda, donate=False, **v.get("step", {}))
+        gen = None if dropout else jax.jit(
+            lambda p, s, b, k: jax_generation(solver, jlda, p, s, b, k))
+        batch = {"image": jnp.asarray(image), "label": jnp.asarray(label)}
+        moves = [{"image": jnp.asarray((image * (1 + SENSITIVITY * rng.choice([-1, 1],
+                                                                              image.shape)))
+                                       .astype(np.float32)), "label": batch["label"]}
+                 for _ in range(N_MOVES)]
+        state = jax_train_state(solver, params, stats)
+        trainer = CooperativeTrainer(lda, device="cpu", **v.get("trainer", {}))
+        steps = []
+        for key_seed in STEP_KEYS:
+            key = jax.random.PRNGKey(key_seed)
+            recorded.clear()
+            new, metrics = step(state, batch, key)
+            jax.effects_barrier()
+            masks = list(recorded)
+            rec = {"before": _host(state), "after": _host(new), "metrics": _host(metrics),
+                   "moved": [_host(step(state, m, key)[0]) for m in moves]}
+            jax.effects_barrier()
+            rec["draws"] = replay_draws(key, lda, BATCH, (HW, HW),
+                                        dropout=masks if dropout else None)
+            trainer.load_train_state(convert.train_state_from_jax(
+                rec["before"].params, rec["before"].batch_stats, rec["before"].opt_state))
+            if gen is not None:
+                rec["gen"] = _host(gen(state.params, state.batch_stats, batch, key))
+                rec["gap_scale"] = _latent_gap_scale(
+                    trainer, image, rec["draws"], rec["gen"]["latents"],
+                    [_host(gen(state.params, state.batch_stats, m, key))["latents"]
+                     for m in moves])
+            else:
+                rec["gap_scale"] = 1.0
+            rec["port_metrics"] = trainer.train_step(torch.from_numpy(image),
+                                                     torch.from_numpy(label), rec["draws"])
+            rec["port_moments"] = trainer.adam_moments()
+            rec["port_state"] = _port_state(trainer)
+            rec["port_generation"] = dict(trainer.generation)
+            rec["masks"] = (len(masks), trainer._used)
+            steps.append(rec)
+            state = new
+    return steps
+
+
+
+def _masks_equal(rec) -> bool:
+    """Whether the port's generation drew JAX's masks exactly (a swap near
+    the threshold, which ``check_step_masks`` allows, makes another hard
+    example)."""
+    return all(np.array_equal(rec["port_generation"][k].mask.permute(0, 2, 3, 1).numpy(),
+                              rec["gen"][k][0]) for k in ("image", "shape"))
+
+
+def test_variant_metrics_match_jax(variant):
+    """All metrics; the four hard losses (and the totals they enter) only at
+    steps whose masks equal JAX's, the loop test's rule (at a swap the five
+    standard losses are held)."""
+    name, steps = variant
+    held = 0
+    for i, rec in enumerate(steps):
+        if "gen" in rec and not _masks_equal(rec):
+            rec = dict(rec, metrics={k: v for k, v in rec["metrics"].items()
+                                     if "hard" not in k and k != "loss/total"},
+                       port_metrics={k: v for k, v in rec["port_metrics"].items()
+                                     if "hard" not in k and k != "loss/total"})
+        else:
+            held += 1
+        check_step_metrics(rec, f"{name} step {i}")
+    assert held >= 1, name
+
+
+def test_variant_masks_match_jax(variant):
+    name, steps = variant
+    for i, rec in enumerate(steps):
+        if "gen" in rec:
+            check_step_masks(rec, "random", f"{name} step {i}")
+        want, used = rec["masks"]
+        if name == "dropout":
+            from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (  # noqa: E501
+                forward_plan,
+            )
+
+            branches = {k: getattr(rec["draws"], k).branch for k in ("image", "shape")}
+            plan = forward_plan(step_configs("random")[1], branches)
+            # 4 residual stages a module, each with a rate
+            assert want == used == 4 * len(plan), (i, want, used, len(plan))
+        else:
+            assert want == used == 0
+
+
+def test_variant_running_stats_match_jax(variant):
+    name, steps = variant
+    for i, rec in enumerate(steps):
+        check_step_running_stats(rec, f"{name} step {i}")
+
+
+def test_variant_moments_and_update_match_jax(variant):
+    name, steps = variant
+    for i, rec in enumerate(steps):
+        check_step_moments_and_update(rec, f"{name} step {i}")
