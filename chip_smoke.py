@@ -19,8 +19,10 @@ training augmentation pipeline into the train step, the training loop
 through the port's command line, the held-out evaluation of the loop's
 best checkpoint through the port's test entry, the robustness protocol
 (training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
-table), and last the port's ``bench_b8_conv``, the path of the blocked
-conv K6 (with its dx and K6dw).
+table), the port's ``bench_b8_conv``, the path of the blocked conv K6 (with its
+dx and K6dw), and last the baseline family: ``SegmentationSolver`` on each
+network of its registry (the UNets, the FCNs and the residual UNets),
+whose 3x3 stride-1 convs of at most 64 channels run on K1, K1 dx and K2.
 
 Phases, each printing its seconds when it ends:
 
@@ -160,7 +162,21 @@ Phases, each printing its seconds when it ends:
 12. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
-   before and read just after; it must launch K6, K6dx and K6dw.
+   before and read just after; it must launch K6, K6dx and K6dw;
+13. baselines: each of the ten networks of ``train/segmentation.py``'s
+   registry in a bf16 ``SegmentationSolver`` on the train phase's phantom
+   batch (20 slices of 192x192, 4 classes): three train steps and a
+   ``predict``, with the launch counts set to 0 just before and read just
+   after each; every step must launch K1, K1 dx and K2 exactly as
+   ``SegmentationSolver.expected_launches`` counts them from the network's
+   conv list (the predict K1 alone), and give a finite loss; it prints
+   each step's host ms (to a synchronize), the predict's and the peak
+   device memory.  Then K1, K1 dx and K2 against their plain versions at
+   every shape the baselines launched that the kernels phase did not
+   check (bf16, batch 20, timed as there), and an f32 train-check of
+   UNet_16, IN_SN_UNet_16 and ResUNet_16 (AdaAdam, the Adam-bound clip and
+   the EMA, two steps) at batch 2, card against CPU
+   (``baseline_train_check``).
 
 At the end it prints, per kernel, its launches and times per random step
 (per bench pass for K6), and tables of K2, K1, K1 dx, K4, K4 dx, K4dw, K5,
@@ -267,6 +283,13 @@ ROBUST_METHODS = ("standard_training", "cooperative_training")
 ROBUST_TEST_PIDS = 4
 ROBUST_EPOCHS = 2
 ACDC_C_ATOL = 1e-4   # card against CPU on the [0, 1] scale: cuFFT against pocketfft
+BASELINE_STEPS = 3   # bf16 train steps of each registry network, batch 20
+BASELINE_CHECKS = {  # network -> (solver keywords, steps) of its f32 train-check
+    "UNet_16": ({}, 1),
+    "IN_SN_UNet_16": ({}, 1),
+    # two steps: the Adam-bound clip skips the first update
+    "ResUNet_16": (dict(optimizer_name="AdaAdam", clip_grad=True, use_ema=True), 2),
+}
 TPU_RUNS = os.path.join("saved", "train_ACDC_10_n_cls_4")
 TPU_TABLE = os.path.join("saved", "robustness_synthetic", "aggregated.csv")
 
@@ -1519,6 +1542,201 @@ def robustness_phase(torch, wrappers, predict_k1, tmp, smi):
     return {k: launches.get(k, 0) for k in LAUNCH_COUNTERS}
 
 
+def baseline_train_check(torch, name, image, label, steps=1, device="cuda", **solver_kw):
+    """``steps`` f32 train steps of the baseline ``name`` on ``device`` (the
+    card) against the same steps on the CPU (``SegmentationSolver``, same seed,
+    so the same weights; NHWC ``image``, (N, H, W) ``label``), as
+    :func:`train_check` holds the cooperative step:
+
+    * losses within 1e-4 of their value;
+    * the last step's gradients: the model's within twice, each tensor's
+      within four times, the CPU step's own difference when its input image
+      moves by +-1e-6 per pixel and every weight by +-1 float32 ulp (twice,
+      random signs: rounding-sized moves in every layer, as the card's sums
+      in other orders are), or 1e-3 of the tensor's norm;
+    * each parameter's update (and EMA parameter's, with ``use_ema``) in
+      the same way, plus, for each step, 2 lr times the root of the number
+      of elements whose gradient in that step is no farther from 0 than
+      twice its own move (an undetermined sign: Adam moves such an element
+      by about lr either way, so a flip moves the update by up to 2 lr);
+    * running statistics and spectral-norm ``u``/``sigma`` within 1e-4 of
+      each tensor's scale (at least 1), or twice the CPU's own largest move
+      relative to scale (after a second step they follow the first step's
+      updates)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.segmentation import (
+        SegmentationSolver,
+    )
+
+    img, lbl = torch.from_numpy(image), torch.from_numpy(label)
+
+    def run(device, x, move=None):
+        solver = SegmentationSolver(name, device=device, seed=1, **solver_kw)
+        if move is not None:  # every weight moved by one float32 ulp, random signs
+            with torch.no_grad():
+                gen = torch.Generator().manual_seed(move)
+                for p in solver.model.parameters():
+                    sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                    p.mul_(1 + sign * 2.0 ** -23)
+        losses, grads = [], []  # the loss and the (clipped) gradients of each step
+        for _ in range(steps):
+            losses.append(float(solver.train_step(x.to(device), lbl.to(device))["loss/total"]))
+            grads.append({k: p.grad.detach().cpu().double()
+                          for k, p in solver.model.named_parameters()})
+        state = {k: v.detach().cpu().double() for k, v in solver.model.state_dict().items()}
+        ema = ({k: v.cpu().double() for k, v in solver.ema_params.items()}
+               if solver.use_ema else {})
+        return losses, state, grads, ema, solver.learning_rate
+
+    start = {k: v.double() for k, v in SegmentationSolver(
+        name, device="cpu", seed=1, **solver_kw).model.state_dict().items()}
+    got = run(device, img)
+    t0 = time.perf_counter()
+    want = run("cpu", img)
+    signs = [torch.randint(0, 2, img.shape, generator=torch.Generator().manual_seed(k)) * 2 - 1
+             for k in (1, 2)]
+    moved = [run("cpu", img * (1 + 1e-6 * sg), k) for k, sg in enumerate(signs)]
+    print(f"  {name}: three CPU runs of {steps} step(s) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for g, w in zip(got[0], want[0]):
+        if not abs(g - w) <= 1e-4 * abs(w) + 1e-7:
+            raise AssertionError(f"{name} train-check: loss {g} on the card, {w} on the CPU")
+
+    def held(g_tree, w_tree, m_trees, what, slack=None):
+        whole = math.sqrt(sum(float((g_tree[k] - v).norm()) ** 2 for k, v in w_tree.items()))
+        own_whole = max(math.sqrt(sum(float((m[k] - v).norm()) ** 2 for k, v in w_tree.items()))
+                        for m in m_trees)
+        top = max(float(v.abs().max()) for v in w_tree.values())
+        ratio, worst = 0.0, None
+        for k, v in w_tree.items():
+            own = max(float((m[k] - v).norm()) for m in m_trees)
+            bound = max(1e-3 * float(v.norm()), 4 * own, 1e-6 * top * math.sqrt(v.numel()))
+            bound += slack[k] if slack else 0.0
+            if float((g_tree[k] - v).norm()) / bound > ratio:
+                ratio, worst = float((g_tree[k] - v).norm()) / bound, k
+        if not (whole <= 2 * own_whole + (sum(slack[k] ** 2 for k in w_tree) ** 0.5
+                                          if slack else 0.0) and ratio <= 1.0):
+            raise AssertionError(f"{name} train-check: {what} differ ({whole:.3g} against "
+                                 f"own {own_whole:.3g}, worst tensor {worst} at {ratio:.3f} "
+                                 f"of its bound)")
+        return ratio
+
+    last = steps - 1
+    r_grad = held(got[2][last], want[2][last], [m[2][last] for m in moved], "gradients")
+    lr = want[4]
+    flips = {}  # 2 lr x the root of each step's undetermined elements, summed over steps
+    for k in want[2][0]:
+        flips[k] = 0.0
+        for t in range(steps):
+            own = torch.stack([(m[2][t][k] - want[2][t][k]).abs() for m in moved]).amax(0)
+            flips[k] += 2 * lr * math.sqrt(int((want[2][t][k].abs() <= 2 * own).sum()))
+
+    def delta(tree):
+        return {k: tree[k] - start[k] for k in want[2][0]}
+
+    r_upd = held(delta(got[1]), delta(want[1]), [delta(m[1]) for m in moved], "updates", flips)
+    r_ema = 0.0
+    if got[3]:
+        r_ema = held(delta(got[3]), delta(want[3]), [delta(m[3]) for m in moved],
+                     "EMA parameters", flips)
+    buffers = [k for k in want[1] if k not in want[2][0]]  # BN statistics, SN u and sigma
+
+    def apart(tree, k):
+        w = want[1][k]
+        return float((tree[k] - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+    worst = max(apart(got[1], k) for k in buffers)
+    own_buf = max(apart(m[1], k) for m in moved for k in buffers)
+    if worst > max(1e-4, 2 * own_buf):
+        raise AssertionError(f"{name} train-check: buffers {worst:.3g} of scale apart (the "
+                             f"CPU's own move {own_buf:.3g})")
+    print(f"  {name} f32 train-check ({steps} step(s), {solver_kw or 'Adam'}): losses "
+          f"{got[0]} card, {want[0]} CPU; worst tensor at {r_grad:.3f} (gradients), "
+          f"{r_upd:.3f} (updates), {r_ema:.3f} (EMA) of its bound; buffers within "
+          f"{worst:.3g} of scale (the CPU's own move {own_buf:.3g})", flush=True)
+
+
+def baselines_phase(torch, F, conv_chw, pmask, masking, wrappers, image, label, known):
+    """Phase 13 (see the module docstring).  ``known``: the kernels phase's
+    records of K1, K1 dx and K2 by shape.  Returns (launches by wrapper over
+    the phase, the new shapes' check records by wrapper)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.segmentation import (
+        NETWORK_REGISTRY,
+        SegmentationSolver,
+    )
+
+    img = torch.from_numpy(image).to("cuda")
+    lbl = torch.from_numpy(label).to("cuda")
+    total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    seen = {k: Counter() for k in LAUNCH_COUNTERS}
+    for name in NETWORK_REGISTRY:
+        solver = SegmentationSolver(name, compute_dtype=torch.bfloat16, device="cuda", seed=0)
+        want = {**dict.fromkeys(LAUNCH_COUNTERS, 0), **solver.expected_launches()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(BASELINE_STEPS):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recording_shapes(conv_chw, pmask, masking, seen):
+                metrics = solver.train_step(img, lbl)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = {k: w.launches for k, w in wrappers.items()}
+            if got != want:
+                raise AssertionError(f"{name} step {i}: launches {got}, expected {want}")
+            for k in LAUNCH_COUNTERS:
+                total[k] += got[k]
+            losses.append(float(metrics["loss/total"]))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver.predict(img)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        got = {k: w.launches for k, w in wrappers.items()}
+        if got != {**dict.fromkeys(LAUNCH_COUNTERS, 0), "conv3x3_chw": want["conv3x3_chw"]}:
+            raise AssertionError(f"{name} predict: launches {got}")
+        total["conv3x3_chw"] += got["conv3x3_chw"]
+        if tuple(out.shape) != (TRAIN_BATCH, 192, 192, 4) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} predict: bad output {tuple(out.shape)}")
+        print(f"  {name} bf16 batch {TRAIN_BATCH}: steps (host clock to a synchronize) "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms, predict {predict_ms:.3f} ms, "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+              f"K1/K1 dx/K2 a step {want['conv3x3_chw']}/{want['conv3x3_chw_dx']}/"
+              f"{want['conv3x3_chw_dw']}; losses {', '.join(f'{v:.4f}' for v in losses)}",
+              flush=True)
+        del solver, out
+        torch.cuda.empty_cache()
+    # K1, K1 dx and K2 at the shapes the baselines launch and the main
+    # path's kernels phase did not check, bf16 at batch 20, timed
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    checked = {}
+    for wrapper, which in (("conv3x3_chw", "fwd"), ("conv3x3_chw_dx", "dx"),
+                           ("conv3x3_chw_dw", "dw")):
+        shapes = sorted(set(seen[wrapper]) - set(known[wrapper]), key=lambda s: (-s[2], s[0], s[1]))
+        checked[wrapper] = [check_conv(torch, F, conv_chw, conv_chw, "chw", which, sh,
+                                       TRAIN_BATCH, "bfloat16", flush) for sh in shapes]
+        print(f"  {wrapper} shapes of the baselines (C_in->C_out @ HxW: launches over the "
+              f"phase's steps): " + ", ".join(
+                  f"{sh[0]}->{sh[1]} @ {sh[2]}x{sh[3]}: {n}" for sh, n in sorted(
+                      seen[wrapper].items(), key=lambda kv: (-kv[0][2], kv[0][0], kv[0][1]))),
+              flush=True)
+    del flush
+    bad = [r for recs in checked.values() for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a kernel disagrees with its plain version at a baseline "
+                             f"shape: {bad}")
+    torch.cuda.empty_cache()
+    for name, (kw, steps) in BASELINE_CHECKS.items():
+        baseline_train_check(torch, name, image[:CHECK_BATCH], label[:CHECK_BATCH], steps, **kw)
+    return total, checked
+
+
 def main():
     import tempfile
 
@@ -1917,6 +2135,12 @@ def main():
               + ", ".join(f"{r['stage']} {r['b8_vs_cudnn']:.3f}x" for r in b8_bench),
               flush=True)
 
+    with phase("baselines"):
+        base_launches, base_checked = baselines_phase(
+            torch, F, conv_chw, pmask, masking, wrappers, train_image, train_label,
+            {"conv3x3_chw": recs, "conv3x3_chw_dx": dx_recs, "conv3x3_chw_dw": dw_recs})
+        torch.cuda.empty_cache()
+
     total = time.perf_counter() - t_start
     print(f"chip_smoke total {total:.1f} s", flush=True)
 
@@ -1944,6 +2168,8 @@ def main():
                "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32],
                "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32],
                "percentile_mask": list(k3_recs.values())}
+    for name, extra in base_checked.items():
+        checked[name] += extra
     for name, which in (("conv3x3s2", "fwd"), ("conv3x3s2_dx", "dx"), ("conv3x3s2_dw", "dw")):
         checked[name] = [r for n in (TRAIN_BATCH, SERVE_BATCH)
                          for r in s2_recs[(which, n)].values()] + s2_f32[which]
@@ -1954,7 +2180,7 @@ def main():
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
                 + aug_launches[k] + loop_launches[k]
-                + eval_launches[k] + robust_launches[k] + b8_launches[k]
+                + eval_launches[k] + robust_launches[k] + b8_launches[k] + base_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

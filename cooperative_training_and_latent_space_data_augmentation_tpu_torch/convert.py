@@ -18,6 +18,16 @@ params' tree and go through the same maps, and its ``count`` is the step.
 :meth:`..train.cooperative.CooperativeTrainer.load_train_state` loads the
 result, so a JAX run can be resumed in the port.
 
+``baseline_from_jax(network, params, batch_stats)`` does the same for a
+baseline network of the JAX package's ``train/segmentation.py`` (a registry
+name or a port module: the UNets, the FCN, their layers, ``UNet3D`` and
+``DomainSpecificEncoder``), through one table of (port key, flax
+collection and path, transform) entries (:func:`baseline_entries`);
+``baseline_train_state_from_jax`` adds the ``{"online", "ema"}`` split,
+optax's Adam state and the Adam-bound clip's state.  Transposed kernels of
+any size are flipped on every spatial axis (flax does not flip, PyTorch
+does).
+
 ``load_jax_checkpoint(dir)`` reads the per-module ``{module}.msgpack``
 files the JAX solver's ``save_model`` writes (``train/cooperative.py:
 954-966``) into what ``from_jax`` returns, through
@@ -30,10 +40,11 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 from os.path import join
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     MODULE_NAMES,
@@ -141,15 +152,25 @@ class TrainState:
     step: int
 
 
+def _find_state(opt_state, test):
+    """The first node of an optax state (nested tuples) that ``test`` accepts."""
+    if test(opt_state):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _find_state(part, test)
+            if found is not None:
+                return found
+    return None
+
+
 def _adam_state(opt_state):
     """The ``ScaleByAdamState`` (count, mu, nu) of an optax adam state,
     found by its fields (the port does not import optax)."""
-    if hasattr(opt_state, "mu"):
-        return opt_state
-    for part in opt_state:
-        if hasattr(part, "mu"):
-            return part
-    raise ValueError("train_state_from_jax: no Adam state (count, mu, nu) in opt_state")
+    adam = _find_state(opt_state, lambda s: hasattr(s, "mu") and hasattr(s, "nu"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    return adam
 
 
 def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state) -> TrainState:
@@ -271,3 +292,217 @@ def load_jax_checkpoint(checkpoint_dir: str) -> Dict[str, StateDict]:
         tree = read_flax_msgpack(join(checkpoint_dir, f"{name}.msgpack"))
         params[name], stats[name] = tree["params"], tree["batch_stats"]
     return from_jax(params, stats)
+
+
+# ------------------------------------------------------- baseline networks
+# one entry: (port state-dict key, flax collection, flax path, transform)
+Entry = Tuple[str, str, Tuple[str, ...], str]
+
+
+def kernel_to_torch(k: np.ndarray, kind: str) -> np.ndarray:
+    """flax kernel -> PyTorch weight: ``conv`` (*k, I, O) -> (O, I, *k);
+    ``convT`` (*k, I, O) flipped on every spatial axis -> (I, O, *k);
+    ``dense`` (I, O) -> (O, I); ``copy`` as it is."""
+    if kind == "copy":
+        return k
+    n = k.ndim
+    if kind == "convT":
+        k = k[(slice(None, None, -1),) * (n - 2)]
+        return np.transpose(k, (n - 2, n - 1) + tuple(range(n - 2)))
+    return np.transpose(k, (n - 1, n - 2) + tuple(range(n - 2)))
+
+
+def _baseline_children(m: nn.Module) -> List[Tuple[str, Tuple[str, ...]]]:
+    """(port submodule path, flax path) of ``m``'s children."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models import (
+        encoder_decoder as ed,
+        layers as ly,
+        unet,
+        unet3d,
+    )
+
+    def norm(i):
+        return ("Norm_%d" % i, "BatchNorm_0")
+
+    if isinstance(m, unet.DoubleConv):
+        return [("conv1", ("SNConv_0",)), ("norm1", norm(0)), ("conv2", ("SNConv_1",)),
+                ("norm2", norm(1))]
+    if isinstance(m, unet.ResBlock):
+        return [("shortcut", ("SNConv_0",)), ("conv1", ("SNConv_1",)), ("norm1", norm(0)),
+                ("conv2", ("SNConv_2",)), ("norm2", norm(1))]
+    if isinstance(m, unet.ConvBNRelu):
+        return [("conv", ("Conv_0",)), ("bn", ("BatchNorm_0",))]
+    stages = ["inc"] + [f"down{i}" for i in range(1, 5)] + [f"up{i}" for i in range(1, 5)]
+    if isinstance(m, unet.DeeplySupervisedUNet):
+        return ([(n, ("DoubleConv_%d" % i,)) for i, n in enumerate(stages)]
+                + [("dsv2", ("Conv_0",)), ("dsv3", ("Conv_1",)), ("outc", ("Conv_2",))])
+    if isinstance(m, unet.UNet):
+        return [(n, ("DoubleConv_%d" % i,)) for i, n in enumerate(stages)] + [("outc", ("Conv_0",))]
+    if isinstance(m, unet.ResConvUNet):
+        return ([(n, ("ResBlock_%d" % i,)) for i, n in enumerate(stages)]
+                + [(f"deconv{i + 1}", ("ConvTranspose_%d" % i,)) for i in range(4)]
+                + [("outc", ("Conv_0",))])
+    if isinstance(m, unet.FCN):
+        n_trunk = len(m.trunk)
+        return ([(f"trunk.{i}", ("ConvBNRelu_%d" % i,)) for i in range(n_trunk)]
+                + [(f"lateral.{i}", ("ConvBNRelu_%d" % (n_trunk + i),)) for i in range(5)]
+                + [(f"fuse.{i}", ("ConvBNRelu_%d" % (n_trunk + 5 + i),)) for i in range(2)]
+                + [("outc", ("Conv_0",))])
+    if isinstance(m, unet3d.UnetConv3):
+        return [("conv1", ("Conv_0",)), ("bn1", ("BatchNorm_0",)), ("conv2", ("Conv_1",)),
+                ("bn2", ("BatchNorm_1",))]
+    if isinstance(m, unet3d.UnetUp3):
+        return ([("up", ("ConvTranspose_0",))] if m.is_deconv else []) + [
+            ("conv", ("UnetConv3_0",))]
+    if isinstance(m, unet3d.UNet3D):
+        return [("conv%d" % (i + 1), ("UnetConv3_%d" % i,)) for i in range(3)] + [
+            ("up1", ("UnetUp3_0",)), ("up2", ("UnetUp3_1",)), ("outc", ("Conv_0",))]
+    if isinstance(m, ed.DomainSpecificEncoder):
+        out = [("conv1", ("Conv_0",)), ("norm_1", ("norm_1",)), ("conv2", ("Conv_1",)),
+               ("norm_2", ("norm_2",))]
+        for i in range(1, 5):
+            c = 2 + 4 * (i - 1)
+            out += [(f"down{i}.down", ("Conv_%d" % c,)),
+                    (f"down{i}.conv_input", ("Conv_%d" % (c + 1),)),
+                    (f"down{i}.conv1", ("Conv_%d" % (c + 2),)),
+                    (f"down{i}.norm_1", (f"down{i}_norm_1",)),
+                    (f"down{i}.conv2", ("Conv_%d" % (c + 3),)),
+                    (f"down{i}.norm_2", (f"down{i}_norm_2",))]
+        return out + [("final_conv", ("Conv_18",)), ("final_norm", ("final_norm",))]
+    if isinstance(m, ly.DomainSpecificBatchNorm):
+        return [(f"banks.{d}", ("bn_%d" % d,)) for d in range(len(m.banks))]
+    if isinstance(m, ly.BatchInstanceNorm):
+        return [("bn", ("BatchNorm_0",))]
+    if isinstance(m, ly.ChannelSELayer):
+        return [("fc1", ("Dense_0",)), ("fc2", ("Dense_1",))]
+    if isinstance(m, ly.SpatialSELayer):
+        return [("conv", ("Conv_0",))]
+    if isinstance(m, ly.ChannelSpatialSELayer):
+        return [("cse", ("ChannelSELayer_0",)), ("sse", ("SpatialSELayer_0",))]
+    if isinstance(m, ly.SelfAttention):
+        return [("query", ("Conv_0",)), ("key", ("Conv_1",)), ("value", ("Conv_2",))]
+    return []
+
+
+def baseline_entries(module: nn.Module) -> List[Entry]:
+    """Every state-dict key of a baseline ``module`` with the flax
+    collection and path it comes from and the transform on the way."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models import (
+        blocks,
+        layers as ly,
+        unet3d,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
+        Conv,
+    )
+
+    own = {ly.BatchInstanceNorm: ("rho", "gamma", "beta"), ly.SelfAttention: ("gamma",)}
+    out: List[Entry] = []
+
+    def leaf_conv(prefix, path, kind):
+        out.extend([(prefix + "weight", "params", path + ("kernel",), kind),
+                    (prefix + "bias", "params", path + ("bias",), "copy")])
+
+    def walk(m, prefix, path):
+        if isinstance(m, blocks.SNConv):
+            leaf_conv(prefix, path + ("Conv_0",), "conv")
+            if m.if_SN:
+                for name in ("u", "sigma"):
+                    out.append((prefix + name, "batch_stats",
+                                path + ("SpectralNorm_0", f"Conv_0/kernel/{name}"), "copy"))
+        elif isinstance(m, (Conv, unet3d.Conv3d)):
+            leaf_conv(prefix, path, "conv")
+        elif isinstance(m, blocks.ConvTranspose):
+            leaf_conv(prefix, path, "convT")
+        elif isinstance(m, nn.Linear):
+            out.append((prefix + "weight", "params", path + ("kernel",), "dense"))
+        elif isinstance(m, (blocks.BatchNorm, ly.BiasedBatchNorm)):
+            if m.weight is not None:
+                out.extend([(prefix + "weight", "params", path + ("scale",), "copy"),
+                            (prefix + "bias", "params", path + ("bias",), "copy")])
+            out.extend([(prefix + "running_mean", "batch_stats", path + ("mean",), "copy"),
+                        (prefix + "running_var", "batch_stats", path + ("var",), "copy")])
+        elif isinstance(m, blocks.ResUp):
+            if m.up_type in ("Conv2", "Conv4"):
+                leaf_conv(prefix + "up.", path + ("ConvTranspose_0",), "convT")
+            core = path + ("_ResCore_0",)
+            leaf_conv(prefix + "conv_input.", core + ("Conv_0",), "conv")
+            for idx, name in ((0, "Conv_1"), (3, "Conv_2")):
+                leaf_conv(f"{prefix}conv.{idx}.", core + (name,), "conv")
+            for idx, name in ((1, "BatchNorm_0"), (4, "BatchNorm_1")):
+                walk(m.conv[idx], f"{prefix}conv.{idx}.", core + (name,))
+        else:
+            for name in own.get(type(m), ()):
+                out.append((prefix + name, "params", path + (name,), "copy"))
+            for attr, sub in _baseline_children(m):
+                walk(m.get_submodule(attr), f"{prefix}{attr}.", path + sub)
+
+    walk(module, "", ())
+    return out
+
+
+def _at(tree: Mapping, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _network(network: Union[str, nn.Module], params: Mapping, image_ch: int) -> nn.Module:
+    if isinstance(network, nn.Module):
+        return network
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.segmentation import (
+        NETWORK_REGISTRY,
+    )
+
+    num_classes = int(np.asarray(params["Conv_0"]["kernel"]).shape[-1])
+    return NETWORK_REGISTRY[network](num_classes, image_ch)
+
+
+def baseline_from_jax(network: Union[str, nn.Module], params: Mapping, batch_stats: Mapping,
+                      image_ch: int = 1) -> StateDict:
+    """A JAX baseline's ``params``/``batch_stats`` (numpy leaves, flax
+    auto-names) -> the state dict of the port's ``network`` (a module, or a
+    ``NETWORK_REGISTRY`` name, built with the head's class count and
+    ``image_ch`` input channels)."""
+    model = _network(network, params, image_ch)
+    trees = {"params": params, "batch_stats": batch_stats}
+    return {key: _t(kernel_to_torch(np.asarray(_at(trees[col], path)), kind))
+            for key, col, path, kind in baseline_entries(model)}
+
+
+@dataclass
+class BaselineTrainState:
+    """A JAX ``SegmentationSolver`` state in the port's terms: the online
+    network's ``state_dict``; ``ema``, the EMA parameters (None without
+    EMA); Adam's moments ``exp_avg``/``exp_avg_sq`` by parameter name;
+    ``step``, the update count; ``clip_nu``, the Adam-bound clip's own
+    second moments (None without the clip)."""
+
+    state_dict: StateDict
+    ema: Optional[StateDict]
+    exp_avg: StateDict
+    exp_avg_sq: StateDict
+    step: int
+    clip_nu: Optional[StateDict]
+
+
+def baseline_train_state_from_jax(network: Union[str, nn.Module], params: Mapping,
+                                  batch_stats: Mapping, opt_state,
+                                  image_ch: int = 1) -> BaselineTrainState:
+    """A JAX ``SegmentationSolver``'s ``TrainState`` fields -> a
+    :class:`BaselineTrainState`."""
+    ema = "online" in params
+    online = params["online"] if ema else params
+    model = _network(network, online, image_ch)
+    names = {n for n, _ in model.named_parameters()}
+
+    def param_part(tree) -> StateDict:
+        return {k: v for k, v in baseline_from_jax(model, tree, batch_stats).items() if k in names}
+
+    adam = _adam_state(opt_state)
+    clip = _find_state(opt_state, lambda s: isinstance(s, Mapping) and set(s) == {"nu", "count"})
+    return BaselineTrainState(
+        baseline_from_jax(model, online, batch_stats),
+        param_part(params["ema"]) if ema else None,
+        param_part(adam.mu), param_part(adam.nu), int(np.asarray(adam.count)),
+        param_part(clip["nu"]) if clip is not None else None)

@@ -18,6 +18,13 @@ train (batch statistics, running statistics updated) and train with
 frozen statistics (batch statistics, no update; :func:`frozen_stats`), the
 reference's ``_disable_tracking_bn_stats``.
 
+The baselines' blocks (the JAX package's ``Norm``, ``SNConv``,
+``upsample_bilinear`` and ``ResUp``'s ``bilinear`` and ``Conv4`` arms) are
+here too: :func:`norm_layer` (batch, instance or none), :class:`SNConv`
+(flax's spectral normalisation, one power iteration a call),
+:func:`upsample_bilinear` (align_corners=True) and the general
+:class:`ConvTranspose`.
+
 Layer dropout (the JAX package's ``encoder_dropout``/``decoder_dropout``):
 channel dropout at the end of each :class:`ResCore` in train mode, one
 keep mask shared over H and W.  The masks are operands: a caller hands a
@@ -157,6 +164,15 @@ def channel_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.T
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def layer_dropout(x: torch.Tensor, rate: Optional[float], training: bool) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate, broadcast_dims=(1, 2))`` at a call site:
+    in train mode with a rate, :func:`channel_dropout` on the next mask of
+    :func:`dropout_masks`; otherwise ``x``."""
+    if rate and training:
+        return channel_dropout(x, _next_mask(), rate)
+    return x
+
+
 class LeakyReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(x)
@@ -194,10 +210,8 @@ class ResCore(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(x)
-        out = leaky_relu(self.conv_input(x).to(h.dtype) + h)
-        if self.dropout is not None and self.training:
-            out = channel_dropout(out, _next_mask(), self.dropout)
-        return out
+        return layer_dropout(leaky_relu(self.conv_input(x).to(h.dtype) + h), self.dropout,
+                             self.training)
 
 
 class ResConvDown(ResCore):
@@ -222,22 +236,41 @@ class ResConvDown(ResCore):
         return super().forward(self.down(x))
 
 
-class ConvTranspose2x2(nn.Module):
-    """Stride-2 kernel-2 transposed conv with ``nn.ConvTranspose2d``'s state
-    dict (weight (C_in, C_out, 2, 2)), computing in ``dtype``, bias added
-    after in that dtype."""
+class ConvTranspose(nn.Module):
+    """Transposed conv with ``nn.ConvTranspose2d``'s (or ``3d``'s) state
+    dict, weight (C_in, C_out, *kernel), 2-D or 3-D by the kernel's rank,
+    computing in ``dtype`` (None: the input's) on ``F.conv_transpose*``
+    (full f32 when f32, :func:`full_f32`), bias added after in that dtype.
 
-    def __init__(self, c_in: int, c_out: int, dtype: Optional[torch.dtype]):
+    flax's ``ConvTranspose(kernel, strides, padding="SAME")`` is this with
+    ``padding = k - 1 - a`` on each axis, where ``a`` is the low padding
+    ``lax.conv_transpose`` gives the dilated input (``a = k - 1`` when
+    ``s > k - 1``, else ``ceil((k + s - 2) / 2)``): k2s2 -> 0, k4s2 -> 1,
+    k1s1 -> 0.  flax does not flip the kernel and PyTorch does, so
+    ``convert`` flips it."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: Sequence[int],
+                 stride: Sequence[int], padding: Sequence[int], dtype: Optional[torch.dtype]):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(c_in, c_out, 2, 2))
+        self.weight = nn.Parameter(torch.zeros(c_in, c_out, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out))
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        fn = F.conv_transpose2d if self.weight.dim() == 4 else F.conv_transpose3d
         with full_f32(dt):
-            y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, stride=2)
-        return y + self.bias.to(dt)[:, None, None]
+            y = fn(x.to(dt), self.weight.to(dt), None, stride=self.stride, padding=self.padding)
+        return y + self.bias.to(dt).view(-1, *([1] * (self.weight.dim() - 2)))
+
+
+class ConvTranspose2x2(ConvTranspose):
+    """Stride-2 kernel-2 transposed conv (the decoders' ``Conv2`` upsample)."""
+
+    def __init__(self, c_in: int, c_out: int, dtype: Optional[torch.dtype]):
+        super().__init__(c_in, c_out, (2, 2), (2, 2), (0, 0), dtype)
 
 
 def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -245,9 +278,121 @@ def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
+def _corner_coords(out_n: int, in_n: int, device) -> torch.Tensor:
+    if out_n == 1 or in_n == 1:
+        return torch.zeros(out_n, device=device)
+    return torch.arange(out_n, dtype=torch.float32, device=device) * ((in_n - 1) / (out_n - 1))
+
+
+def upsample_bilinear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """align_corners=True bilinear upsample of NCHW ``x`` by ``factor`` in
+    one step (the JAX package's ``upsample_bilinear``): output row i reads
+    input coordinate ``i (h - 1) / (H - 1)``, in float32; the fractions are
+    cast to x's dtype and the blend runs in it, as there."""
+    n, c, h, w = x.shape
+    oh, ow = h * factor, w * factor
+    ys, xs = _corner_coords(oh, h, x.device), _corner_coords(ow, w, x.device)
+    y0 = torch.floor(ys).long().clamp(0, h - 1)
+    x0 = torch.floor(xs).long().clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    fy = (ys - y0).view(1, 1, oh, 1).to(x.dtype)
+    fx = (xs - x0).view(1, 1, 1, ow).to(x.dtype)
+    rows0, rows1 = x.index_select(2, y0), x.index_select(2, y1)
+    top = rows0.index_select(3, x0) * (1 - fx) + rows0.index_select(3, x1) * fx
+    bot = rows1.index_select(3, x0) * (1 - fx) + rows1.index_select(3, x1) * fx
+    return top * (1 - fy) + bot * fy
+
+
+class InstanceNorm(nn.Module):
+    """flax's ``nn.InstanceNorm(epsilon=1e-5, use_scale=False,
+    use_bias=False, dtype=float32)``: per sample and channel over every
+    axis after 1, mean and flax's fast variance ``E[x^2] - E[x]^2``
+    (clamped at 0), in float32, output float32.  No parameters, no
+    running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        axes = list(range(2, x.dim()))
+        mean = x32.mean(axes, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(axes, keepdim=True) - mean * mean, min=0.0)
+        return (x32 - mean) * torch.rsqrt(var + BN_EPS)
+
+
+def norm_layer(kind: str, features: int) -> nn.Module:
+    """The JAX package's ``Norm(kind)``: ``batch`` (:class:`BatchNorm`),
+    ``instance`` (:class:`InstanceNorm`) or ``none`` (identity)."""
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"unknown norm kind {kind!r}")
+
+
+SN_EPS = 1e-12
+
+
+def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    return v * torch.rsqrt((v * v).sum() + SN_EPS)
+
+
+def power_iteration(weight: torch.Tensor, u: torch.Tensor):
+    """One step of flax's power iteration on the OIHW ``weight`` as a
+    (C_out, taps) matrix from ``u`` (1, C_out): ``(sigma, u')``, sigma with
+    a gradient to ``weight``, u' without (see :class:`SNConv`)."""
+    mat = weight.reshape(weight.shape[0], -1)
+    with torch.no_grad():
+        v = _l2_normalize(u @ mat)
+        u_new = _l2_normalize(v @ mat.t())
+    return ((v @ mat.t()) @ u_new.t())[0, 0], u_new
+
+
+class SNConv(Conv):
+    """Stride-1 SAME conv with optional spectral normalisation, the JAX
+    package's ``SNConv`` (flax ``nn.SpectralNorm``, one power iteration,
+    eps 1e-12), on :class:`Conv`'s routes.
+
+    With ``if_SN`` every call runs one power iteration from the stored
+    ``u`` (1, C_out) on the kernel as a matrix W (rows: the C_in x kh x kw
+    taps, columns: C_out; a permutation of flax's rows, which changes
+    neither u nor sigma): ``v = l2n(u W^T)``, ``u' = l2n(v W)``, both
+    without gradient; ``sigma = v W u'^T`` carries a gradient to the kernel,
+    and the conv runs on ``kernel / sigma`` (float32; cast to the compute
+    dtype by :meth:`Conv.conv`).  Train mode stores ``u'`` and ``sigma``;
+    eval mode stores nothing but still iterates (flax's eval output depends
+    on the stored ``u``).  PyTorch's ``spectral_norm`` differs (no
+    iteration in eval, a stored ``v``)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, if_SN: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(c_in, c_out, kernel_size, padding=kernel_size // 2, dtype=dtype)
+        self.if_SN = if_SN
+        if if_SN:
+            self.register_buffer("u", torch.zeros(1, c_out))
+            self.register_buffer("sigma", torch.ones(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.if_SN:
+            return super().forward(x)
+        return self.conv(x, self.normalized_weight())
+
+    def normalized_weight(self) -> torch.Tensor:
+        sigma, u = power_iteration(self.weight, self.u)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
 class ResUp(ResCore):
-    """x2 upsample ('NN' nearest or 'Conv2' k2s2 transposed conv), then the
-    residual core (``conv_nl`` and ``dropout`` as for :class:`ResCore`)."""
+    """x2 upsample, then the residual core (``conv_nl`` and ``dropout`` as
+    for :class:`ResCore`): ``up_type`` 'NN' (nearest), 'bilinear'
+    (:func:`upsample_bilinear`), 'Conv2' (k2s2 transposed conv) or 'Conv4'
+    (k4s2 "SAME" transposed conv, PyTorch's k4s2p1), the transposed convs
+    keeping the channels."""
 
     def __init__(self, c_in: int, features: int, up_type: str,
                  dtype: Optional[torch.dtype], conv_nl: bool = False,
@@ -255,10 +400,17 @@ class ResUp(ResCore):
         super().__init__(c_in, features, dtype, conv_nl, dropout)
         if up_type == "Conv2":
             self.up = ConvTranspose2x2(c_in, c_in, dtype)
-        elif up_type != "NN":
-            raise NotImplementedError(f"up_type {up_type!r} is not ported")
+        elif up_type == "Conv4":
+            self.up = ConvTranspose(c_in, c_in, (4, 4), (2, 2), (1, 1), dtype)
+        elif up_type not in ("NN", "bilinear"):
+            raise NotImplementedError(f"unknown up_type {up_type!r}")
         self.up_type = up_type
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.up(x) if self.up_type == "Conv2" else upsample_nearest(x)
+        if self.up_type == "NN":
+            x = upsample_nearest(x)
+        elif self.up_type == "bilinear":
+            x = upsample_bilinear(x)
+        else:
+            x = self.up(x)
         return super().forward(x)

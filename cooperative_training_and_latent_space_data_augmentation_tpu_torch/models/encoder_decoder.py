@@ -21,6 +21,11 @@ takes K5 (:func:`code_decoupler`).  ``dropout``: the rate of the channel
 dropout after each residual stage (the JAX package's ``encoder_dropout``
 and ``decoder_dropout``; :class:`..models.blocks.ResCore`); the code
 decoupler has none.
+
+:class:`DomainSpecificEncoder` (the JAX package's, with a static
+``domain_id``) is the encoder's topology with a bank of flax-style
+BatchNorms per domain in place of every norm
+(:class:`..models.layers.DomainSpecificBatchNorm`).
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.bl
     ResConvDown,
     ResUp,
     conv_bn_stack,
+    layer_dropout,
     leaky_relu,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.layers import (
+    DomainSpecificBatchNorm,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import Conv
 
@@ -124,3 +133,58 @@ class DualBranchEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         z_i = self.general_encoder(x)
         return z_i, self.code_decoupler(z_i)
+
+
+class _DomainSpecificDown(nn.Module):
+    """Stride-2 pad-1 3x3 downsample, then LReLU(conv1x1 + [conv3-DSBN-LReLU-
+    conv3-DSBN]) and optional channel dropout (the reference's
+    ``ds_res_convdown``)."""
+
+    def __init__(self, c_in: int, features: int, num_domains: int,
+                 dropout: Optional[float]):
+        super().__init__()
+        self.down = Conv(c_in, c_in, 3, stride=2, padding=1)
+        self.conv_input = Conv(c_in, features, 1)
+        self.conv1 = Conv(c_in, features, 3, padding=1)
+        self.norm_1 = DomainSpecificBatchNorm(features, num_domains)
+        self.conv2 = Conv(features, features, 3, padding=1)
+        self.norm_2 = DomainSpecificBatchNorm(features, num_domains)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, domain_id: int) -> torch.Tensor:
+        h = self.down(x)
+        r = leaky_relu(self.norm_1(self.conv1(h), domain_id))
+        r = self.norm_2(self.conv2(r), domain_id)
+        return layer_dropout(leaky_relu(self.conv_input(h) + r), self.dropout, self.training)
+
+
+class DomainSpecificEncoder(nn.Module):
+    """Encoder with per-domain BatchNorm banks: conv3-DSBN-LReLU-conv3-DSBN-
+    LReLU -> 4 stride-2 residual stages (widths (128, 256, 512, 512) //
+    feature_reduce) -> 1x1 conv + DSBN -> ``act``.  Every conv computes in
+    the input's dtype.  ``forward(x, domain_id)`` runs, and in train mode
+    moves the statistics of, only bank ``domain_id``."""
+
+    def __init__(self, in_ch: int = 1, feature_reduce: int = 1, num_domains: int = 2,
+                 act: Optional[str] = "sigmoid", dropout: Optional[float] = None):
+        super().__init__()
+        f = feature_reduce
+        widths = (64 // f, 128 // f, 256 // f, 512 // f, 512 // f)
+        self.conv1 = Conv(in_ch, widths[0], 3, padding=1)
+        self.norm_1 = DomainSpecificBatchNorm(widths[0], num_domains)
+        self.conv2 = Conv(widths[0], widths[0], 3, padding=1)
+        self.norm_2 = DomainSpecificBatchNorm(widths[0], num_domains)
+        for i in range(4):
+            self.add_module(f"down{i + 1}", _DomainSpecificDown(widths[i], widths[i + 1],
+                                                                num_domains, dropout))
+        self.final_conv = Conv(widths[4], widths[4], 1)
+        self.final_norm = DomainSpecificBatchNorm(widths[4], num_domains)
+        self.act = _ACTS[act]
+
+    def forward(self, x: torch.Tensor, domain_id: int = 0) -> torch.Tensor:
+        h = leaky_relu(self.norm_1(self.conv1(x), domain_id))
+        h = leaky_relu(self.norm_2(self.conv2(h), domain_id))
+        for down in (self.down1, self.down2, self.down3, self.down4):
+            h = down(h, domain_id)
+        h = self.final_norm(self.final_conv(h), domain_id)
+        return self.act(h) if self.act is not None else h

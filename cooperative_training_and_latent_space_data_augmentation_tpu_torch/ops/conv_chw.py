@@ -343,9 +343,16 @@ class Conv(nn.Module):
                 and not self.uses_k1() and eligible_channels_nl(c_in, c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """This layer's conv with the OIHW ``weight`` in place of its own
+        (a float32 weight derived inside autograd, such as a spectrally
+        normalised one), on this layer's route, stride, padding, dtype and
+        bias."""
         dt = self.dtype or x.dtype
         x = x.to(dt)
-        w = self.weight.to(dt)
+        w = weight.to(dt)
         if self.uses_k1():
             n, c, h, ww = x.shape
             y = conv3x3_chw_ad(x.reshape(n, c, h * ww).contiguous(),

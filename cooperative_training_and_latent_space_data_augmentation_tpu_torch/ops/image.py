@@ -15,10 +15,10 @@ import torch
 import torch.nn.functional as F
 
 
-def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """(N, H, W) integer labels -> (N, num_classes, H, W) float32 one-hot:
-    the label-map branch of ``construct_input``."""
-    return F.one_hot(labels.long(), num_classes).permute(0, 3, 1, 2).float()
+def one_hot(labels: torch.Tensor, num_classes: int, dtype=torch.float32) -> torch.Tensor:
+    """(N, *S) integer labels -> (N, num_classes, *S) one-hot in ``dtype``:
+    the label-map branch of ``construct_input`` (and the loss library's)."""
+    return F.one_hot(labels.long(), num_classes).to(dtype).movedim(-1, 1)
 
 
 def draw_smooth_alpha(generator: torch.Generator) -> torch.Tensor:

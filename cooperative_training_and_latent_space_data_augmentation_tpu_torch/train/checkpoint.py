@@ -31,20 +31,20 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.pre
 )
 
 
-def _host(obj):
+def host_copy(obj):
     """``obj`` with every tensor copied to the host (dicts and lists walked)."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().clone()
     if isinstance(obj, dict):
-        return {k: _host(v) for k, v in obj.items()}
+        return {k: host_copy(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_host(v) for v in obj)
+        return type(obj)(host_copy(v) for v in obj)
     return obj
 
 
 def module_state_dicts(model: CooperativePredictor) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{module: state_dict}`` of the five subnetworks, on the host."""
-    return {name: _host(getattr(model, name).state_dict()) for name in MODULE_NAMES}
+    return {name: host_copy(getattr(model, name).state_dict()) for name in MODULE_NAMES}
 
 
 def save_model(trainer: CooperativeTrainer, model_dir: str, epoch_iter) -> str:
@@ -80,7 +80,7 @@ def save_snapshot(trainer: CooperativeTrainer, model_dir: str, epoch: int) -> st
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"network_type": trainer.model.network_type, "epoch": int(epoch),
                 "modules": module_state_dicts(trainer.model),
-                "optimizer": _host(trainer.optimizer.state_dict())}, path)
+                "optimizer": host_copy(trainer.optimizer.state_dict())}, path)
     return path
 
 

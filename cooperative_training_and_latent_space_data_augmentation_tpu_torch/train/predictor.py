@@ -27,13 +27,22 @@ import torch.nn as nn
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
     BatchNorm,
-    ConvTranspose2x2,
+    ConvTranspose,
+    SNConv,
+    power_iteration,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.encoder_decoder import (
     Decoder,
     DualBranchEncoder,
     Encoder,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.layers import (
+    BatchInstanceNorm,
+    BiasedBatchNorm,
+    PlainConv,
+    SelfAttention,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.unet3d import Conv3d
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import Conv
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.image import (
     construct_input,
@@ -261,29 +270,73 @@ def _unit_normal(gen: torch.Generator, shape, cut: Optional[float] = None) -> to
     return z if cut is None else z.clamp(-cut, cut)
 
 
+def _truncated(gen: torch.Generator, w: torch.Tensor, variance: float) -> None:
+    """Fill ``w`` from a normal truncated at +-2 of its underlying std,
+    scaled so that its variance is ``variance`` (flax's truncated
+    ``variance_scaling``)."""
+    w.copy_(math.sqrt(variance) / TRUNC_STD * _unit_normal(gen, w.shape, TRUNC_CUT))
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, seed: int) -> None:
-    """Draw every parameter from ``seed`` on the CPU, from the distributions
-    the JAX package draws from (``models/blocks.py:49,79-82``): each conv
-    and transposed-conv kernel from flax's ``he_normal``, a normal of std
-    ``s = sqrt(2 / fan_in) / 0.8796...`` truncated at +-2 s, so its
-    variance is 2 / fan_in and no weight exceeds 2.274 sqrt(2 / fan_in)
-    (fan_in = C_in kh kw for both: flax reads a transposed kernel's
-    (kh, kw, C_in, C_out) with ``in_axis=-2``); zero biases; BN scale
-    1 + 0.02 N(0, 1), BN bias 0, running mean 0 and variance 1.  The
-    normals come from :func:`_unit_normal`, so a seed gives the same
+    """Draw every parameter from ``seed`` on the CPU, module by module, from
+    the distributions the JAX package draws from (``models/blocks.py:
+    49,79-82`` and flax's defaults):
+
+    * each conv and transposed-conv kernel of the JAX package's
+      ``conv_kernel_init`` (:class:`Conv`, :class:`SNConv`,
+      :class:`ConvTranspose`, :class:`Conv3d`) from flax's ``he_normal``, a
+      normal of std ``s = sqrt(2 / fan_in) / 0.8796...`` truncated at
+      +-2 s, so its variance is 2 / fan_in and no weight exceeds 2.274
+      sqrt(2 / fan_in) (fan_in = C_in x the kernel's taps for all: flax
+      reads a transposed kernel's (..., C_in, C_out) with ``in_axis=-2``);
+      a spectrally normalised conv's ``u`` from N(0, 1), its ``sigma`` 1,
+      and its kernel divided by the sigma of one power iteration from that
+      ``u`` (flax's ``SpectralNorm`` stores the normalised kernel at init,
+      with the statistics left as drawn: the JAX solver inits in eval
+      mode);
+    * each stock flax ``nn.Conv`` or ``nn.Dense`` (:class:`PlainConv`,
+      ``nn.Linear``) from flax's ``lecun_normal``, the same truncated
+      normal at variance 1 / fan_in;
+    * zero biases;
+    * the JAX package's BatchNorm (:class:`BatchNorm`): scale 1 + 0.02
+      N(0, 1), bias 0, running mean 0 and variance 1;
+    * flax's ``nn.BatchNorm`` (:class:`BiasedBatchNorm`): scale 1, bias 0,
+      running mean 0 and variance 1; :class:`BatchInstanceNorm`'s rho and
+      gamma 1, beta 0; :class:`SelfAttention`'s gamma 0.
+
+    The normals come from :func:`_unit_normal`, so a seed gives the same
     weights under any torch version."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (Conv, ConvTranspose2x2)):
+        if isinstance(m, (PlainConv, nn.Linear)):
             w = m.weight
-            fan_in = (w.shape[0] if isinstance(m, ConvTranspose2x2) else w.shape[1]) \
-                * w.shape[2] * w.shape[3]
-            std = math.sqrt(2.0 / fan_in) / TRUNC_STD
-            w.copy_(std * _unit_normal(gen, w.shape, TRUNC_CUT))
+            _truncated(gen, w, 1.0 / (w.shape[1] * math.prod(w.shape[2:])))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (Conv, ConvTranspose, Conv3d)):
+            w = m.weight
+            c_in = w.shape[0] if isinstance(m, ConvTranspose) else w.shape[1]
+            _truncated(gen, w, 2.0 / (c_in * math.prod(w.shape[2:])))
             m.bias.zero_()
+            if isinstance(m, SNConv) and m.if_SN:
+                m.u.copy_(_unit_normal(gen, m.u.shape))
+                m.sigma.fill_(1.0)
+                w.div_(power_iteration(w, m.u)[0])
         elif isinstance(m, BatchNorm):
             m.weight.copy_(1.0 + 0.02 * _unit_normal(gen, m.weight.shape))
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, BiasedBatchNorm):
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, BatchInstanceNorm):
+            m.rho.fill_(1.0)
+            m.gamma.fill_(1.0)
+            m.beta.zero_()
+        elif isinstance(m, SelfAttention):
+            m.gamma.zero_()

@@ -18,7 +18,10 @@ and their generator on the card against the CPU; ``cli.train``'s start at
 seed 40 against the numbers recorded on the CPU of a machine without a
 card; and the step's other configurations (``separate_training``, the
 two ablation network types, layer dropout, ``remat``, the saliency-BN
-arm) on the card against the CPU.
+arm) on the card against the CPU; and the baselines'
+``SegmentationSolver``: an f32 step on the card against the CPU, a bf16
+``predict`` of FCN_16 against its f32 twin, and a JAX ``.msgpack``
+checkpoint loaded on the card.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -1528,3 +1531,70 @@ def test_train_step_variant_on_card_matches_cpu(cuda, variant):
     for k, v in want.items():
         assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-7, k
     assert (g_mu - c_mu).norm() <= 2 * (m_mu - c_mu).norm()
+
+
+# ------------------------------------------------------------- baselines
+@pytest.mark.parametrize("network", ["UNet_16", "IN_SN_UNet_16"])
+def test_segmentation_solver_step_on_card_matches_cpu(cuda, network):
+    """One f32 SegmentationSolver step, card against CPU, held by
+    chip_smoke.py's ``baseline_train_check`` (losses, gradients and
+    updates against the CPU step's own sensitivity, buffers within 1e-4)."""
+    import chip_smoke
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+
+    image, label = phantom_batch(seed=3, n=2)
+    chip_smoke.baseline_train_check(torch, network, image, label, 1, "cuda")
+
+
+def test_fcn16_bf16_predict_on_card_matches_f32(cuda):
+    """FCN_16 with bf16 convs on the card against its f32 twin (same
+    weights), held by chip_smoke.py's ``compare_bf16``: against the bf16
+    solver on the CPU, at most twice what bf16 costs there against f32."""
+    import chip_smoke
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.segmentation import (
+        SegmentationSolver,
+    )
+
+    x = torch.from_numpy(phantom_batch(seed=4, n=4)[0])
+    card16 = SegmentationSolver("FCN_16", compute_dtype=torch.bfloat16, device="cuda", seed=2)
+    cpu16 = SegmentationSolver("FCN_16", compute_dtype=torch.bfloat16, device="cpu", seed=2)
+    card32 = SegmentationSolver("FCN_16", device="cuda", seed=2)
+    before = conv_chw.conv3x3_chw.launches
+    got = card16.predict(x.to("cuda")).cpu()
+    assert conv_chw.conv3x3_chw.launches - before == card16.expected_launches()["conv3x3_chw"]
+    assert got.dtype == torch.float32 and got.shape == (4, 192, 192, 4)
+    chip_smoke.compare_bf16(got, cpu16.predict(x), card32.predict(x.to("cuda")).cpu(),
+                            "FCN_16 bf16 on the card")
+
+
+def test_jax_msgpack_checkpoint_loads_on_card(cuda, tmp_path):
+    """A JAX solver's ``save_model`` file (written in flax's layout by
+    ``torch_port_flax``, no JAX here) loads into a solver on the card, which
+    then predicts what the CPU solver it came from predicts."""
+    from torch_port_flax import baseline_to_flax, write_flax_msgpack
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.segmentation import (
+        SegmentationSolver,
+    )
+
+    src = SegmentationSolver("SN_UNet_16", device="cpu", seed=3)
+    x = torch.from_numpy(phantom_batch(seed=5, n=2)[0])
+    src.train_step(x, torch.from_numpy(phantom_batch(seed=5, n=2)[1]))
+    params, stats = baseline_to_flax(src.model)
+    path = str(tmp_path / "SN_UNet_16.msgpack")
+    write_flax_msgpack(path, {"params": params, "batch_stats": stats})
+    card = SegmentationSolver("SN_UNet_16", device="cuda", seed=4)
+    card.load_model(path)
+    for (k, v), w in zip(src.model.state_dict().items(), card.model.state_dict().values()):
+        assert torch.equal(v, w.cpu()), k
+    want = src.predict(x)
+    got = card.predict(x.to("cuda")).cpu()
+    assert (got - want).abs().max() <= 2e-4 + 4e-6 * want.abs().max()

@@ -53,7 +53,9 @@ SCRIPT = textwrap.dedent("""
                 "data.base", "data.loader", "eval.metrics", "utils.logging", "train.checkpoint",
                 "train.driver", "cli.train", "data.nifti", "data.preprocess", "data.splits",
                 "data.acdc", "data.mnm", "eval.post_process", "eval.pairwise_measures",
-                "eval.tester", "cli.make_synthetic_acdc", "cli.test"}
+                "eval.tester", "cli.make_synthetic_acdc", "cli.test", "models.layers",
+                "models.unet", "models.unet3d", "train.segmentation", "utils.schedulers",
+                "utils.ema"}
     missing = {port.__name__ + "." + m for m in expected} - set(names)
     assert not missing, missing
     assert not kernels._libs, "a kernel library was loaded at import"

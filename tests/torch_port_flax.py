@@ -2,7 +2,11 @@
 
 ``to_flax(state_dicts)`` is the inverse of ``convert.from_jax``: it gives
 the ``(params, batch_stats)`` trees, keyed by the flax auto-names, that
-``from_jax`` maps back to the same state dicts.  A predictor drawn by the
+``from_jax`` maps back to the same state dicts.  ``baseline_to_flax(module)``
+does the same for a baseline network through ``convert.baseline_entries``,
+and ``write_flax_msgpack`` writes a tree as flax's ``serialization.to_bytes``
+does (a msgpack encoder on ``struct``), so a card test can make a JAX
+solver's ``.msgpack`` checkpoint where JAX is absent.  A predictor drawn by the
 port's ``init_parameters`` draws from the JAX package's initial
 distributions, so ``to_flax`` of it is a JAX-initialised state in JAX's
 layout, made without JAX: the card tests, which run where JAX is absent,
@@ -11,10 +15,13 @@ JAX package; ``test_torch_port_eval.py`` holds it against the JAX solver's
 own parameter tree.
 """
 
+import struct
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch import convert
 
 Tree = Dict[str, object]
 
@@ -97,3 +104,56 @@ def to_flax(state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> Tuple[Tree
         params[name], stats[name] = build(state_dicts[name])
     return params, stats
 
+
+
+def kernel_to_flax(w: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of ``convert.kernel_to_torch``."""
+    if kind == "copy":
+        return w
+    n = w.ndim
+    if kind == "convT":
+        k = np.transpose(w, tuple(range(2, n)) + (0, 1))
+        return np.ascontiguousarray(k[(slice(None, None, -1),) * (n - 2)])
+    return np.ascontiguousarray(np.transpose(w, tuple(range(2, n)) + (1, 0)))
+
+
+def baseline_to_flax(module: torch.nn.Module) -> Tuple[Tree, Tree]:
+    """A baseline network's state -> the JAX network's (params,
+    batch_stats), the inverse of ``convert.baseline_from_jax``."""
+    sd = module.state_dict()
+    trees = {"params": {}, "batch_stats": {}}
+    for key, col, path, kind in convert.baseline_entries(module):
+        node = trees[col]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = kernel_to_flax(_a(sd[key]), kind)
+    return trees["params"], trees["batch_stats"]
+
+
+def _pack(obj) -> bytes:
+    """msgpack of a tree of dicts, strings, ints, lists and arrays, arrays
+    as flax's ndarray extension (type 1: the msgpack of (shape, dtype name,
+    C-order bytes))."""
+    if isinstance(obj, dict):
+        head = bytes([0x80 | len(obj)]) if len(obj) < 16 else b"\xde" + struct.pack(">H", len(obj))
+        return head + b"".join(_pack(k) + _pack(v) for k, v in obj.items())
+    if isinstance(obj, str):
+        b = obj.encode()
+        if len(b) < 32:
+            return bytes([0xa0 | len(b)]) + b
+        return b"\xd9" + struct.pack(">B", len(b)) + b
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, int):
+        return bytes([obj]) if 0 <= obj < 128 else b"\xce" + struct.pack(">I", obj)
+    if isinstance(obj, (list, tuple)):
+        return bytes([0x90 | len(obj)]) + b"".join(_pack(v) for v in obj)
+    arr = np.ascontiguousarray(np.asarray(obj))
+    payload = _pack([list(arr.shape), arr.dtype.name, arr.tobytes()])
+    return b"\xc9" + struct.pack(">I", len(payload)) + b"\x01" + payload
+
+
+def write_flax_msgpack(path: str, tree: Tree) -> None:
+    """Write ``tree`` as flax's ``serialization.to_bytes`` would."""
+    with open(path, "wb") as f:
+        f.write(_pack(tree))
