@@ -16,7 +16,8 @@ downsamples on kernel K4, with K4dx and K4dw in the backward); and
 64..128-channel 3x3 convs at 24x24 and 12x12 on kernel K5, with K5 on
 flipped weights for dx and K5dw in the backward).  Then it runs the
 training augmentation pipeline into the train step, the training loop
-through the port's command line, the held-out evaluation of the loop's
+through the port's command line, its fused epoch and K-epoch window on
+CUDA graphs of the augmentation and the step, the held-out evaluation of the loop's
 best checkpoint through the port's test entry, the robustness protocol
 (training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
 table), the port's ``bench_b8_conv``, the path of the blocked conv K6 (with its
@@ -125,6 +126,30 @@ Phases, each printing its seconds when it ends:
    confusion matrix of that epoch, a snapshot loads back bit for bit, and
    every kernel launched as often as the drawn branches
    (``expected_launches``) and the validations' predicts require;
+9a. fused: the fused epoch, the K-epoch window and their CUDA graphs at
+   full width (``configs/ACDC/cooperative_training.json``, ``--synthetic
+   --bf16``, batch 20): all 9 branch tuples of ``mask_type="random"``
+   captured into one pool (``train/graphs.py:StepGraphs``; the gather, the
+   augmentation and the step), each eager and captured and then replayed
+   once, every step bit for bit equal to a twin capturable trainer's eager
+   step on the same draws (metrics; then parameters, BN buffers, Adam's
+   step and moments), each graph's launches at capture equal to
+   ``expected_launches`` (the counters tick at a capture, not at a
+   replay), the graphs' shared pool alone (its segments) with 9 graphs
+   under twice that with 1; the host ms a step to a synchronize, graphed
+   and eager (medians of 20); the protocol's epoch (2 steps and a
+   validation) in steady state, every tuple captured, fused, pipelined
+   and in 2-epoch windows (runs of 4 epochs, medians of 3); one traced
+   graphed epoch (4 replays and the validation graph) and the same 4
+   steps eager, traced, with their idle shares; then 3 epochs through
+   ``cli.train``'s functions with ``--fused_epoch``, with ``--fused_epoch
+   --pipeline_epoch``, with ``--fused_epoch --multi_epoch 2`` and on the
+   streaming path with a capturable trainer, the first three bit for bit
+   equal to the fourth (losses, confusion matrices, best epoch and score,
+   state), with each run's epoch seconds, captures and replays.  Its
+   launches are those the card made (``train/graphs.py:launched``: the
+   counters' ticks less the captures' counts, plus each graph's counts
+   once a replay);
 10. eval: the held-out evaluation through the port's test entry
    (``cli.test``'s ``parse_args``, ``load_predictor`` and ``run``) of the
    loop phase's best checkpoint, float32, ``predict(n_iter=2)``, on the
@@ -1263,6 +1288,347 @@ def loop_phase(torch, wrappers, predict_k1, tmp):
     return got, os.path.join(model_dir, "best", "checkpoints")
 
 
+FUSED_EPOCHS = 3      # epochs of each fused-phase loop run
+FUSED_TIMED = 20      # steps timed graphed and eager
+FUSED_TRACED = 4      # steps of the traced graphed epoch
+STEADY_EPOCHS = 4     # epochs of a timed steady-state run of each epoch mode
+STEADY_RUNS = 3       # timed runs of each mode, in alternating order
+MASK_TYPES = ("dropout", "spatial", "channel")
+
+
+def _same_state(torch, a, b):
+    """Parameters, BN buffers and Adam's state of two trainers bit for bit."""
+    same = all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                 b.model.state_dict().values()))
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        same &= bool(torch.equal(sa["step"], sb["step"])) and all(
+            torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq"))
+    return same
+
+
+def fused_phase(torch, wrappers, tmp, smi):
+    """The fused phase (see the module docstring), its runs under ``tmp``.
+    Returns the launches by wrapper the card made over the phase: the
+    eager steps' and each graph's once a replay (``launched``)."""
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        LatentDAConfig,
+        MaskConfig,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        CooperativeBatcher,
+        EvalBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import (
+        draw_augment,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        device_time,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        StagedDraws,
+        draw_step,
+        stage_draws,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
+        GeneratorDraws,
+        fetch_to_host,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+        ValidationGraph,
+        launched,
+        pool_bytes,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+        MODULE_NAMES,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.multi_epoch import (
+        WindowRunner,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    for w in wrappers.values():
+        w.launches = 0
+    t_part = time.perf_counter()
+
+    def part_done(what):
+        nonlocal t_part
+        print(f"  ({what}: {time.perf_counter() - t_part:.3f} s)", flush=True)
+        t_part = time.perf_counter()
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    argv = ["--json_config_path", config, "--synthetic", "--bf16", "--max_epochs",
+            str(FUSED_EPOCHS), "--log"]
+    args = cli.parse_args(argv + ["--fused_epoch", "--save_dir", os.path.join(tmp, "fused")])
+    cfg, name = cli.load_config(args)
+    cfg.output.save_epoch_every_num_epochs = 10
+    train_set, val_set = cli.build_datasets(cfg, args)
+    lda, data = cfg.latent_DA, cfg.data
+
+    # 1. every branch tuple captured into one pool, each held to a twin
+    #    capturable trainer's eager step on the same draws
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainers = [cli.build_trainer(cfg, args) for _ in range(2)]
+    batcher = CooperativeBatcher(train_set, cfg.learning.batch_size, data.data_aug_policy,
+                                 data.pad_hw, data.crop_hw, keep_orig=True, seed=args.seed,
+                                 device="cuda")
+    graphs = StepGraphs(trainers[0], batcher.pipeline_idx, *batcher.device_dataset())
+    eager = StepGraphs(trainers[1], batcher.pipeline_idx, *batcher.device_dataset())
+    torch.cuda.synchronize()
+    gen = torch.Generator().manual_seed(args.seed)
+    pairs, configs = [], []
+    for image_type in MASK_TYPES:
+        for shape_type in MASK_TYPES:
+            forced = LatentDAConfig(image_code=MaskConfig("mse", image_type),
+                                    shape_code=MaskConfig("ce", shape_type))
+            for _ in range(2):  # eager and captured, then replayed
+                pairs.append((draw_augment(gen, batcher.policy, batcher.raw_bs, data.pad_hw),
+                              draw_step(gen, batcher.step_batch, data.crop_hw, forced)))
+                configs.append(forced)
+    staged = StagedDraws(pairs, "cuda")
+    idx = torch.from_numpy(np.stack([batcher.epoch_index_matrix()[0]
+                                     for _ in range(len(pairs))])).to("cuda")
+    got = torch.empty((len(pairs), 10), device="cuda")
+    pool, peak = [], []
+    for k, (s, forced) in enumerate(zip(staged.steps, configs)):
+        for t in trainers:
+            t.latent_da = forced
+        graphs.run(idx[k], s, got[k])
+        want = eager.body(idx[k], s.augment, s.step)
+        if not torch.equal(got[k], want):
+            raise AssertionError(f"graphed step {k} (branches {s.branches}): metrics "
+                                 f"{got[k].tolist()}, eager {want.tolist()}")
+        torch.cuda.synchronize()
+        if k % 2 == 0:
+            pool.append(pool_bytes(graphs.pool))
+            peak.append(torch.cuda.max_memory_reserved())
+    if not _same_state(torch, *trainers):
+        raise AssertionError("the graphed trainer's state differs from the eager twin's")
+    for key, captured in graphs.graphs.items():
+        want = trainers[0].expected_launches({"image": key[0], "shape": key[1]})
+        if {k: captured.launches[k] for k in want} != want:
+            raise AssertionError(f"graph {key}: launches at capture {captured.launches}, "
+                                 f"expected {want}")
+    if len(graphs.graphs) != 9 or sum(graphs.replays.values()) != 9:
+        raise AssertionError(f"{len(graphs.graphs)} graphs, replays {dict(graphs.replays)}")
+    print(f"  9 branch tuples captured, each replayed once, bit for bit equal to the eager "
+          f"twin's steps (metrics, parameters, BN buffers, Adam's step and moments); "
+          f"launches at capture = expected_launches for all 9", flush=True)
+    print("  capture s a graph: " + ", ".join(
+        f"{key[:2]} {c.seconds:.3f}" for key, c in graphs.graphs.items()), flush=True)
+    (r1, a1), (r9, a9) = pool[0], pool[-1]
+    print(f"  the graphs' shared pool (its segments; GiB): {r1 / 2**30:.4f} reserved, "
+          f"{a1 / 2**30:.4f} live with 1 graph; {r9 / 2**30:.4f}, {a9 / 2**30:.4f} with 9 "
+          f"(ratio {r9 / r1:.4f}); the process's max_memory_reserved {peak[0] / 2**30:.4f} / "
+          f"{peak[-1] / 2**30:.4f} GiB (the pool, plus the caches of the eager first steps "
+          f"and the twin's steps)", flush=True)
+    if not (0 < r1 and r9 < 2 * r1):
+        raise AssertionError(f"the pool grew with the graphs: {pool}")
+
+    part_done("captures")
+    # 2. host ms a step to a synchronize: replays (random draws, every
+    #    tuple already captured) against the twin's eager steps
+    for t in trainers:
+        t.latent_da = lda
+    timed = stage_draws(GeneratorDraws(args.seed + 2), [0], FUSED_TIMED, batcher.policy,
+                        batcher.raw_bs, data.pad_hw, batcher.step_batch, data.crop_hw, lda,
+                        "cuda")
+    times = {"graphed": [], "eager": []}
+    out = torch.empty(10, device="cuda")
+    for s in timed.steps:
+        for key, fn in (("graphed", lambda: graphs.run(idx[0], s, out)),
+                        ("eager", lambda: out.copy_(eager.body(idx[0], s.augment, s.step)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    if len(graphs.graphs) != 9:
+        raise AssertionError("a timed step captured a new graph")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  host ms a step to a synchronize, median of {FUSED_TIMED} (min, max): graphed "
+          f"{med['graphed']:.3f} ({min(times['graphed']):.3f}, {max(times['graphed']):.3f}), "
+          f"eager {med['eager']:.3f} ({min(times['eager']):.3f}, {max(times['eager']):.3f}); "
+          f"{med['eager'] / med['graphed']:.2f}x", flush=True)
+
+    part_done("timed steps")
+    # 3. the protocol's epoch (its steps and one validation) in steady
+    #    state, every tuple captured, in runs of STEADY_EPOCHS epochs: fused
+    #    (staging, replays, validation, the read backs at each epoch's end),
+    #    pipelined (the same, each epoch's results and state fetched by the
+    #    driver's fetch_to_host and read after the next epoch is dispatched)
+    #    and in 2-epoch windows, host clock; then a traced graphed epoch of
+    #    FUSED_TRACED replays and the validation graph, and the same steps
+    #    eager, traced, for their idle shares
+    validate = ValidationGraph(trainers[0].model, *EvalBatcher(
+        val_set, cfg.learning.batch_size, data.pad_hw, data.crop_hw, device="cuda"
+    ).stacked_epoch(), pool=graphs.pool, stream=graphs.stream)
+    confusion = torch.empty((4, 4), dtype=torch.int64, device="cuda")
+    validate(confusion)
+    window = WindowRunner(graphs.run_epoch, validate, trainers[0].model)
+    nb = len(batcher)
+
+    def stage(n_epochs, seed):
+        return stage_draws(GeneratorDraws(seed), range(n_epochs), nb, batcher.policy,
+                           batcher.raw_bs, data.pad_hw, batcher.step_batch, data.crop_hw, lda,
+                           "cuda")
+
+    def one_epoch(seed):
+        metrics = graphs.run_epoch(batcher.epoch_index_matrix(), stage(1, seed).steps)
+        return metrics, validate(torch.empty((4, 4), dtype=torch.int64, device="cuda"))
+
+    def fused_epochs(seed):
+        for e in range(STEADY_EPOCHS):
+            metrics, conf = one_epoch(seed + e)
+            metrics.cpu(), conf.cpu()
+
+    def pipelined_epochs(seed):
+        wait = None
+        for e in range(STEADY_EPOCHS):
+            metrics, conf = one_epoch(seed + e)
+            fetched = fetch_to_host((metrics, conf, {
+                name: getattr(trainers[0].model, name).state_dict() for name in MODULE_NAMES}))
+            if wait is not None:
+                wait()
+            wait = fetched[0]
+        wait()
+
+    def windowed(seed):
+        for e in range(0, STEADY_EPOCHS, 2):
+            idx_mats = np.stack([batcher.epoch_index_matrix() for _ in range(2)])
+            out = window(idx_mats, stage(2, seed + e).steps, -1e9)
+            [out[k].cpu() for k in ("metrics", "confusion", "best_epoch")]
+
+    modes = (("fused", fused_epochs), ("pipelined", pipelined_epochs), ("windowed", windowed))
+    epoch_sec = {k: [] for k, _ in modes}
+    for r in range(STEADY_RUNS):
+        for key, fn in modes if r % 2 == 0 else modes[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(args.seed + 10 + r * STEADY_EPOCHS)
+            torch.cuda.synchronize()
+            epoch_sec[key].append((time.perf_counter() - t0) / STEADY_EPOCHS)
+    if len(graphs.graphs) != 9:
+        raise AssertionError("a steady-state epoch captured a new graph")
+    med = {k: statistics.median(v) for k, v in epoch_sec.items()}
+    print(f"  steady-state epoch s of the protocol ({nb} steps of batch "
+          f"{batcher.step_batch}, validation of {len(val_set)} slices), runs of "
+          f"{STEADY_EPOCHS} epochs, median of {STEADY_RUNS} runs (min, max): " + "; ".join(
+              f"{k} {med[k]:.4f} ({min(v):.4f}, {max(v):.4f})" for k, v in epoch_sec.items())
+          + f"; pipelined / fused {med['pipelined'] / med['fused']:.4f}", flush=True)
+    traced = stage_draws(GeneratorDraws(args.seed + 3), [0], FUSED_TRACED, batcher.policy,
+                         batcher.raw_bs, data.pad_hw, batcher.step_batch, data.crop_hw, lda,
+                         "cuda")
+    idx_mat = np.stack([batcher.epoch_index_matrix()[0] for _ in range(FUSED_TRACED)])
+    runs = {"graphed": lambda: (graphs.run_epoch(idx_mat, traced.steps), validate(confusion)),
+            "eager": lambda: [eager.body(idx[0], s.augment, s.step) for s in traced.steps]}
+    part_done("steady epochs")
+    for key, fn in runs.items():
+        torch.cuda.synchronize()
+        # the device's activity alone: the host's op events of thousands of
+        # eager launches would take the profiler longer to sort than the run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        by_group, _, _ = device_time(prof.key_averages())
+        busy = sum(by_group.values()) / 1e6
+        if busy == 0:
+            print(f"  the profiler saw no device time ({key}): idle share not measured",
+                  flush=True)
+            continue
+        print(f"  traced {key} epoch ({FUSED_TRACED} steps"
+              f"{' and the validation graph' if key == 'graphed' else ''}): "
+              f"{span * 1e3:.3f} ms on the host clock, device busy {busy * 1e3:.3f} ms "
+              f"({busy * 1e3 / FUSED_TRACED:.3f} a step), idle share {1 - busy / span:.4f}; "
+              f"by group (ms): " + ", ".join(
+                  f"{g} {us / 1e3:.3f}" for g, us in sorted(by_group.items(),
+                                                             key=lambda kv: -kv[1])),
+              flush=True)
+    if len(graphs.graphs) != 9:
+        raise AssertionError("a traced step captured a new graph")
+    counted = launched({k: w.launches for k, w in wrappers.items()}, [graphs, eager],
+                       [validate])
+    del graphs, eager, validate, window, trainers
+    torch.cuda.empty_cache()
+
+    part_done("traces")
+    # 4. the loop through the command line: fused, pipelined, windowed, and
+    #    the streaming loop of a capturable trainer, on the same draws
+    def loop(tag, extra):
+        a = cli.parse_args(argv + extra + ["--save_dir", os.path.join(tmp, tag)])
+        c, n = cli.load_config(a)
+        c.output.save_epoch_every_num_epochs = 10
+        if "--fused_epoch" in extra:
+            return cli.run(a, c, n)
+        trainer = cli.build_trainer(c, cli.parse_args(argv + ["--fused_epoch"]))
+        return cli.run_trainer(a, c, n, trainer, *cli.build_datasets(c, a))
+
+    runs = {}
+    for tag, extra in (("streaming", []), ("fused", ["--fused_epoch"]),
+                       ("pipelined", ["--fused_epoch", "--pipeline_epoch"]),
+                       ("windowed", ["--fused_epoch", "--multi_epoch", "2"])):
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        trainer, result = loop(tag, extra)
+        torch.cuda.synchronize()
+        runs[tag] = (trainer, result, time.perf_counter() - t0,
+                     {k: w.launches - before[k] for k, w in wrappers.items()})
+        torch.cuda.empty_cache()
+    s_tr, s_res = runs["streaming"][:2]
+    for tag in ("fused", "pipelined", "windowed"):
+        trainer, result = runs[tag][:2]
+        if [e.epoch for e in result.epochs] != list(range(FUSED_EPOCHS)):
+            raise AssertionError(f"{tag}: epochs {[e.epoch for e in result.epochs]}")
+        for a, b in zip(s_res.epochs, result.epochs):
+            if not (np.array_equal(a.losses, b.losses) and np.array_equal(a.confusion,
+                                                                          b.confusion)):
+                raise AssertionError(f"{tag} epoch {b.epoch}: losses or confusion differ from "
+                                     f"the streaming loop's")
+        if (result.best_epoch, result.best_score) != (s_res.best_epoch, s_res.best_score):
+            raise AssertionError(f"{tag}: best {result.best_epoch} {result.best_score}, "
+                                 f"streaming {s_res.best_epoch} {s_res.best_score}")
+        if not _same_state(torch, s_tr, trainer):
+            raise AssertionError(f"{tag}: the state differs from the streaming loop's")
+        for key, captured in result.graphs.graphs.items():
+            want = trainer.expected_launches({"image": key[0], "shape": key[1]})
+            if {k: captured.launches[k] for k in want} != want:
+                raise AssertionError(f"{tag} graph {key}: launches {captured.launches}")
+    print(f"  {FUSED_EPOCHS} epochs through cli.train: fused, pipelined (--pipeline_epoch) and "
+          f"windowed (--multi_epoch 2) bit for bit equal to the streaming loop of a capturable "
+          f"trainer on the same draws (losses, confusion matrices, best epoch and score, "
+          f"parameters, BN buffers, Adam)", flush=True)
+    for tag, (trainer, result, sec, got) in runs.items():
+        g = result.graphs
+        captures = ", ".join(f"{c.seconds:.3f}" for c in g.graphs.values()) if g else ""
+        extra = "" if g is None else (
+            f"; {len(g.graphs)} graphs captured ({captures} s), "
+            f"{sum(g.replays.values())} step replays, {result.validation.replays} validation "
+            f"replays, {g.eager_steps} eager steps")
+        print(f"  {tag}: {sec:.3f} s in all; epoch s (train + val): " + ", ".join(
+            f"{e.train_sec + e.val_sec:.4f}" for e in result.epochs)
+            + f"; draws {', '.join(f'{e.draw_sec * 1e3:.3f}' for e in result.epochs)} ms"
+            + extra, flush=True)
+        got = launched(got, [] if g is None else [g],
+                       [] if result.validation is None else [result.validation])
+        for k in counted:
+            counted[k] += got[k]
+    part_done("loops")
+    if any(counted[k] == 0 for k in LAUNCH_COUNTERS[:4]):
+        raise AssertionError(f"the fused phase did not launch K1, K1 dx, K2 and K3: {counted}")
+    print("  launches on the card over the phase (eager steps, and each graph's counts once "
+          "a replay): " + ", ".join(f"{k} {counted[k]}" for k in LAUNCH_COUNTERS[:4]),
+          flush=True)
+    print(f"  {smi}", flush=True)
+    return counted
+
+
 def eval_phase(torch, wrappers, predict_k1, best_dir, tmp, smi):
     """The eval phase (see the module docstring): the loop's best checkpoint
     ``best_dir`` evaluated on a synthetic tree written under ``tmp``.
@@ -2113,6 +2479,10 @@ def main():
             loop_launches, best_dir = loop_phase(torch, wrappers, k1_per_predict, tmp)
             torch.cuda.empty_cache()
 
+        with phase("fused"):
+            fused_launches = fused_phase(torch, wrappers, tmp, smi)
+            torch.cuda.empty_cache()
+
         with phase("eval"):
             eval_launches = eval_phase(torch, wrappers, k1_per_predict, best_dir, tmp, smi)
             torch.cuda.empty_cache()
@@ -2179,7 +2549,7 @@ def main():
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
-                + aug_launches[k] + loop_launches[k]
+                + aug_launches[k] + loop_launches[k] + fused_launches[k]
                 + eval_launches[k] + robust_launches[k] + b8_launches[k] + base_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []

@@ -26,6 +26,15 @@ its ``--remat``.  The configuration's ``network_type`` (the three of
 ``train.predictor.NETWORK_TYPES``), ``encoder_dropout``,
 ``decoder_dropout`` and ``separate_training`` reach the trainer as they
 reach the JAX package's.
+
+``--fused_epoch`` trains each epoch as the fused epoch (the JAX package's
+``FUSED_EPOCH=1``: on the card, replays of CUDA graphs of the
+augmentation and the train step, with a ``capturable`` Adam), ``--multi_epoch
+E`` adds the K-epoch window of E epochs (``MULTI_EPOCH=E``) and
+``--pipeline_epoch`` the pipelined fetch (``PIPELINE_EPOCH=1``); see
+``train/driver.py``.  Every configuration above runs graphed (each is
+held to its eager step on the card); a combination of the three flags
+that does not exist is refused at start.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.coo
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
     TrainResult,
+    check_epoch_modes,
     experiment_dirs,
     train_network,
 )
@@ -96,6 +106,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="the saliency forwards track BN running statistics (the reference's)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--fused_epoch", action="store_true",
+                   help="each epoch as replays of CUDA graphs of the augmentation and the step")
+    p.add_argument("--multi_epoch", type=int, default=0,
+                   help="with --fused_epoch: K-epoch windows of this many epochs")
+    p.add_argument("--pipeline_epoch", action="store_true",
+                   help="with --fused_epoch: read each epoch back after the next is dispatched")
     return p.parse_args(argv)
 
 
@@ -167,12 +183,15 @@ def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> Cooperativ
         conv_s2=args.conv_s2, conv_nl=args.conv_nl, network_type=model.network_type,
         encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
         separate_training=learning.separate_training, remat=args.remat,
-        saliency_bn_update=args.saliency_bn_update)
+        saliency_bn_update=args.saliency_bn_update,
+        capturable=args.fused_epoch and args.device != "cpu")
 
 
 def run(args: argparse.Namespace, cfg: ExperimentConfig,
         config_name: str) -> Tuple[CooperativeTrainer, TrainResult]:
-    """Build the datasets and the trainer and train: (trainer, result)."""
+    """Build the datasets and the trainer and train: (trainer, result);
+    an epoch-mode combination that does not exist is refused first."""
+    check_epoch_modes(args.fused_epoch, args.multi_epoch, args.pipeline_epoch)
     train_set, val_set = build_datasets(cfg, args)
     return run_trainer(args, cfg, config_name, build_trainer(cfg, args), train_set, val_set)
 
@@ -188,7 +207,8 @@ def run_trainer(args: argparse.Namespace, cfg: ExperimentConfig, config_name: st
         experiment_name=f"{config_name}_cv{args.cval}", train_set=train_set,
         validate_set=val_set, trainer=trainer, cfg=cfg, model_dir=model_dir, log_dir=log_dir,
         log=args.log, seed=args.seed, resume_path=args.resume_path,
-        max_epochs=args.max_epochs)
+        max_epochs=args.max_epochs, fused_epoch=args.fused_epoch,
+        multi_epoch=args.multi_epoch, pipeline_epoch=args.pipeline_epoch)
     print(f"done: best val Mean IoU {result.best_score:.4f} at epoch {result.best_epoch} "
           f"(last epoch {result.last_epoch})")
     return trainer, result

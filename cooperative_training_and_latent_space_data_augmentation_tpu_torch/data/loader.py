@@ -6,8 +6,10 @@ Counterpart of the JAX package's ``data/loader.py`` (``BatchSampler``,
 host only collates raw fixed-shape numpy samples; the augmentation runs on
 the device (:mod:`..ops.augment`) with its random draws taken from the
 caller's draw source (see :mod:`..train.driver`), where the JAX package
-splits a key.  Its fused epoch (``fused_epoch_runner``), the stacked
-validation epoch and every ``sharding`` argument are left out.
+splits a key.  The fused epoch (``CooperativeBatcher.epoch_index_matrix``
+and ``fused_epoch_runner``) and the stacked validation epoch
+(``EvalBatcher.stacked_epoch``) are ported for one device; every
+``sharding`` and ``mesh`` argument is left out.
 
 ``CooperativeBatcher`` keeps the batch-halving of
 ``keep_orig_image_label_pair_for_training``: each raw sample gives an
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +35,11 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augme
     make_batch_train_pipeline,
     make_batch_train_pipeline_indexed,
 )
+
+if TYPE_CHECKING:
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+    )
 
 # Datasets up to this many bytes of padded image + label data are kept on
 # the device, so a batch costs one small index transfer (the JAX package's
@@ -194,6 +201,36 @@ class CooperativeBatcher:
                             torch.from_numpy(raw["label"].astype(np.uint8)).to(self.device))
         return self._cached
 
+    @property
+    def step_batch(self) -> int:
+        """Samples a train step sees: ``raw_bs``, twice that with
+        ``keep_orig``."""
+        return self.raw_bs * (2 if self.keep_orig else 1)
+
+    def epoch_index_matrix(self) -> np.ndarray:
+        """(K, raw_bs) int64 indices of one epoch's batches, the host side
+        of the fused epoch: it takes the sampler's next epoch, as
+        :meth:`epoch` does, so fused and streaming epochs see the same
+        batch orders."""
+        return np.stack(list(self.sampler.epoch())).astype(np.int64)
+
+    def fused_epoch_runner(self, trainer) -> StepGraphs:
+        """The JAX package's ``fused_epoch_runner``: every (gather +
+        augment + train step) of an epoch against the dataset on the
+        device, one CUDA graph replay a step on the card, no read back.
+        Needs the dataset on the device (``device_cache``); raises
+        otherwise.  Returns the epoch's ``train/graphs.py:StepGraphs``,
+        whose ``run_epoch(idx_mat, steps) -> (K, 10) metrics`` is the run."""
+        if not self.device_cache:
+            raise ValueError("the fused epoch gathers its batches from the dataset on the "
+                             "device, and this dataset is over DEVICE_CACHE_LIMIT_BYTES; "
+                             "train it without --fused_epoch")
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+            StepGraphs,
+        )
+
+        return StepGraphs(trainer, self.pipeline_idx, *self.device_dataset())
+
     def raw_epoch(self) -> Iterator[Dict[str, np.ndarray]]:
         """Numpy-only collation, safe to run on a prefetch thread."""
         for indices in self.sampler.epoch():
@@ -256,6 +293,17 @@ class EvalBatcher:
             img, lbl = self.eval_transform(torch.from_numpy(raw["image"]).to(self.device),
                                            torch.from_numpy(raw["label"]).to(self.device))
             yield {"image": img, "label": lbl, "real_count": real_count}
+
+    def stacked_epoch(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The whole validation epoch stacked on the device: images (Nb, B,
+        h, w, C) float32, labels (Nb, B, h, w) int32 and real counts (Nb,)
+        int32, the input of ``train/graphs.py:ValidationGraph`` (the JAX
+        package's ``stacked_epoch``, the K-epoch window's format)."""
+        batches = list(self.epoch())
+        reals = np.asarray([b["real_count"] for b in batches], np.int32)
+        return (torch.stack([b["image"] for b in batches]),
+                torch.stack([b["label"].to(torch.int32) for b in batches]),
+                torch.from_numpy(reals).to(self.device))
 
     def epoch(self) -> Iterator[Dict[str, torch.Tensor]]:
         if not self.device_cache:

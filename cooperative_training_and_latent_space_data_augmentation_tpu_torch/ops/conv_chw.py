@@ -287,6 +287,42 @@ def full_f32(dtype: torch.dtype):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _PointwiseF32(torch.autograd.Function):
+    """A float32 1x1 stride-1 conv whose weight gradient is one batched
+    matmul in full f32, summed over the batch in a fixed order, so it is
+    deterministic.  Every such conv on the card takes it: cuDNN's weight
+    gradient for the decoders' 1x1 output convs over 192^2 pixels either
+    sums with atomics (its default algorithms, so two steps on the same
+    inputs part) or, restricted to deterministic algorithms, is a direct
+    kernel of about 3.9 ms a call (8 a step; measured on an H100), against
+    one matmul over the same bytes.  The forward and dx are convs, which
+    cuDNN computes deterministically."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with full_f32(torch.float32):
+            return F.conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            with full_f32(torch.float32):
+                dx = F.conv2d(dy, w.transpose(0, 1))
+        if ctx.needs_input_grad[1]:
+            n, c = x.shape[:2]
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                dw = torch.matmul(dy.reshape(n, dy.shape[1], -1),
+                                  x.reshape(n, c, -1).transpose(1, 2)).sum(0).view_as(w)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+        return dx, dw
+
+
 class Conv(nn.Module):
     """Conv layer with an ``nn.Conv2d`` state dict (OIHW ``weight``,
     ``bias``) that computes in ``dtype`` (None: the input's dtype) and
@@ -310,7 +346,9 @@ class Conv(nn.Module):
       decoders' residual stages), not the code decoupler's stock
       ``nn.Conv``, so only those blocks build their convs with ``k5``;
     * every other conv goes to ``F.conv2d``, as the JAX package leaves those
-      to XLA, in full f32 when it computes in f32 (:func:`full_f32`);
+      to XLA, in full f32 when it computes in f32 (:func:`full_f32`); a
+      float32 1x1 stride-1 conv on the card takes its weight gradient from
+      a matmul instead (:class:`_PointwiseF32`);
     * the bias is added after the conv, in the compute dtype.
     """
 
@@ -368,6 +406,9 @@ class Conv(nn.Module):
             y = conv3x3_nl_ad(x.reshape(n, c, h * ww).contiguous(),
                               weights_to_wall(w).contiguous(), h, ww)
             y = y.reshape(n, -1, h, ww)
+        elif (dt == torch.float32 and x.is_cuda and w.shape[2:] == (1, 1)
+              and self.stride == 1 and self.padding == 0):
+            y = _PointwiseF32.apply(x, w)
         else:
             with full_f32(dt):
                 y = F.conv2d(x, w, None, self.stride, self.padding)

@@ -10,8 +10,11 @@ and a resumable snapshot under
 ``{model_dir}/interrupted/checkpoints/{network_type}.pth``.  Tensors are
 written from the host and read back to the host (``weights_only=True``),
 then copied into the modules, so a checkpoint made on the card loads on
-the CPU and back, and Adam's step stays a host tensor, as ``torch.optim``
-keeps it (a step on the card would be read back every update).
+the CPU and back.  Adam's step is written from the host too, and a loaded
+snapshot puts it where the loading trainer keeps it: on the host as
+``torch.optim`` keeps it by default (a step on the card would be read back
+every update), on the parameters' device for a ``capturable`` trainer,
+whose graphed step updates it there.
 """
 
 from __future__ import annotations
@@ -51,10 +54,18 @@ def save_model(trainer: CooperativeTrainer, model_dir: str, epoch_iter) -> str:
     """Write each module's ``state_dict`` (parameters and BN running
     statistics) to ``{model_dir}/{epoch_iter}/checkpoints/{module}.pth``;
     returns that directory."""
+    return save_state_dicts(module_state_dicts(trainer.model), model_dir, epoch_iter)
+
+
+def save_state_dicts(state_dicts: Dict[str, Dict[str, torch.Tensor]], model_dir: str,
+                     epoch_iter) -> str:
+    """:func:`save_model` of ``{module: state_dict}`` held apart from a
+    trainer (a device copy of an earlier epoch's state, the K-epoch
+    window's best buffers), written from the host."""
     path = join(model_dir, str(epoch_iter), "checkpoints")
     os.makedirs(path, exist_ok=True)
-    for name, sd in module_state_dicts(trainer.model).items():
-        torch.save(sd, join(path, f"{name}.pth"))
+    for name in MODULE_NAMES:
+        torch.save(host_copy(state_dicts[name]), join(path, f"{name}.pth"))
     return path
 
 
@@ -97,4 +108,5 @@ def load_snapshot(trainer: CooperativeTrainer, path: str) -> int:
                          f"{trainer.model.network_type}")
     trainer.model.load_state_dicts(payload["modules"])
     trainer.optimizer.load_state_dict(payload["optimizer"])
+    trainer.place_optimizer_state()
     return int(payload["epoch"])

@@ -27,6 +27,17 @@ its dropout masks, the next ones of ``StepDraws.dropout``, and with
 package's ``jax.checkpoint`` around each submodule apply), the recompute
 running with BN statistics frozen so that they move once, as the JAX
 package's pure recompute leaves them.
+
+With ``capturable=True`` the step can be captured into a CUDA graph
+(:mod:`.graphs`): Adam keeps its step count and bias correction on the
+device, and nothing in :meth:`CooperativeTrainer.train_step` reads the
+device back or branches on a device value.  Such a step also runs cuDNN's
+deterministic algorithms (``torch.backends.cudnn.deterministic`` for the
+step's forward and backward): by default cuDNN may pick backward
+algorithms that sum with atomics, and two eager steps on one card then
+part after the first update (measured on an H100, ``PERF.md``), so no
+replay could be held to an eager step, nor a fused epoch to the streaming
+loop, bit for bit.
 """
 
 from __future__ import annotations
@@ -67,6 +78,32 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.pre
 )
 
 
+# the step's metrics in the order the fused paths stack them: the nine
+# losses the loop logs (train...py:164-166), then their sum
+METRIC_KEYS = (
+    "loss/standard/total", "loss/standard/seg", "loss/standard/image",
+    "loss/standard/shape", "loss/standard/gt_shape",
+    "loss/hard/total", "loss/hard/seg", "loss/hard/image", "loss/hard/shape",
+    "loss/total",
+)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(on: bool):
+    """cuDNN restricted to deterministic algorithms while the block runs
+    (when ``on``; the flag is read where a conv is dispatched, so a CUDA
+    graph keeps the algorithm chosen at its capture)."""
+    if not on:
+        yield
+        return
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 @dataclass
 class Generation:
     """What hard-example generation did to one code: the branch (0
@@ -96,7 +133,18 @@ class CooperativeTrainer:
     ``saliency_bn_update``: each perturbed code's decoder also runs once on
     the unmasked code with its BN statistics tracked, kept where the branch
     was targeted (the JAX package's ``SALIENCY_BN_UPDATE=1``, the
-    reference's raw train-mode saliency forward).
+    reference's raw train-mode saliency forward).  ``capturable``: Adam
+    built with ``capturable=True`` (its step on the parameters' device) and
+    the step on cuDNN's deterministic algorithms, so that :meth:`train_step`
+    can be captured into a CUDA graph (:class:`.graphs.StepGraphs`) and its
+    replays give the eager step's numbers bit for bit; the card only, since
+    capturable Adam refuses CPU parameters.
+
+    ``generation`` holds the last step's :class:`Generation` per code.
+    Under a CUDA graph it is set once, when the graph is captured, and
+    holds that graph's output tensors, which every later replay (of any
+    graph sharing its memory pool) overwrites: read it only right after
+    an uncaptured step.
     """
 
     def __init__(self, latent_da: Optional[LatentDAConfig], *, input_noise_std: float = 0.05,
@@ -107,7 +155,8 @@ class CooperativeTrainer:
                  network_type: str = "FCN_16_standard",
                  encoder_dropout: Optional[float] = None,
                  decoder_dropout: Optional[float] = None, separate_training: bool = False,
-                 remat: bool = False, saliency_bn_update: bool = False):
+                 remat: bool = False, saliency_bn_update: bool = False,
+                 capturable: bool = False):
         self.model = CooperativePredictor(image_ch=image_ch, num_classes=num_classes,
                                           temperature=temperature,
                                           compute_dtype=compute_dtype, device=device,
@@ -122,7 +171,9 @@ class CooperativeTrainer:
         self.separate_training = separate_training
         self.remat = remat
         self.saliency_bn_update = saliency_bn_update
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=learning_rate)
+        self.capturable = capturable
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=learning_rate,
+                                          capturable=capturable)
         # the last step's generation per code ("image", "shape"), for checks
         self.generation: Dict[str, Generation] = {}
         # {module: (rate, the channels of each of its dropout sites in forward
@@ -191,7 +242,9 @@ class CooperativeTrainer:
                     dropout_masks(masks):
                 return module(x)
 
-        return checkpoint(fwd, x, use_reentrant=False)
+        # the forward draws nothing (draws are operands), so no RNG state is
+        # stashed for the recompute, which also keeps it capturable
+        return checkpoint(fwd, x, use_reentrant=False, preserve_rng_state=False)
 
     # ------------------------------------------------------------ losses
     def standard_training(self, clean: torch.Tensor, label: torch.Tensor,
@@ -300,13 +353,15 @@ class CooperativeTrainer:
         self._masks, self._used = list(draws.dropout or []), 0
         self.model.module_call = self._module_call
         try:
-            total, metrics = self._losses(clean, label, noised, draws)
+            with deterministic_cudnn(self.capturable):
+                total, metrics = self._losses(clean, label, noised, draws)
         finally:
             self.model.module_call = None
         if self._used != len(self._masks):
             raise RuntimeError(f"dropout: the step used {self._used} of its "
                                f"{len(self._masks)} keep masks")
-        with full_f32(torch.float32):  # the backward of the f32 cuDNN convs, too
+        # the backward of the f32 cuDNN convs in full f32, too
+        with full_f32(torch.float32), deterministic_cudnn(self.capturable):
             total.backward()
         for p in self.model.parameters():
             if p.grad is None:  # a module the loss does not reach (the code
@@ -345,7 +400,8 @@ class CooperativeTrainer:
     # ------------------------------------------------------------- state
     def load_train_state(self, state: TrainState) -> None:
         """Load parameters, running statistics and Adam's moments and step
-        (as :func:`..convert.train_state_from_jax` gives them)."""
+        (as :func:`..convert.train_state_from_jax` gives them); the step
+        on the parameters' device when ``capturable``, else on the host."""
         self.model.load_state_dicts(state.state_dicts)
         self.optimizer.state.clear()
         if state.step == 0:
@@ -357,10 +413,26 @@ class CooperativeTrainer:
                 raise KeyError(f"Adam moments of {name} do not match its parameters")
             for key, p in params.items():
                 self.optimizer.state[p] = {
-                    "step": torch.tensor(float(state.step)),
+                    "step": torch.tensor(float(state.step), device=self._step_device(p)),
                     "exp_avg": state.exp_avg[name][key].to(p.device, p.dtype).clone(),
                     "exp_avg_sq": state.exp_avg_sq[name][key].to(p.device, p.dtype).clone(),
                 }
+
+    def _step_device(self, p: torch.Tensor) -> torch.device:
+        return p.device if self.capturable else torch.device("cpu")
+
+    def place_optimizer_state(self) -> None:
+        """Put Adam's step counts where this trainer keeps them (the
+        parameters' device when ``capturable``, else the host) and its
+        ``capturable`` flag back on every group: ``load_state_dict`` takes
+        both from the state it loads, which another trainer may have
+        written."""
+        for group in self.optimizer.param_groups:
+            group["capturable"] = self.capturable
+            for p in group["params"]:
+                st = self.optimizer.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(self._step_device(p), torch.float32)
 
     def adam_moments(self):
         """Adam's (exp_avg, exp_avg_sq), each ``{module: {parameter name:

@@ -12,11 +12,17 @@ Layer dropout's keep masks are operands too: one (N, C) mask for every
 dropout site of every module forward of the step, in the order the step
 runs them (:func:`forward_plan`), where the JAX package folds a per-forward
 counter into a third key (``cooperative.py:82-115,611-612``).
+
+The fused paths draw a whole epoch, or a window of epochs, up front
+(:func:`stage_draws`): every batch's augmentation draws and every step's
+draws, in the streaming loop's call order, packed into one pinned host
+buffer a dtype, copied to the device once without blocking, and read there
+through views (:class:`StagedDraws`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, is_dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -170,3 +176,118 @@ def draw_step(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
                              dropout_sites)
     draws = StepDraws(noise, image, shape, masks)
     return draws if device is None else draws.to(device)
+
+
+# --------------------------------------------------------------- staging
+def tensors_of(draws) -> List[torch.Tensor]:
+    """Every tensor of a draws structure (a dataclass of tensors, tuples,
+    lists, nested dataclasses and host ints such as a branch), in field
+    order."""
+    if isinstance(draws, torch.Tensor):
+        return [draws]
+    if isinstance(draws, (list, tuple)):
+        return [t for v in draws for t in tensors_of(v)]
+    if is_dataclass(draws):
+        return [t for f in fields(draws) for t in tensors_of(getattr(draws, f.name))]
+    return []
+
+
+def _rebuild(draws, tensors):
+    """``draws`` with its tensors, in :func:`tensors_of` order, taken from
+    the iterator ``tensors``."""
+    if isinstance(draws, torch.Tensor):
+        return next(tensors)
+    if isinstance(draws, (list, tuple)):
+        return type(draws)(_rebuild(v, tensors) for v in draws)
+    if is_dataclass(draws):
+        return replace(draws, **{f.name: _rebuild(getattr(draws, f.name), tensors)
+                                 for f in fields(draws)})
+    return draws
+
+
+def packed_sizes(draws) -> Dict[torch.dtype, int]:
+    """Elements a dtype that :func:`views_into` reads for ``draws``."""
+    sizes: Dict[torch.dtype, int] = {}
+    for t in tensors_of(draws):
+        sizes[t.dtype] = sizes.get(t.dtype, 0) + t.numel()
+    return sizes
+
+
+def views_into(draws, flats: Dict[torch.dtype, torch.Tensor]):
+    """A structure like ``draws`` whose tensors are views, in
+    :func:`tensors_of` order, into the flat 1-D tensors ``flats`` (one a
+    dtype, read from their start): two structures with the same branches
+    and shapes lay out the same, so one copy a dtype moves one into the
+    other."""
+    at = dict.fromkeys(flats, 0)
+    views = []
+    for t in tensors_of(draws):
+        i = at[t.dtype]
+        views.append(flats[t.dtype][i:i + t.numel()].view(t.shape))
+        at[t.dtype] = i + t.numel()
+    return _rebuild(draws, iter(views))
+
+
+@dataclass
+class StagedStep:
+    """One staged step: its batch's ``augment`` draws and its ``step``
+    draws, views into ``flats``, its contiguous segment (one flat tensor a
+    dtype) of the staged buffers."""
+
+    augment: object
+    step: StepDraws
+    flats: Dict[torch.dtype, torch.Tensor]
+
+    @property
+    def branches(self) -> Dict[str, int]:
+        return {key: code.branch for key, code in (("image", self.step.image),
+                                                   ("shape", self.step.shape))
+                if code is not None}
+
+
+class StagedDraws:
+    """The draws of a run of steps on ``device``: ``(augment, step)``
+    pairs drawn on the host, packed into one flat host buffer a dtype
+    (pinned when ``device`` is a CUDA device), copied there without
+    blocking, and handed out as :class:`StagedStep` views.  The host
+    buffers stay referenced as long as this object, so the copy never reads
+    freed memory."""
+
+    def __init__(self, pairs: Sequence[Tuple[object, StepDraws]],
+                 device: Union[str, torch.device]):
+        device = torch.device(device)
+        dtypes = sorted({t.dtype for pair in pairs for t in tensors_of(pair)}, key=str)
+        host = {dt: torch.cat([t.reshape(-1) for pair in pairs for t in tensors_of(pair)
+                               if t.dtype == dt]) for dt in dtypes}
+        if device.type == "cuda":
+            host = {dt: t.pin_memory() for dt, t in host.items()}
+        self._host = host
+        flat = {dt: t.to(device, non_blocking=True) for dt, t in host.items()}
+        self.steps: List[StagedStep] = []
+        at = dict.fromkeys(dtypes, 0)
+        for pair in pairs:
+            sizes = packed_sizes(pair)
+            seg = {dt: flat[dt][at[dt]:at[dt] + n] for dt, n in sizes.items()}
+            for dt, n in sizes.items():
+                at[dt] += n
+            augment, step = views_into(pair, seg)
+            self.steps.append(StagedStep(augment, step, seg))
+
+    def __len__(self) -> int:
+        return len(self.steps)
+
+
+def stage_draws(source, epochs: Sequence[int], n_steps: int, policy, raw_n: int, pad_hw,
+                n: int, hw: Tuple[int, int], latent_da: Optional[LatentDAConfig],
+                device: Union[str, torch.device], **kw) -> StagedDraws:
+    """Draw ``n_steps`` steps of each epoch of ``epochs`` from the draw
+    source ``source`` (``augment(epoch, policy, raw_n, pad_hw)`` and
+    ``step(n, hw, latent_da, **kw)``, see :mod:`.driver`) in the streaming
+    loop's order, batch k's augmentation draws and then step k's draws,
+    and stage them on ``device``."""
+    pairs = []
+    for epoch in epochs:
+        for _ in range(n_steps):
+            augment = source.augment(epoch, policy, raw_n, pad_hw)
+            pairs.append((augment, source.step(n, hw, latent_da, **kw)))
+    return StagedDraws(pairs, device)

@@ -25,6 +25,9 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metrics import (
+    confusion_matrix_update,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
     BatchNorm,
     ConvTranspose,
@@ -210,6 +213,26 @@ class CooperativePredictor(nn.Module):
         if softmax:
             pred = torch.softmax(pred, dim=1)
         return _nhwc(pred)
+
+    @torch.inference_mode()
+    def validation_confusion(self, images: torch.Tensor, labels: torch.Tensor,
+                             real: torch.Tensor, n_iter: int = 2) -> torch.Tensor:
+        """Validation over a stacked evaluation epoch, the JAX package's
+        ``multi_epoch.py:eval_confusion``: images (Nb, B, H, W, C), labels
+        (Nb, B, H, W) integer, real (Nb,) the real rows of each batch (a
+        device tensor); ``predict(n_iter)``, the argmax and the confusion
+        matrix of the rows below each batch's real count, (C, C) int64 on
+        the device.  Reads nothing back, so it can be captured into a CUDA
+        graph (``train/graphs.py:ValidationGraph``)."""
+        c = self.num_classes
+        confusion = torch.zeros((c, c), dtype=torch.int64, device=images.device)
+        rows = torch.arange(images.shape[1], device=images.device).view(-1, 1, 1)
+        for b in range(images.shape[0]):
+            pred = self.predict(images[b], n_iter=n_iter).argmax(-1)
+            # wrap-padded rows get label -1, which the update does not count
+            label = torch.where(rows < real[b], labels[b], -1)
+            confusion = confusion_matrix_update(confusion, label, pred)
+        return confusion
 
     @torch.inference_mode()
     def slow_refinement(self, pred_logit: torch.Tensor, n_steps: int = 1,

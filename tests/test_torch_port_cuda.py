@@ -1598,3 +1598,293 @@ def test_jax_msgpack_checkpoint_loads_on_card(cuda, tmp_path):
     want = src.predict(x)
     got = card.predict(x.to("cuda")).cpu()
     assert (got - want).abs().max() <= 2e-4 + 4e-6 * want.abs().max()
+
+
+# ------------------------------------------------------ CUDA graphs (fused)
+GRAPH_PAD, GRAPH_CROP = (40, 40), (32, 32)
+GRAPH_POLICY = "ACDC_affine_elastic_intensity"
+MASK_TYPES = ("dropout", "spatial", "channel")
+
+
+def _graph_batcher(cuda, n=4):
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        CooperativeBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        SyntheticSegDataset,
+    )
+
+    return CooperativeBatcher(SyntheticSegDataset(length=n, pad_size=GRAPH_PAD, seed=0), 4,
+                              GRAPH_POLICY, GRAPH_PAD, GRAPH_CROP, device=cuda)
+
+
+def _graph_pair(cuda, lda, **kw):
+    """A batcher and two capturable bf16 trainers from one seed, each with
+    its StepGraphs: the first is replayed, the second runs its body eagerly."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+    )
+
+    batcher = _graph_batcher(cuda)
+    trainers = [CooperativeTrainer(lda, learning_rate=1e-3, compute_dtype=torch.bfloat16,
+                                   device=cuda, seed=0, capturable=True, **kw)
+                for _ in range(2)]
+    graphs = [StepGraphs(t, batcher.pipeline_idx, *batcher.device_dataset()) for t in trainers]
+    return batcher, trainers, graphs
+
+
+def _staged(cuda, batcher, trainer, n_steps, seed=1):
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        stage_draws,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
+        GeneratorDraws,
+    )
+
+    return stage_draws(GeneratorDraws(seed), [0], n_steps, batcher.policy, batcher.raw_bs,
+                       GRAPH_PAD, batcher.step_batch, GRAPH_CROP, trainer.latent_da, cuda,
+                       **trainer.draw_kwargs())
+
+
+def _assert_same_state(a, b):
+    """Parameters, BN buffers and Adam's state (step, moments) bit for bit."""
+    for (ka, x), (kb, y) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
+        assert ka == kb and torch.equal(x, y), ka
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sa["step"].device == p.device and float(sa["step"]) == float(sb["step"])
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+def _graphed_against_eager(cuda, lda, n_steps=3, **kw):
+    """``n_steps`` steps on the same indices and staged draws: replayed
+    (after the first, eager and captured) against the eager body of a
+    twin trainer, metrics and state bit for bit; the graph's launches at
+    capture equal ``expected_launches``.  Returns the graphs."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        branch_key,
+    )
+
+    batcher, trainers, graphs = _graph_pair(cuda, lda, **kw)
+    staged = _staged(cuda, batcher, trainers[0], n_steps)
+    idx = torch.tensor([[0, 1], [2, 3], [3, 0], [1, 2]] * n_steps, device=cuda)[:n_steps]
+    got = torch.empty((n_steps, 10), device=cuda)
+    for k, s in enumerate(staged.steps):
+        graphs[0].run(idx[k], s, got[k])
+        want = graphs[1].body(idx[k], s.augment, s.step)
+        assert torch.equal(got[k], want), (k, got[k].tolist(), want.tolist())
+    _assert_same_state(*trainers)
+    for key, captured in graphs[0].graphs.items():
+        branches = {"image": key[0], "shape": key[1]}
+        want_launches = trainers[0].expected_launches(branches)
+        assert {k: captured.launches[k] for k in want_launches} == want_launches
+    assert sum(graphs[0].replays.values()) == n_steps - len(graphs[0].graphs)
+    assert set(graphs[0].graphs) == {branch_key(s.step) for s in staged.steps}
+    return graphs[0]
+
+
+@pytest.mark.parametrize("image_type", MASK_TYPES)
+@pytest.mark.parametrize("shape_type", MASK_TYPES)
+def test_graphed_step_bit_equals_capturable_eager(cuda, image_type, shape_type):
+    """Each of the 9 branch tuples: three steps, the first eager then
+    captured, two replays, against a capturable trainer's eager steps on
+    the same draws, bit for bit (the same kernels in the same order)."""
+    lda = LatentDAConfig(image_code=MaskConfig("mse", image_type),
+                         shape_code=MaskConfig("ce", shape_type))
+    graphs = _graphed_against_eager(cuda, lda)
+    assert len(graphs.graphs) == 1
+
+
+@pytest.mark.parametrize("route", ["conv_s2", "conv_nl"])
+def test_graphed_step_on_the_other_routes(cuda, route):
+    """One branch tuple under ``conv_s2`` (K4, K4dx, K4dw inside the graph)
+    and under ``conv_nl`` (K5, K5dx, K5dw, the latter in thread-block
+    clusters), replayed against the eager step bit for bit."""
+    lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                         shape_code=MaskConfig("ce", "spatial"))
+    graphs = _graphed_against_eager(cuda, lda, **{route: True})
+    captured = next(iter(graphs.graphs.values()))
+    k = "conv3x3s2" if route == "conv_s2" else "conv3x3_nl"
+    assert all(captured.launches[k + s] > 0 for s in ("", "_dx", "_dw"))
+
+
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+def test_graphed_step_variant_bit_equals_eager(cuda, variant):
+    """Each of the step's other configurations that ``cli.train`` accepts,
+    graphed under ``mask_type="random"`` against its eager step."""
+    _graphed_against_eager(cuda, LatentDAConfig(), n_steps=4, **STEP_VARIANTS[variant])
+
+
+def test_nine_graphs_share_one_pool(cuda):
+    """All 9 branch tuples captured into one pool: the pool's own segments
+    (``graphs.pool_bytes``, apart from the eager steps' caches) with nine
+    graphs stay under twice those with one."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        StagedDraws,
+        draw_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+        pool_bytes,
+    )
+
+    batcher = _graph_batcher(cuda)
+    trainer = CooperativeTrainer(LatentDAConfig(), learning_rate=1e-3,
+                                 compute_dtype=torch.bfloat16, device=cuda, capturable=True)
+    graphs = StepGraphs(trainer, batcher.pipeline_idx, *batcher.device_dataset())
+    gen = torch.Generator().manual_seed(0)
+    pairs = []
+    for image_type in MASK_TYPES:
+        for shape_type in MASK_TYPES:
+            lda = LatentDAConfig(image_code=MaskConfig("mse", image_type),
+                                 shape_code=MaskConfig("ce", shape_type))
+            pairs.append((augment.draw_augment(gen, batcher.policy, 2, GRAPH_PAD),
+                          draw_step(gen, 4, GRAPH_CROP, lda)))
+    staged = StagedDraws(pairs, cuda)
+    idx = torch.tensor([0, 1], device=cuda)
+    out = torch.empty(10, device=cuda)
+    reserved = []
+    for s in staged.steps:
+        trainer.latent_da = LatentDAConfig(
+            image_code=MaskConfig("mse", MASK_TYPES[s.step.image.branch]),
+            shape_code=MaskConfig("ce", MASK_TYPES[s.step.shape.branch]))
+        graphs.run(idx, s, out)
+        torch.cuda.synchronize()
+        reserved.append(pool_bytes(graphs.pool)[0])
+    assert len(graphs.graphs) == 9
+    assert bool(torch.isfinite(out).all())
+    assert 0 < reserved[0] and reserved[-1] < 2 * reserved[0], reserved
+
+
+def _fused_cfg(**learning):
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    return ExperimentConfig.from_dict({
+        "data": {"pad_size": [*GRAPH_PAD, 1], "crop_size": [*GRAPH_CROP, 1]},
+        "learning": {"batch_size": 4, "lr": 1e-3, **learning},
+        "output": {"save_epoch_every_num_epochs": 10}})
+
+
+def _fused_run(cuda, tmp_path, tag, **kw):
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        SyntheticSegDataset,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import driver
+
+    cfg = _fused_cfg()
+    trainer = CooperativeTrainer(cfg.latent_DA, learning_rate=1e-3,
+                                 compute_dtype=torch.bfloat16, device=cuda, capturable=True)
+    result = driver.train_network(
+        tag, SyntheticSegDataset(length=4, pad_size=GRAPH_PAD, seed=0),
+        SyntheticSegDataset(length=3, pad_size=GRAPH_PAD, seed=1), trainer, cfg,
+        str(tmp_path / tag), seed=40, max_epochs=3, fused_epoch=True, **kw)
+    return trainer, result
+
+
+@pytest.mark.parametrize("mode", [{"multi_epoch": 2}, {"pipeline_epoch": True}])
+def test_graphed_window_and_pipelined_fetch_equal_fused_epochs(cuda, tmp_path, mode):
+    """Three epochs through ``train_network``: fused, against fused with a
+    2-epoch window (epoch 0 alone, epochs 1-2 in the window) or with the
+    pipelined fetch, bit for bit: losses, confusion matrices, selection,
+    state."""
+    import numpy as np
+
+    a, ra = _fused_run(cuda, tmp_path, "fused")
+    b, rb = _fused_run(cuda, tmp_path, "other", **mode)
+    assert [e.epoch for e in ra.epochs] == [e.epoch for e in rb.epochs] == [0, 1, 2]
+    for ea, eb in zip(ra.epochs, rb.epochs):
+        assert np.array_equal(ea.losses, eb.losses) and np.array_equal(ea.confusion, eb.confusion)
+    assert (ra.best_epoch, ra.best_score) == (rb.best_epoch, rb.best_score)
+    _assert_same_state(a, b)
+    assert rb.validation.replays == 2 and ra.validation.replays == 2
+
+
+def test_failed_capture_raises_without_fallback(cuda):
+    """A module that reads a device tensor back (``.item()``) cannot be
+    captured: the graphed step raises, it does not run the step eagerly
+    instead, and the card works on after."""
+    lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                         shape_code=MaskConfig("ce", "spatial"))
+    batcher, trainers, graphs = _graph_pair(cuda, lda)
+
+    class ReadsBack(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            if x.sum().item() != x.sum().item():
+                raise AssertionError("unreachable")
+            return self.inner(x)
+
+    trainers[0].model.shape_decoder = ReadsBack(trainers[0].model.shape_decoder)
+    staged = _staged(cuda, batcher, trainers[0], 1)
+    out = torch.empty(10, device=cuda)
+    with pytest.raises(RuntimeError):
+        graphs[0].run(torch.tensor([0, 1], device=cuda), staged.steps[0], out)
+    assert not graphs[0].graphs and graphs[0].eager_steps == 1
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+def test_capturable_snapshot_resumes_into_a_graphed_trainer(cuda, tmp_path):
+    """A snapshot of a graphed trainer loads into a fresh capturable one
+    (Adam's step on the card, the ``capturable`` flag kept), and the next
+    graphed steps of both agree bit for bit."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import checkpoint
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+    )
+
+    lda = LatentDAConfig()
+    batcher, trainers, graphs = _graph_pair(cuda, lda)
+    staged = _staged(cuda, batcher, trainers[0], 6)
+    idx = torch.tensor([[0, 1], [2, 3]] * 3, device=cuda)
+    out = torch.empty((6, 10), device=cuda)
+    for k in range(3):
+        graphs[0].run(idx[k], staged.steps[k], out[k])
+    path = checkpoint.save_snapshot(trainers[0], str(tmp_path), epoch=1)
+    resumed = CooperativeTrainer(lda, learning_rate=1e-3, compute_dtype=torch.bfloat16,
+                                 device=cuda, seed=9, capturable=True)
+    assert checkpoint.load_snapshot(resumed, path) == 1
+    assert all(g["capturable"] for g in resumed.optimizer.param_groups)
+    _assert_same_state(trainers[0], resumed)
+    other = StepGraphs(resumed, batcher.pipeline_idx, *batcher.device_dataset())
+    again = torch.empty((6, 10), device=cuda)
+    for k in range(3, 6):
+        graphs[0].run(idx[k], staged.steps[k], out[k])
+        other.run(idx[k], staged.steps[k], again[k])
+    assert torch.equal(out[3:], again[3:])
+    _assert_same_state(trainers[0], resumed)
+
+
+def test_pointwise_f32_conv_gradients_match_cudnn_and_repeat(cuda):
+    """The float32 1x1 conv on the card (``conv_chw._PointwiseF32``: its
+    weight gradient one batched matmul) at the decoders' output shape,
+    batch 20 at 192x192: forward, dx and dw within 1e-5 of the largest
+    magnitude of cuDNN's (full f32, sums in another order), and two runs
+    bit for bit equal."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((20, 16, 192, 192), device=cuda, generator=gen)
+    w = torch.randn((4, 16, 1, 1), device=cuda, generator=gen)
+    dy = torch.randn((20, 4, 192, 192), device=cuda, generator=gen)
+
+    def run(fn):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xx, ww)
+        y.backward(dy)
+        return y.detach(), xx.grad, ww.grad
+
+    def plain(a, b):
+        with conv_chw.full_f32(torch.float32):
+            return torch.nn.functional.conv2d(a, b)
+
+    got = run(conv_chw._PointwiseF32.apply)
+    again = run(conv_chw._PointwiseF32.apply)
+    with conv_chw.full_f32(torch.float32):
+        want = run(plain)
+    for g, a, r in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()
