@@ -8,8 +8,10 @@ channels, 192x192x1 slices, 4 classes, bf16 convs) with weights drawn from
 a seed, on cardiac-like phantom slices made from a seed: the serving path,
 the cooperative FTN+STN predictor (``CooperativePredictor.predict(n_iter=
 2)``), and the training path, the cooperative train step with latent
-masking (``CooperativeTrainer.train_step``, batch 20, Adam lr 1e-4).  Each
-path runs in three configurations: the default; ``conv_s2=True`` (the JAX
+masking (``CooperativeTrainer.train_step``, batch 20, Adam lr 1e-4), with
+its fused pass arms (``fused_stn``, ``fused_ftn``: passes stacked to
+batches of 40 and 80).  Each path runs in three configurations: the
+default; ``conv_s2=True`` (the JAX
 package's ``PALLAS_CONV_S2=1``: the encoders' 16->16 and 32->32 stride-2
 downsamples on kernel K4, with K4dx and K4dw in the backward); and
 ``conv_nl=True`` (its ``PALLAS_CONV_NL=1``: the residual stages'
@@ -57,7 +59,10 @@ Phases, each printing its seconds when it ends:
    (``torch.add(sal, soft)``, no library time for K3's function), and
    ``host_us``, one wrapper call's host time; and for bf16
    K4dw at batch 20 and K6dw at the bench's stages that of their
-   partial-sum and reduce kernels apart;
+   partial-sum and reduce kernels apart.  Then, checked and not timed,
+   K1, K1 dx and K2 at every one of those shapes at batch 40 and 80 (the
+   fused arms' stacked FTN and STN batches) and K4, K4dx and K4dw at
+   batch 40, bf16;
 4. serve: 10 requests of 160 slices, then 50 of 20, through ``predict``,
    then 50 of 20 with ``conv_s2=True`` and 50 of 20 with ``conv_nl=True``,
    with the launch counts set to 0 just before each route and read just
@@ -91,23 +96,39 @@ Phases, each printing its seconds when it ends:
 7a. variants: the step's other configurations (``separate_training``, the
    ablation network types ``FCN_16_standard_share_code`` and
    ``FCN_16_standard_w_o_filter``, layer dropout at encoder 0.3 and decoder
-   0.2, ``remat``, the saliency-BN arm) at full width: two bf16 steps of
+   0.2, ``remat``, the saliency-BN arm, the fused pass arms ``fused_stn``
+   and ``fused_ftn``, and ``fused_ftn`` with ``conv_s2`` and ``conv_nl``)
+   at full width: two bf16 steps of
    batch 20 each on the hand kernels (latent DA ``random``; dropout masks
    from ``draw_step``), every wrapper launched exactly as
    ``expected_launches`` says for the drawn branches (``remat``'s recompute
    adds its K1 forwards, printed apart), finite losses, the step time and
    the peak device memory; then each configuration's train-check as in 7;
+7b. arms: each of the step's and the augmentation's arms graphed and
+   eager through ``cli.train``'s trainer with ``--fused_epoch`` (the
+   sequential step, ``--fused_stn``, ``--fused_ftn``, both with
+   ``--conv_s2 --conv_nl``, ``--warp two_gather``, ``--warp sequential``):
+   the first step captured, ARM_TIMED replays bit for bit equal to a twin
+   capturable trainer's eager steps (metrics, then state), the launches at
+   capture equal to ``expected_launches``; host ms a step to a
+   synchronize graphed and eager (medians), device ms a replayed step
+   (the profiler), the graphs' pool and the process's peak reserved
+   memory;
 8. augment: the port's training augmentation (``ops/augment.py``) on 10
    phantom slices at 224x224: ``make_batch_train_pipeline`` with the
    configuration's policy (ACDC_affine_elastic_intensity; [augmented ||
    original] at 192x192, a batch of 20) on the card against the same
    pipeline on the CPU on the same ``draw_augment`` draws, then the same
    for ACDC_affine_all, Atrial_perturb and elastic_v2 (the bias fields,
-   gamma and the coarse elastic field): images within 1e-4, labels equal,
+   gamma and the coarse elastic field), then the configuration's policy
+   with the two other warp arms (``two_gather``, ``sequential``): images
+   within 1e-4, labels equal,
    except at pixels whose sample coordinate lies within 1e-3 of the frame's
-   edge or (labels) whose CPU class score lies within 1e-3 of 0.5, at most
-   0.1 % of the pixels, every gated stage fired on some slices and not on
-   others; one batch timed by CUDA events and by device time
+   edge or (labels) whose CPU class score lies within 1e-3 of 0.5 (for
+   ``sequential`` also where the second resample reads a first-resample
+   pixel that is unsure, ``augment.unsure_pixels``), at most 0.1 % of the
+   pixels (2 % for ``sequential``), every gated stage fired on some slices
+   and not on others; one batch timed by CUDA events and by device time
    (``profile_predict.device_time``) with its launches; then three bf16
    train steps with latent DA on batches the card's pipeline has just
    made, each launching the kernels its branches require, losses finite;
@@ -137,10 +158,10 @@ Phases, each printing its seconds when it ends:
    ``expected_launches`` (the counters tick at a capture, not at a
    replay), the graphs' shared pool alone (its segments) with 9 graphs
    under twice that with 1; the host ms a step to a synchronize, graphed
-   and eager (medians of 20); the protocol's epoch (2 steps and a
+   and eager (medians of 10); the protocol's epoch (2 steps and a
    validation) in steady state, every tuple captured, fused, pipelined
    and in 2-epoch windows (runs of 4 epochs, medians of 3); one traced
-   graphed epoch (4 replays and the validation graph) and the same 4
+   graphed epoch (2 replays and the validation graph) and the same 2
    steps eager, traced, with their idle shares; then 3 epochs through
    ``cli.train``'s functions with ``--fused_epoch``, with ``--fused_epoch
    --pipeline_epoch``, with ``--fused_epoch --multi_epoch 2`` and on the
@@ -150,6 +171,13 @@ Phases, each printing its seconds when it ends:
    launches are those the card made (``train/graphs.py:launched``: the
    counters' ticks less the captures' counts, plus each graph's counts
    once a replay);
+9b. determinism: the ``--synthetic`` protocol twice through ``cli.train``
+   (streaming, 2 epochs, one seed, bf16): the two runs' ``.pth`` files and
+   logged losses and Mean IoUs must be identical; then for the default,
+   ``conv_s2`` and ``conv_nl`` routes the eager step's device ms (the
+   profiler) and host ms to a synchronize on cuDNN's default algorithms
+   (the step before every step on the card ran on deterministic cuDNN)
+   and on deterministic cuDNN, each after a warm step;
 10. eval: the held-out evaluation through the port's test entry
    (``cli.test``'s ``parse_args``, ``load_predictor`` and ``run``) of the
    loop phase's best checkpoint, float32, ``predict(n_iter=2)``, on the
@@ -169,8 +197,8 @@ Phases, each printing its seconds when it ends:
    "10" policy's 10 training and 5 validation pids of cval 0 and 4 pids of
    the test list, 10 slices at 224x224 a volume; ``cli.train`` trains
    ``configs/ACDC/standard_training.json`` and
-   ``cooperative_training.json`` on it (``--root_dir``, ``--bf16``, 2
-   epochs of 20 steps, batches of 10 slices augmented and as they are),
+   ``cooperative_training.json`` on it (``--root_dir``, ``--bf16``, 1
+   epoch of 20 steps, batches of 10 slices augmented and as they are),
    each launching exactly what its drawn
    branches and validation predicts require (no K3 in standard training);
    ``cli.generate_acdc_c`` writes ACDC-C of the 4 test pids x ED/ES x the
@@ -280,6 +308,8 @@ AUG_CROP = (192, 192)
 AUG_IMAGE_ATOL = 1e-4    # on the [0, 1] scale: cuFFT and pocketfft round differently
 AUG_UNSURE = 1e-3        # a class score this near 0.5, a coordinate this near the edge
 AUG_MAX_UNSURE = 1e-3    # share of a batch's pixels that may be unsure
+AUG_MAX_UNSURE_SEQUENTIAL = 2e-2  # the sequential warp: a first-resample flip reaches 9 pixels
+AUG_WARPS = ("two_gather", "sequential")  # the warp's arms beside the composed one
 AUG_REPS = 20            # timed batches
 AUG_TRAIN_STEPS = 3      # train steps on batches the card's pipeline made
 # the loop phase: the --synthetic protocol of the port's command line on the
@@ -306,7 +336,7 @@ EVAL_DICE_ATOL = 0.01
 # holds them
 ROBUST_METHODS = ("standard_training", "cooperative_training")
 ROBUST_TEST_PIDS = 4
-ROBUST_EPOCHS = 2
+ROBUST_EPOCHS = 1
 ACDC_C_ATOL = 1e-4   # card against CPU on the [0, 1] scale: cuFFT against pocketfft
 BASELINE_STEPS = 3   # bf16 train steps of each registry network, batch 20
 BASELINE_CHECKS = {  # network -> (solver keywords, steps) of its f32 train-check
@@ -960,8 +990,12 @@ STEP_VARIANTS = {
     "dropout": {"encoder_dropout": 0.3, "decoder_dropout": 0.2},
     "remat": {"remat": True},
     "saliency_bn_update": {"saliency_bn_update": True},
+    "fused_stn": {"fused_stn": True},
+    "fused_ftn": {"fused_ftn": True},
+    "fused_ftn_s2_nl": {"fused_ftn": True, "conv_s2": True, "conv_nl": True},
 }
 VARIANT_STEPS = 2
+STACKED_BATCHES = (40, 80)  # the fused FTN's 2 passes and the fused STN's 4, of 20
 
 
 def variants_phase(torch, wrappers, cfg, coop, draws_mod, image, label):
@@ -1044,13 +1078,13 @@ def by_shape(calls, recs, total, label, library, unit="random step", beside=None
     print(f"{line}; bound {total['bound_ms']:.4f} ms", flush=True)
 
 
-def compare_augment(torch, got, want, edge, unsure, what):
+def compare_augment(torch, got, want, edge, unsure, what, max_unsure=AUG_MAX_UNSURE):
     """A training batch from the card against the CPU's on the same draws:
     images within AUG_IMAGE_ATOL except where the sample coordinate lies
     within AUG_UNSURE of the source frame's edge (``edge``; the in-frame
     test picks the value or 0 there); labels equal except there and where
     a CPU class score lies within AUG_UNSURE of 0.5 (``unsure``); unsure
-    pixels at most AUG_MAX_UNSURE of the batch's."""
+    pixels at most ``max_unsure`` of the batch's."""
     g_img, g_lbl = got["image"].cpu(), got["label"].cpu()
     w_img, w_lbl = want["image"], want["label"]
     if g_img.shape != w_img.shape or g_lbl.shape != w_lbl.shape or g_lbl.dtype != w_lbl.dtype:
@@ -1068,7 +1102,7 @@ def compare_augment(torch, got, want, edge, unsure, what):
           f"within {AUG_UNSURE} of it, {int((err > AUG_IMAGE_ATOL).sum())} beyond "
           f"{AUG_IMAGE_ATOL}); labels differ at {int(differ.sum())}, unsure {int(unsure.sum())} "
           f"of {unsure.numel()} ({share:.2e})", flush=True)
-    if bad_img or bad_lbl or share > AUG_MAX_UNSURE:
+    if bad_img or bad_lbl or share > max_unsure:
         raise AssertionError(f"{what}: {bad_img} image and {bad_lbl} label pixels disagree "
                              f"where the CPU is sure; unsure share {share:.2e}")
 
@@ -1116,6 +1150,17 @@ def augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod, wrapper
         compare_augment(torch, got, want, edge, unsure,
                         f"{name}, {AUG_RAW} raw -> {2 * AUG_RAW} at {AUG_CROP[0]}x"
                         f"{AUG_CROP[1]} (stages fired {fired})")
+    # the warp's other arms on the configuration's policy and draws
+    for warp in AUG_WARPS:
+        pipe = augment.make_batch_train_pipeline(AUG_POLICY, AUG_PAD, AUG_CROP, warp=warp)
+        draws = drawn[AUG_POLICY]
+        want = pipe(draws, img_cpu, lbl_cpu)
+        got = pipe(draws.to("cuda"), img, lbl)
+        torch.cuda.synchronize()
+        edge, unsure = augment.unsure_pixels(draws, img_cpu, lbl_cpu, AUG_POLICY, AUG_PAD,
+                                             AUG_CROP, tol=AUG_UNSURE, warp=warp)
+        compare_augment(torch, got, want, edge, unsure, f"{AUG_POLICY}, warp {warp}",
+                        AUG_MAX_UNSURE_SEQUENTIAL if warp == "sequential" else AUG_MAX_UNSURE)
 
     pipe = augment.make_batch_train_pipeline(AUG_POLICY, AUG_PAD, AUG_CROP)
     draws = drawn[AUG_POLICY].to("cuda")
@@ -1289,8 +1334,8 @@ def loop_phase(torch, wrappers, predict_k1, tmp):
 
 
 FUSED_EPOCHS = 3      # epochs of each fused-phase loop run
-FUSED_TIMED = 20      # steps timed graphed and eager
-FUSED_TRACED = 4      # steps of the traced graphed epoch
+FUSED_TIMED = 10      # steps timed graphed and eager
+FUSED_TRACED = 2      # steps of the traced graphed epoch
 STEADY_EPOCHS = 4     # epochs of a timed steady-state run of each epoch mode
 STEADY_RUNS = 3       # timed runs of each mode, in alternating order
 MASK_TYPES = ("dropout", "spatial", "channel")
@@ -1627,6 +1672,243 @@ def fused_phase(torch, wrappers, tmp, smi):
           flush=True)
     print(f"  {smi}", flush=True)
     return counted
+
+
+# phase 7b's arms: cli.train flags of the step's and the augmentation's arms
+ARMS = {
+    "sequential": [],
+    "fused_stn": ["--fused_stn"],
+    "fused_ftn": ["--fused_ftn"],
+    "sequential conv_s2+conv_nl": ["--conv_s2", "--conv_nl"],
+    "fused_ftn conv_s2+conv_nl": ["--fused_ftn", "--conv_s2", "--conv_nl"],
+    "warp two_gather": ["--warp", "two_gather"],
+    "warp sequential": ["--warp", "sequential"],
+}
+ARM_TIMED = 3         # replays (and twin eager steps) timed after the capture
+ARM_TRACED = 2        # replays traced for the device time
+
+
+def arms_phase(torch, wrappers, tmp):
+    """Phase 7b (see the module docstring).  Returns the launches by
+    wrapper the card made (``launched``: eager steps, and each graph's
+    counts once a replay)."""
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        LatentDAConfig,
+        MaskConfig,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        CooperativeBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import (
+        draw_augment,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        device_time,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        StagedDraws,
+        draw_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+        launched,
+        pool_bytes,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    forced = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                            shape_code=MaskConfig("ce", "spatial"))
+    total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    for arm, flags in ARMS.items():
+        for w in wrappers.values():
+            w.launches = 0
+        args = cli.parse_args(["--json_config_path", config, "--synthetic", "--bf16",
+                               "--fused_epoch", "--save_dir", tmp] + flags)
+        cfg, _ = cli.load_config(args)
+        data = cfg.data
+        train_set, _ = cli.build_datasets(cfg, args)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainers = [cli.build_trainer(cfg, args) for _ in range(2)]
+        for t in trainers:
+            t.latent_da = forced
+        batcher = CooperativeBatcher(train_set, cfg.learning.batch_size, data.data_aug_policy,
+                                     data.pad_hw, data.crop_hw, keep_orig=True, seed=args.seed,
+                                     device="cuda", warp=args.warp)
+        graphs = StepGraphs(trainers[0], batcher.pipeline_idx, *batcher.device_dataset())
+        eager = StepGraphs(trainers[1], batcher.pipeline_idx, *batcher.device_dataset())
+        gen = torch.Generator().manual_seed(args.seed)
+        n = 1 + ARM_TIMED + ARM_TRACED
+        staged = StagedDraws([(draw_augment(gen, batcher.policy, batcher.raw_bs, data.pad_hw),
+                               draw_step(gen, batcher.step_batch, data.crop_hw, forced))
+                              for _ in range(n)], "cuda")
+        idx = torch.from_numpy(np.stack([batcher.epoch_index_matrix()[0]] * n)).to("cuda")
+        got = torch.empty((n, 10), device="cuda")
+        times = {"graphed": [], "eager": []}
+        for k, st in enumerate(staged.steps[:1 + ARM_TIMED]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphs.run(idx[k], st, got[k])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = eager.body(idx[k], st.augment, st.step)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if k:
+                times["graphed"].append((t1 - t0) * 1e3)
+                times["eager"].append((t2 - t1) * 1e3)
+            if not torch.equal(got[k], want):
+                raise AssertionError(f"{arm}: replayed step {k} {got[k].tolist()}, eager "
+                                     f"{want.tolist()}")
+        if not _same_state(torch, *trainers):
+            raise AssertionError(f"{arm}: the graphed trainer's state differs from the twin's")
+        if len(graphs.graphs) != 1:
+            raise AssertionError(f"{arm}: {len(graphs.graphs)} graphs for one branch tuple")
+        (key, captured), = graphs.graphs.items()
+        want_l = trainers[0].expected_launches({"image": key[0], "shape": key[1]})
+        if {k: captured.launches[k] for k in want_l} != want_l:
+            raise AssertionError(f"{arm}: launches at capture {captured.launches}, expected "
+                                 f"{want_l}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(1 + ARM_TIMED, n):
+                graphs.run(idx[k], staged.steps[k], got[k])
+            torch.cuda.synchronize()
+        by_group, _, _ = device_time(prof.key_averages())
+        device = sum(by_group.values()) / 1e3 / ARM_TRACED
+        if not device > 0:
+            raise AssertionError(f"{arm}: the profiler saw no device time in the replays")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{arm}: non-finite metrics {got.tolist()}")
+        reserved, live = pool_bytes(graphs.pool)
+        card = launched({k: w.launches for k, w in wrappers.items()}, [graphs])
+        for k in LAUNCH_COUNTERS:
+            total[k] += card.get(k, 0)
+        t = trainers[0]
+        print(f"  {arm} (fused_stn {t.fused_stn}, fused_ftn {t.fused_ftn}, warp {args.warp}): "
+              f"{ARM_TIMED} replays bit for bit equal to the twin's eager steps, state equal, "
+              f"launches at capture = expected_launches ({want_l['conv3x3_chw']} K1, "
+              f"{want_l['conv3x3_chw_dx']} K1 dx, {want_l['conv3x3_chw_dw']} K2); host ms a "
+              f"step, median: graphed {statistics.median(times['graphed']):.3f}, eager "
+              f"{statistics.median(times['eager']):.3f}; device ms a replayed step "
+              f"{device:.3f}; capture {captured.seconds:.3f} s; pool {reserved / 2**30:.4f} "
+              f"GiB reserved ({live / 2**30:.4f} live), process peak reserved "
+              f"{torch.cuda.max_memory_reserved() / 2**30:.4f} GiB", flush=True)
+        del t, captured, trainers, graphs, eager, batcher, staged, got
+        torch.cuda.empty_cache()
+    return total
+
+
+DET_EPOCHS = 2
+DET_STEPS = 2         # eager steps of a turn timed on the host clock
+
+
+def determinism_phase(torch, wrappers, cfg, coop, draws_mod, image, label, tmp):
+    """Phase 9b (see the module docstring).  Returns the launches by
+    wrapper over the phase."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        device_time,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train import driver
+    from torch.profiler import ProfilerActivity, profile
+
+    for w in wrappers.values():
+        w.launches = 0
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    runs = []
+    for r in range(2):
+        save = os.path.join(tmp, f"determinism{r}")
+        args = cli.parse_args(["--json_config_path", config, "--synthetic", "--bf16",
+                               "--max_epochs", str(DET_EPOCHS), "--save_dir", save, "--log"])
+        c, name = cli.load_config(args)
+        t0 = time.perf_counter()
+        trainer, result = cli.run(args, c, name)
+        sec = time.perf_counter() - t0
+        log_dir, model_dir = driver.experiment_dirs(save, c.data.dataset_name,
+                                                    args.data_setting, c.data.num_classes,
+                                                    name, args.cval)
+        with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+            logged = [(row["step"], row["tag"], row["value"]) for row in map(json.loads, f)
+                      if row["tag"].startswith(("loss/", "iou/", "acc/"))]
+        files = {}
+        for root, _, names in os.walk(model_dir):
+            for fname in names:
+                if fname.endswith(".pth"):
+                    path = os.path.join(root, fname)
+                    files[os.path.relpath(path, model_dir)] = torch.load(
+                        path, map_location="cpu", weights_only=True)
+        runs.append((logged, files, sec))
+        del trainer
+    (log_a, files_a, sec_a), (log_b, files_b, sec_b) = runs
+    if log_a != log_b or not log_a:
+        raise AssertionError(f"two runs of one seed logged other numbers: {log_a} {log_b}")
+    if sorted(files_a) != sorted(files_b) or not files_a:
+        raise AssertionError(f"two runs wrote other files: {sorted(files_a)} {sorted(files_b)}")
+    for rel, sd in files_a.items():
+        other = files_b[rel]
+        if sd.keys() != other.keys() or not all(torch.equal(v, other[k]) for k, v in sd.items()):
+            raise AssertionError(f"{rel} differs between two runs of one seed")
+    print(f"  two streaming runs of seed 40 through cli.train, {DET_EPOCHS} epochs ({sec_a:.2f} "
+          f"and {sec_b:.2f} s): {len(log_a)} logged losses, IoUs and accuracies identical, "
+          f"{len(files_a)} .pth files holding identical tensors", flush=True)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # the eager step before and after every card step ran on deterministic
+    # cuDNN: cuDNN's default algorithms by a no-op deterministic_cudnn.  Each
+    # turn: a warm step, DET_STEPS steps to a synchronize on the host clock,
+    # then one traced step (the device's kernels only) for its device ms
+    lda = cfg.LatentDAConfig(image_code=cfg.MaskConfig("mse", "channel"),
+                             shape_code=cfg.MaskConfig("ce", "spatial"))
+    img, lbl = torch.from_numpy(image).to("cuda"), torch.from_numpy(label).to("cuda")
+    deterministic = coop.deterministic_cudnn
+    for route, kw in (("default", {}), ("conv_s2", {"conv_s2": True}),
+                      ("conv_nl", {"conv_nl": True})):
+        trainer = coop.CooperativeTrainer(lda, compute_dtype=torch.bfloat16, device="cuda",
+                                          seed=0, **kw)
+        draws = draws_mod.draw_step(torch.Generator().manual_seed(3), TRAIN_BATCH, (192, 192),
+                                    lda, device="cuda")
+        dev, host = {}, {}
+        # each turn warmed first (its algorithms chosen), then timed
+        for turn in ("default", "deterministic"):
+            coop.deterministic_cudnn = (deterministic if turn == "deterministic"
+                                        else lambda on: nullcontext())
+            try:
+                trainer.train_step(img, lbl, draws)
+                host[turn] = []
+                for _ in range(DET_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_step(img, lbl, draws)
+                    torch.cuda.synchronize()
+                    host[turn].append((time.perf_counter() - t0) * 1e3)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    trainer.train_step(img, lbl, draws)
+                    torch.cuda.synchronize()
+            finally:
+                coop.deterministic_cudnn = deterministic
+            by_group, _, _ = device_time(prof.key_averages())
+            dev[turn] = sum(by_group.values()) / 1e3
+        if not all(v > 0 for v in dev.values()):
+            raise AssertionError(f"{route}: the profiler saw no device time: {dev}")
+        print(f"  {route} eager step, bf16 batch {TRAIN_BATCH} (channel/spatial masks), device "
+              f"ms a step: cuDNN default {dev['default']:.3f}, deterministic "
+              f"{dev['deterministic']:.3f} ({dev['deterministic'] - dev['default']:+.3f} ms); "
+              f"host ms to a synchronize, median of {DET_STEPS}: default "
+              f"{statistics.median(host['default']):.3f}, deterministic "
+              f"{statistics.median(host['deterministic']):.3f}", flush=True)
+        for k in LAUNCH_COUNTERS:
+            launches[k] += wrappers[k].launches
+        for w in wrappers.values():
+            w.launches = 0
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
 
 
 def eval_phase(torch, wrappers, predict_k1, best_dir, tmp, smi):
@@ -2286,6 +2568,15 @@ def main():
                    for which in ("fwd", "dx", "dw")}
         b8_f32 = {which: [check_conv(torch, F, conv_chw, conv_b8, "b8", which, b8_shapes[0],
                                      TRAIN_BATCH, "float32")] for which in ("fwd", "dx", "dw")}
+        # the fused arms stack passes along the batch: K1, K1 dx and K2 at
+        # every shape at N = 40 (FTN) and 80 (STN), K4 and its gradients at
+        # 40 (the stacked image encoder under conv_s2), checked
+        stacked = {which: [k1(which, sh, n, "bfloat16", timed=False) for n in STACKED_BATCHES
+                           for sh in order if which != "dx" or sh[0] > 1]
+                   for which in ("fwd", "dx", "dw")}
+        stacked_s2 = {which: [check_conv(torch, F, conv_chw, conv_s2, "s2", which, sh,
+                                         STACKED_BATCHES[0], "bfloat16") for sh in S2_SHAPES]
+                      for which in ("fwd", "dx", "dw")}
         del flush
         bad = [r for r in list(dx_recs.values()) + [dx_f32] + list(dw_recs.values())
                + [dw_f32] + list(k3_recs.values())
@@ -2294,7 +2585,9 @@ def main():
                + [r for group in nl_recs.values() for r in group.values()]
                + [r for group in nl_other.values() for r in group]
                + [r for group in b8_recs.values() for r in group.values()]
-               + [r for group in b8_f32.values() for r in group] if not r["ok"]]
+               + [r for group in b8_f32.values() for r in group]
+               + [r for group in stacked.values() for r in group]
+               + [r for group in stacked_s2.values() for r in group] if not r["ok"]]
         if bad:
             raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
         torch.cuda.empty_cache()
@@ -2466,6 +2759,11 @@ def main():
                                           train_label)
         torch.cuda.empty_cache()
 
+    with phase("arms"):
+        with tempfile.TemporaryDirectory() as arm_tmp:
+            arm_launches = arms_phase(torch, wrappers, arm_tmp)
+        torch.cuda.empty_cache()
+
     with phase("augment"):
         aug_launches = augment_phase(torch, augment, profile_predict, cfg, coop, draws_mod,
                                      wrappers)
@@ -2481,6 +2779,11 @@ def main():
 
         with phase("fused"):
             fused_launches = fused_phase(torch, wrappers, tmp, smi)
+            torch.cuda.empty_cache()
+
+        with phase("determinism"):
+            det_launches = determinism_phase(torch, wrappers, cfg, coop, draws_mod,
+                                             train_image, train_label, tmp)
             torch.cuda.empty_cache()
 
         with phase("eval"):
@@ -2534,22 +2837,24 @@ def main():
              "conv3x3_nl_dw": nl_recs["dw"],
              "conv3x3_b8": b8_recs["fwd"], "conv3x3_b8_dx": b8_recs["dx"],
              "conv3x3_b8_dw": b8_recs["dw"]}
-    checked = {"conv3x3_chw": list(recs.values()) + [f32_rec] + big_recs,
-               "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32],
-               "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32],
+    checked = {"conv3x3_chw": list(recs.values()) + [f32_rec] + big_recs + stacked["fwd"],
+               "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32] + stacked["dx"],
+               "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32] + stacked["dw"],
                "percentile_mask": list(k3_recs.values())}
     for name, extra in base_checked.items():
         checked[name] += extra
     for name, which in (("conv3x3s2", "fwd"), ("conv3x3s2_dx", "dx"), ("conv3x3s2_dw", "dw")):
         checked[name] = [r for n in (TRAIN_BATCH, SERVE_BATCH)
-                         for r in s2_recs[(which, n)].values()] + s2_f32[which]
+                         for r in s2_recs[(which, n)].values()] + s2_f32[which] \
+            + stacked_s2[which]
     for group, others, base in ((nl_recs, nl_other, "conv3x3_nl"),
                                 (b8_recs, b8_f32, "conv3x3_b8")):
         for which, name in (("fwd", base), ("dx", f"{base}_dx"), ("dw", f"{base}_dw")):
             checked[name] = list(group[which].values()) + others[which]
     launches = {k: serve_launches[k] + s2_serve_launches[k] + nl_serve_launches[k]
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
-                + aug_launches[k] + loop_launches[k] + fused_launches[k]
+                + arm_launches[k] + aug_launches[k] + loop_launches[k] + fused_launches[k]
+                + det_launches[k]
                 + eval_launches[k] + robust_launches[k] + b8_launches[k] + base_launches[k]
                 for k in LAUNCH_COUNTERS}
     records = []

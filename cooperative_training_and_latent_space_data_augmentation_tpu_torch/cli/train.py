@@ -32,9 +32,16 @@ reach the JAX package's.
 augmentation and the train step, with a ``capturable`` Adam), ``--multi_epoch
 E`` adds the K-epoch window of E epochs (``MULTI_EPOCH=E``) and
 ``--pipeline_epoch`` the pipelined fetch (``PIPELINE_EPOCH=1``); see
-``train/driver.py``.  Every configuration above runs graphed (each is
-held to its eager step on the card); a combination of the three flags
-that does not exist is refused at start.
+``train/driver.py``.  ``--fused_stn`` and ``--fused_ftn`` are the step's
+fused pass arms (``FUSED_STN=1``, ``FUSED_FTN=1``; off with layer dropout,
+``--fused_ftn`` only with latent DA on the image code, as in the JAX
+package), ``--warp`` the augmentation's geometric warp arm
+(``composed``, the default; ``two_gather``, ``FUSED_WARP=0``;
+``sequential``, ``SEQ_WARP=1``).  Every configuration above runs graphed
+(each is held to its eager step on the card); a combination of the three
+epoch flags that does not exist is refused at start.  Every step on the
+card runs on cuDNN's deterministic algorithms, so a seed's run repeats
+bit for bit.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.base
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
     SyntheticSegDataset,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import WARPS
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
@@ -112,6 +120,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="with --fused_epoch: K-epoch windows of this many epochs")
     p.add_argument("--pipeline_epoch", action="store_true",
                    help="with --fused_epoch: read each epoch back after the next is dispatched")
+    p.add_argument("--fused_stn", action="store_true",
+                   help="the STN passes of a step as one stacked batch")
+    p.add_argument("--fused_ftn", action="store_true",
+                   help="the standard and hard FTN passes of a step as one stacked batch")
+    p.add_argument("--warp", choices=WARPS, default="composed",
+                   help="the augmentation's geometric warp arm")
     return p.parse_args(argv)
 
 
@@ -184,7 +198,8 @@ def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> Cooperativ
         encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
         separate_training=learning.separate_training, remat=args.remat,
         saliency_bn_update=args.saliency_bn_update,
-        capturable=args.fused_epoch and args.device != "cpu")
+        capturable=args.fused_epoch and args.device != "cpu", fused_stn=args.fused_stn,
+        fused_ftn=args.fused_ftn)
 
 
 def run(args: argparse.Namespace, cfg: ExperimentConfig,
@@ -208,7 +223,7 @@ def run_trainer(args: argparse.Namespace, cfg: ExperimentConfig, config_name: st
         validate_set=val_set, trainer=trainer, cfg=cfg, model_dir=model_dir, log_dir=log_dir,
         log=args.log, seed=args.seed, resume_path=args.resume_path,
         max_epochs=args.max_epochs, fused_epoch=args.fused_epoch,
-        multi_epoch=args.multi_epoch, pipeline_epoch=args.pipeline_epoch)
+        multi_epoch=args.multi_epoch, pipeline_epoch=args.pipeline_epoch, warp=args.warp)
     print(f"done: best val Mean IoU {result.best_score:.4f} at epoch {result.best_epoch} "
           f"(last epoch {result.last_epoch})")
     return trainer, result

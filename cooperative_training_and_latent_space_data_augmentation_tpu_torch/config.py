@@ -5,7 +5,8 @@ nothing of the JAX package), which mirror the reference's JSON layout,
 ``configs/ACDC/cooperative_training.json``: ``DataConfig``,
 ``SegmentationModelConfig``, ``LearningConfig``, ``MaskConfig``,
 ``LatentDAConfig``, ``OutputConfig`` and ``ExperimentConfig`` with
-``from_dict``, ``from_json``, ``to_dict`` and ``save``.  The JAX package's
+``from_dict``, ``from_json``, ``to_dict`` and ``save``, and the
+reference's JSON attribute loader ``Params``.  The JAX package's
 ``ParallelConfig`` (its device mesh) is left out: the port has no mesh, and
 ``from_dict`` ignores a ``parallel`` section.
 """
@@ -166,3 +167,26 @@ class ExperimentConfig:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2, default=list)
+
+
+class Params:
+    """Thin JSON -> attribute-dict loader, API-compatible with the reference's
+    ``medseg/common_utils/load_args.py:8-36`` ``Params`` class."""
+
+    def __init__(self, json_path: str):
+        with open(json_path) as f:
+            params = json.load(f)
+            self.__dict__.update(params)
+
+    def save(self, json_path: str) -> None:
+        with open(json_path, "w") as f:
+            json.dump(self.__dict__, f, indent=4)
+
+    def update(self, json_path: str) -> None:
+        with open(json_path) as f:
+            params = json.load(f)
+            self.__dict__.update(params)
+
+    @property
+    def dict(self) -> Dict[str, Any]:
+        return self.__dict__

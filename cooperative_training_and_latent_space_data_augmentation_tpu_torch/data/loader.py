@@ -165,13 +165,15 @@ class CooperativeBatcher:
     ``DEVICE_CACHE_LIMIT_BYTES`` (or ``device_cache=True``) is put on the
     device once, images float32 and labels uint8, and a batch is gathered
     there by index; otherwise batches are collated on a background thread
-    (:func:`prefetch`) and copied up one by one.
+    (:func:`prefetch`) and copied up one by one.  ``warp``: the
+    augmentation's geometric warp arm (``ops/augment.py:WARPS``).
     """
 
     def __init__(self, dataset: SegDatasetBase, batch_size: int, policy_name: str,
                  pad_hw=(224, 224), crop_hw=(192, 192), num_classes: int = 4,
                  keep_orig: bool = True, shuffle: bool = True, seed: Optional[int] = 0,
-                 device: Device = "cuda", device_cache: Optional[bool] = None):
+                 device: Device = "cuda", device_cache: Optional[bool] = None,
+                 warp: str = "composed"):
         self.dataset = dataset
         self.keep_orig = keep_orig
         self.raw_bs = max(batch_size // 2, 1) if keep_orig else batch_size
@@ -179,9 +181,9 @@ class CooperativeBatcher:
         self.policy = get_policy(policy_name)
         self.pad_hw = tuple(pad_hw)
         self.pipeline = make_batch_train_pipeline(policy_name, pad_hw, crop_hw, num_classes,
-                                                  keep_orig)
+                                                  keep_orig, warp)
         self.pipeline_idx = make_batch_train_pipeline_indexed(policy_name, pad_hw, crop_hw,
-                                                              num_classes, keep_orig)
+                                                              num_classes, keep_orig, warp)
         self.device = torch.device(device)
         if device_cache is None:
             # ~5 bytes a pixel: f32 image + uint8 label, padded resolution

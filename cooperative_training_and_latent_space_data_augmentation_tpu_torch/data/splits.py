@@ -13,7 +13,7 @@ reference's.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 from numpy.random import RandomState
@@ -77,21 +77,38 @@ _THREE_SHOT_TRAIN = {
 }
 
 
+def train_test_split(ids: List[str], train_size=None, test_size=None,
+                     random_state: int = 0) -> Tuple[List[str], List[str]]:
+    """scikit-learn's ``train_test_split(ids, train_size=, test_size=,
+    random_state=)`` (shuffled, unstratified) in numpy: (train, test).  A
+    float ``test_size`` keeps ``ceil(test_size * n)``, a float
+    ``train_size`` ``floor(train_size * n)``, an int that many; the part
+    not given is the rest.  ``RandomState(random_state).permutation(n)``
+    gives its first ``n_test`` indices to the test part and the next
+    ``n_train`` to the train part, in that order."""
+    n = len(ids)
+    if test_size is None and train_size is None:
+        test_size = 0.25
+    n_test = (int(np.ceil(test_size * n)) if isinstance(test_size, float)
+              else test_size)
+    n_train = (int(np.floor(train_size * n)) if isinstance(train_size, float)
+               else train_size)
+    if train_size is None:
+        n_train = n - n_test
+    elif test_size is None:
+        n_test = n - n_train
+    if n_train <= 0 or n_test <= 0 or n_train + n_test > n:
+        raise ValueError(f"train_size {train_size}, test_size {test_size} of {n} ids "
+                         f"leave an empty part")
+    perm = RandomState(random_state).permutation(n)
+    return ([ids[i] for i in perm[n_test:n_test + n_train]],
+            [ids[i] for i in perm[:n_test]])
+
+
 def train_subset(ids: List[str], train_size, seed: int) -> List[str]:
     """The train part of scikit-learn's ``train_test_split(ids,
-    train_size=train_size, random_state=seed)`` (shuffled, unstratified),
-    in numpy: ``n_train`` is ``train_size`` for an int and
-    ``floor(train_size * n)`` for a fraction, ``n_test = n - n_train``; the
-    permutation ``RandomState(seed).permutation(n)`` gives its first
-    ``n_test`` indices to the test part and the next ``n_train``, in that
-    order, to the train part (``ShuffleSplit._iter_indices``)."""
-    n = len(ids)
-    n_train = int(np.floor(train_size * n)) if isinstance(train_size, float) else train_size
-    if not 0 < n_train < n:
-        raise ValueError(f"train_size {train_size} of {n} ids leaves an empty part")
-    n_test = n - n_train
-    perm = RandomState(seed).permutation(n)
-    return [ids[i] for i in perm[n_test:n_test + n_train]]
+    train_size=train_size, random_state=seed)`` (:func:`train_test_split`)."""
+    return train_test_split(ids, train_size=train_size, random_state=seed)[0]
 
 
 def get_ACDC_split_policy(identifier, cval: int) -> Dict[str, List[str]]:

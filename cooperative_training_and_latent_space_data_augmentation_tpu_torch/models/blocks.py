@@ -16,7 +16,11 @@ both: each :class:`Conv` sends its eligible 3x3 convs to K1 and the rest to
 BatchNorm has the JAX package's three modes: eval (running statistics),
 train (batch statistics, running statistics updated) and train with
 frozen statistics (batch statistics, no update; :func:`frozen_stats`), the
-reference's ``_disable_tracking_bn_stats``.
+reference's ``_disable_tracking_bn_stats``.  :func:`stacked_passes` runs
+P passes of a module stacked along the batch axis as P sequential passes
+would run (each slice on its own batch statistics, the running statistics
+moved in pass order by the passes that track them): the JAX package's
+vmapped pass batches (``FUSED_STN``, ``FUSED_FTN``).
 
 The baselines' blocks (the JAX package's ``Norm``, ``SNConv``,
 ``upsample_bilinear`` and ``ResUp``'s ``bilinear`` and ``Conv4`` arms) are
@@ -36,7 +40,7 @@ without one.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -77,6 +81,13 @@ class BatchNorm(nn.Module):
     the running statistics by ``BN_MOMENTUM`` toward the batch mean and the
     unbiased (Bessel-corrected) variance, as torch's BatchNorm2d does.
     Works on (N, C, H, W) and (N, C, H*W) alike.
+
+    ``passes`` (set by :func:`stacked_passes`): a train-mode batch of P*N
+    is P passes of N stacked in order; each is normalized with its own
+    batch mean and biased variance, and the running statistics move once
+    for each pass whose flag is True, in pass order, each by its own
+    Bessel factor (n = N*H*W), as P sequential train-mode calls would move
+    them.
     """
 
     def __init__(self, features: int):
@@ -86,8 +97,39 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.update_stats = True
+        self.passes: Optional[Tuple[bool, ...]] = None
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Move the running statistics toward one pass's batch mean and
+        unbiased variance (``n`` values a channel)."""
+        unbiased = var.detach() * (n / (n - 1.0)) if n > 1 else var.detach()
+        m = BN_MOMENTUM
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased)
+
+    def _forward_stacked(self, x: torch.Tensor) -> torch.Tensor:
+        p = len(self.passes)
+        if x.shape[0] % p:
+            raise ValueError(f"a stacked batch of {x.shape[0]} is not {p} equal passes")
+        xs = x.float().reshape(p, x.shape[0] // p, *x.shape[1:])
+        axes = [1] + list(range(3, xs.dim()))
+        shape = (p, 1, -1) + (1,) * (xs.dim() - 3)
+        mean = xs.mean(axes)                                   # (P, C)
+        var = (xs - mean.view(shape)).square().mean(axes)
+        if self.update_stats:
+            n = xs[0].numel() // x.shape[1]
+            for i, track in enumerate(self.passes):
+                if track:
+                    self._track(mean[i], var[i], n)
+        w = self.weight.view((1, 1, -1) + (1,) * (xs.dim() - 3))
+        b = self.bias.view((1, 1, -1) + (1,) * (xs.dim() - 3))
+        y = (xs - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS) * w + b
+        return y.reshape(x.shape).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.passes is not None:
+            return self._forward_stacked(x)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         x32 = x.float()
         if self.training:
@@ -95,12 +137,7 @@ class BatchNorm(nn.Module):
             mean = x32.mean(axes)
             var = (x32 - mean.view(shape)).square().mean(axes)
             if self.update_stats:
-                n = x.numel() // x.shape[1]
-                unbiased = var.detach() * (n / (n - 1.0)) if n > 1 else var.detach()
-                m = BN_MOMENTUM
-                with torch.no_grad():
-                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.detach())
-                    self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased)
+                self._track(mean, var, x.numel() // x.shape[1])
         else:
             mean, var = self.running_mean, self.running_var
         y = ((x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
@@ -123,6 +160,35 @@ def frozen_stats(*modules: nn.Module):
     finally:
         for bn, flag in zip(bns, before):
             bn.update_stats = flag
+
+
+@contextmanager
+def stacked_passes(*modules: nn.Module, update_flags: Optional[Sequence[bool]]):
+    """Train-mode BatchNorms of ``modules`` take their input as
+    ``len(update_flags)`` passes stacked along the batch axis while the
+    block runs (see :class:`BatchNorm`), the running statistics moved by
+    the passes whose flag is True; ``update_flags=None`` runs them
+    unstacked.  Inside :func:`frozen_stats` no pass moves them.  Nothing is
+    read back, so a stacked step captures into a CUDA graph."""
+    bns = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    before = [bn.passes for bn in bns]
+    flags = None if update_flags is None else tuple(bool(f) for f in update_flags)
+    for bn in bns:
+        bn.passes = flags
+    try:
+        yield
+    finally:
+        for bn, passes in zip(bns, before):
+            bn.passes = passes
+
+
+def stacked_flags(module: nn.Module) -> Optional[Tuple[bool, ...]]:
+    """The pass flags :func:`stacked_passes` set on ``module``'s BatchNorms
+    (None when unstacked)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            return m.passes
+    return None
 
 
 _MASKS: list = []  # the active dropout_masks blocks' iterators, innermost last

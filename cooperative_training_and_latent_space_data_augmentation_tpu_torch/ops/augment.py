@@ -23,9 +23,19 @@ label classes 1..C-1 (scipy 'nearest' coefficients, the ascending
 arithmetic of the JAX package's per-pixel gather (``FUSED_WARP=1``).
 
 :func:`warp_image` samples an image alone (the corruptions' motion
-model).  Left out: the ``SEQ_WARP`` arm, the separate ``warp_image`` /
-``warp_label`` path of the pipeline (``FUSED_WARP=0``),
-``Transformations``, ``motion_estimation`` and ``clahe``.
+model).  The warp's other arms are a keyword of the pipeline, ``warp``
+(:data:`WARPS`): ``"composed"`` is the above (the JAX package's default),
+``"two_gather"`` samples the image and the label with separate gathers,
+:func:`warp_image_batch` and :func:`warp_label_batch` (its
+``FUSED_WARP=0``), and ``"sequential"`` resamples the reference's way, the
+affine at the padded size and then the elastic field composed with the
+crop, each a composed image+label warp (its ``SEQ_WARP=1``; two gathers of
+interpolation blur).  :func:`eval_transform_sample`, :class:`Transformations`
+(the reference's named pipelines), :func:`motion_estimation` (inter-slice
+shifts of a label stack, its normals drawn by :func:`draw_motion`) and
+:func:`clahe` (numpy, host side) complete the JAX module.  Its
+``TILED_WARP`` evaluation is a TPU rewrite of the gather and is not
+ported.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ import torch.nn.functional as F
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import spline
 
+# the geometric warp's arms (see the module docstring)
+WARPS = ("composed", "two_gather", "sequential")
 
 # --------------------------------------------------------------- policy cfg
 @dataclass(frozen=True)
@@ -639,6 +651,32 @@ def warp_image(img_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> tor
     return torch.where(valid, out, 0.0).to(img_hwc.dtype)
 
 
+def warp_image_batch(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """:func:`warp_image` of each NHWC image at its own (N, h_out, w_out)
+    coordinates, batched."""
+    h, w = imgs.shape[1], imgs.shape[2]
+    out = spline.map_coordinates_cubic_batch(imgs, ys, xs, mode="reflect")
+    valid = ((ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1))[..., None]
+    return torch.where(valid, out, 0.0).to(imgs.dtype)
+
+
+def warp_label_batch(labels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """The JAX package's ``warp_label`` (order 3) of each NHW label map at
+    its own coordinates: the one-hot classes 1..C-1 sampled with scipy's
+    'nearest' mode, then ``result[score_c >= 0.5] = c`` in ascending class
+    order, background outside the source frame.  int32."""
+    h, w = labels.shape[1], labels.shape[2]
+    classes = torch.arange(1, num_classes, device=labels.device).view(1, 1, 1, -1)
+    onehot = (labels.unsqueeze(-1) == classes).float()
+    scores = spline.map_coordinates_cubic_batch(onehot, ys, xs, mode="nearest")
+    valid = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
+    result = torch.zeros(ys.shape, dtype=torch.int32, device=ys.device)
+    for c in range(1, num_classes):
+        result = torch.where((scores[..., c - 1] >= 0.5) & valid, c, result)
+    return result
+
+
 def warp_image_and_label_batch(imgs: torch.Tensor, labels: torch.Tensor, ys: torch.Tensor,
                                xs: torch.Tensor, num_classes: int):
     """Order-3 image + per-class label warp of a batch sharing ONE gather:
@@ -660,11 +698,16 @@ def warp_image_and_label(img_hwc: torch.Tensor, label_hw: torch.Tensor, ys: torc
 # ------------------------------------------------------------ full pipeline
 def _augment_pre_warp(d: AugmentDraws, images: torch.Tensor, labels: torch.Tensor,
                       policy: AugmentPolicy, pad_hw: Tuple[int, int],
-                      crop_hw: Tuple[int, int]):
+                      crop_hw: Tuple[int, int], raw_geometry: bool = False):
     """Everything before the geometric warp: pad, flips, intensity stages,
     and (when the policy has geometry) the warp's sample coordinates at the
     crop's pixels.  Returns (img at pad_hw, lbl at pad_hw, ya, xa); ya/xa
-    (N, *crop_hw) are None when the policy needs no geometry."""
+    (N, *crop_hw) are None when the policy needs no geometry.
+
+    ``raw_geometry`` (the ``sequential`` warp) returns the pieces instead,
+    (img, lbl, (mat, trans, dy, dx)) with the gated elastic displacement
+    (N, H, W) at the padded size, or (img, lbl, None): the same draws, the
+    same fields."""
     img = pad_to(images.float(), pad_hw)
     lbl = pad_to(labels, pad_hw)
     h, w = img.shape[1], img.shape[2]
@@ -684,7 +727,20 @@ def _augment_pre_warp(d: AugmentDraws, images: torch.Tensor, labels: torch.Tenso
         img = torch.where(_gate(d.gate_gamma, policy.gamma_prob, 4),
                           random_gamma(d, img, policy), img)
     if not _needs_geometry(policy):
-        return img, lbl, None, None
+        return (img, lbl, None) if raw_geometry else (img, lbl, None, None)
+    if raw_geometry:
+        mat, trans = _affine_inverse_matrix(d, policy, h, w)
+        dy_full = torch.zeros((img.shape[0], h, w), dtype=torch.float32, device=img.device)
+        dx_full = torch.zeros_like(dy_full)
+        for prob, field, gate in ((policy.elastic_prob, _elastic_field, d.gate_elastic),
+                                  (policy.elastic_prob_v2, _coarse_elastic_field,
+                                   d.gate_coarse)):
+            if prob > 0:
+                dy, dx = field(d, h, w)
+                do = _gate(gate, prob, 3)
+                dy_full = dy_full + torch.where(do, dy, 0.0)
+                dx_full = dx_full + torch.where(do, dx, 0.0)
+        return img, lbl, (mat, trans, dy_full, dx_full)
 
     # one geometric warp: affine (+ group rotation), then elastic offsets,
     # evaluated only at the crop's pixels (the fields are made at pad
@@ -714,14 +770,53 @@ def _augment_pre_warp(d: AugmentDraws, images: torch.Tensor, labels: torch.Tenso
     return img, lbl, ya, xa
 
 
+def _sequential_warp(d: AugmentDraws, images: torch.Tensor, labels: torch.Tensor,
+                     policy: AugmentPolicy, pad_hw: Tuple[int, int],
+                     crop_hw: Tuple[int, int], num_classes: int):
+    """The ``sequential`` warp (the JAX package's ``SEQ_WARP=1`` arm of
+    ``augment_sample``): the affine resample over the whole padded frame,
+    then the elastic resample composed with the crop."""
+    img, lbl, geom = _augment_pre_warp(d, images, labels, policy, pad_hw, crop_hw,
+                                       raw_geometry=True)
+    if geom is None:
+        return center_crop(img, crop_hw), center_crop(lbl, crop_hw)
+    mat, trans, dy_full, dx_full = geom
+    h, w = img.shape[1], img.shape[2]
+    dev = img.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, -1, 1)
+    xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, -1)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yc = ys - cy - trans[:, 0].view(-1, 1, 1)
+    xc = xs - cx - trans[:, 1].view(-1, 1, 1)
+    m = mat.view(-1, 4, 1, 1)
+    img, lbl = warp_image_and_label_batch(img, lbl, m[:, 0] * yc + m[:, 1] * xc + cy,
+                                          m[:, 2] * yc + m[:, 3] * xc + cx, num_classes)
+    oy = (h - crop_hw[0]) // 2
+    ox = (w - crop_hw[1]) // 2
+    ys2 = (torch.arange(crop_hw[0], dtype=torch.float32, device=dev) + oy).view(1, -1, 1)
+    xs2 = (torch.arange(crop_hw[1], dtype=torch.float32, device=dev) + ox).view(1, 1, -1)
+    return warp_image_and_label_batch(img, lbl, ys2 + center_crop(dy_full, crop_hw),
+                                      xs2 + center_crop(dx_full, crop_hw), num_classes)
+
+
 def augment_batch(draws: AugmentDraws, images: torch.Tensor, labels: torch.Tensor,
                   policy: AugmentPolicy, pad_hw: Tuple[int, int] = (224, 224),
-                  crop_hw: Tuple[int, int] = (192, 192), num_classes: int = 4):
+                  crop_hw: Tuple[int, int] = (192, 192), num_classes: int = 4,
+                  warp: str = "composed"):
     """Training augmentation of a batch (images NHWC float [0, 1], labels
-    NHW int) with ``draws``: (images NHWC, labels NHW int32) at crop_hw."""
+    NHW int) with ``draws``: (images NHWC, labels NHW int32) at crop_hw,
+    the geometry by the ``warp`` arm (:data:`WARPS`)."""
+    if warp not in WARPS:
+        raise ValueError(f"warp {warp!r}: not one of {WARPS}")
+    if warp == "sequential":
+        img, lbl = _sequential_warp(draws, images, labels, policy, pad_hw, crop_hw,
+                                    num_classes)
+        return percentile_normalize(img), lbl.to(torch.int32)
     img, lbl, ya, xa = _augment_pre_warp(draws, images, labels, policy, pad_hw, crop_hw)
     if ya is None:
         img, lbl = center_crop(img, crop_hw), center_crop(lbl, crop_hw)
+    elif warp == "two_gather":
+        img, lbl = warp_image_batch(img, ya, xa), warp_label_batch(lbl, ya, xa, num_classes)
     else:
         img, lbl = warp_image_and_label_batch(img, lbl, ya, xa, num_classes)
     return percentile_normalize(img), lbl.to(torch.int32)
@@ -738,29 +833,75 @@ def eval_transform(images: torch.Tensor, labels: Optional[torch.Tensor] = None,
     return img, center_crop(pad_to(labels, pad_hw), crop_hw).to(torch.int32)
 
 
+# how far (pixels) a flip at one pixel of the sequential warp's first
+# resample reaches into the second one's output: the cubic prefilter
+# spreads it by a factor 0.268 a pixel (2-sqrt(3)), below 1e-4 of its size
+# after 7 pixels, and the 4x4 taps add 2 more
+SEQUENTIAL_REACH = 9
+
+
+def _near_edge(ys: torch.Tensor, xs: torch.Tensor, h: int, w: int, tol: float):
+    return torch.stack([ys.abs(), (ys - (h - 1)).abs(), xs.abs(),
+                        (xs - (w - 1)).abs()]).amin(0) <= tol
+
+
 def unsure_pixels(draws: AugmentDraws, images: torch.Tensor, labels: torch.Tensor,
                   policy_name: str, pad_hw: Tuple[int, int] = (224, 224),
                   crop_hw: Tuple[int, int] = (192, 192), num_classes: int = 4,
-                  keep_orig: bool = True, tol: float = 1e-3):
+                  keep_orig: bool = True, tol: float = 1e-3, warp: str = "composed"):
     """Where the training pipeline's output may flip under rounding, for
     holding one run of it against another: ``(edge, label)`` boolean (N',
     *crop_hw) masks aligned with ``make_batch_train_pipeline``'s batch.
     ``edge``: the sample coordinate lies within ``tol`` of the source
     frame's edge (the in-frame test decides the image and the label there);
     ``label``: ``edge``, or a class score within ``tol`` of 0.5.  The
-    original half of a ``keep_orig`` batch is never unsure."""
+    ``two_gather`` warp samples at the same coordinates and class scores.
+    The ``sequential`` warp's second resample also reads its first one's
+    flips: an output pixel is unsure where its sample coordinate lies
+    within :data:`SEQUENTIAL_REACH` pixels of a first-resample pixel that
+    is (``edge`` for the image, ``label`` for the labels).  The original
+    half of a ``keep_orig`` batch is never unsure."""
     policy = get_policy(policy_name)
     n = images.shape[0]
     edge = torch.zeros((n, *crop_hw), dtype=torch.bool, device=images.device)
     label = edge
-    img, lbl, ya, xa = _augment_pre_warp(draws, images, labels.to(torch.int32), policy,
-                                         pad_hw, crop_hw)
-    if ya is not None:
+    labels = labels.to(torch.int32)
+    if warp == "sequential" and _needs_geometry(policy):
+        img, lbl, (mat, trans, dy_full, dx_full) = _augment_pre_warp(
+            draws, images, labels, policy, pad_hw, crop_hw, raw_geometry=True)
         h, w = lbl.shape[1], lbl.shape[2]
-        edge = torch.stack([ya.abs(), (ya - (h - 1)).abs(), xa.abs(),
-                            (xa - (w - 1)).abs()]).amin(0) <= tol
-        scores = _fused_warp_scores(img, lbl, ya, xa, num_classes)[..., img.shape[-1]:]
-        label = edge | ((scores - 0.5).abs() <= tol).any(-1)
+        dev = img.device
+        ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, -1, 1)
+        xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, -1)
+        yc = ys - (h - 1) / 2.0 - trans[:, 0].view(-1, 1, 1)
+        xc = xs - (w - 1) / 2.0 - trans[:, 1].view(-1, 1, 1)
+        m = mat.view(-1, 4, 1, 1)
+        ya = m[:, 0] * yc + m[:, 1] * xc + (h - 1) / 2.0
+        xa = m[:, 2] * yc + m[:, 3] * xc + (w - 1) / 2.0
+        edge1 = _near_edge(ya, xa, h, w, tol)
+        scores = _fused_warp_scores(img, lbl, ya, xa, num_classes)
+        label1 = edge1 | ((scores[..., img.shape[-1]:] - 0.5).abs() <= tol).any(-1)
+        img, lbl = _fused_warp_post(scores, ya, xa, h, w, img.shape[-1], num_classes)
+        k = 2 * SEQUENTIAL_REACH + 1
+        reach = [F.max_pool2d(t.float().unsqueeze(1), k, 1, SEQUENTIAL_REACH)[:, 0] > 0
+                 for t in (edge1, label1)]
+        oy, ox = (h - crop_hw[0]) // 2, (w - crop_hw[1]) // 2
+        ys2 = (torch.arange(crop_hw[0], dtype=torch.float32, device=dev) + oy).view(1, -1, 1) \
+            + center_crop(dy_full, crop_hw)
+        xs2 = (torch.arange(crop_hw[1], dtype=torch.float32, device=dev) + ox).view(1, 1, -1) \
+            + center_crop(dx_full, crop_hw)
+        at = (ys2.round().clamp(0, h - 1).long() * w + xs2.round().clamp(0, w - 1).long())
+        read = [r.reshape(n, -1).gather(1, at.reshape(n, -1)).view(n, *crop_hw) for r in reach]
+        edge = _near_edge(ys2, xs2, h, w, tol) | read[0]
+        scores2 = _fused_warp_scores(img, lbl, ys2, xs2, num_classes)[..., img.shape[-1]:]
+        label = edge | read[1] | ((scores2 - 0.5).abs() <= tol).any(-1)
+    elif warp != "sequential":
+        img, lbl, ya, xa = _augment_pre_warp(draws, images, labels, policy, pad_hw, crop_hw)
+        if ya is not None:
+            h, w = lbl.shape[1], lbl.shape[2]
+            edge = _near_edge(ya, xa, h, w, tol)
+            scores = _fused_warp_scores(img, lbl, ya, xa, num_classes)[..., img.shape[-1]:]
+            label = edge | ((scores - 0.5).abs() <= tol).any(-1)
     if keep_orig:
         edge = torch.cat([edge, torch.zeros_like(edge)])
         label = torch.cat([label, torch.zeros_like(label)])
@@ -768,13 +909,13 @@ def unsure_pixels(draws: AugmentDraws, images: torch.Tensor, labels: torch.Tenso
 
 
 def make_batch_augment(policy_name: str, pad_hw=(224, 224), crop_hw=(192, 192),
-                       num_classes: int = 4):
+                       num_classes: int = 4, warp: str = "composed"):
     """Batch augmentation: (draws, images NHWC, labels NHW) -> (images NHWC
     at crop, labels NHW int32 at crop)."""
     policy = get_policy(policy_name)
 
     def run(draws: AugmentDraws, images: torch.Tensor, labels: torch.Tensor):
-        return augment_batch(draws, images, labels, policy, pad_hw, crop_hw, num_classes)
+        return augment_batch(draws, images, labels, policy, pad_hw, crop_hw, num_classes, warp)
 
     return run
 
@@ -788,9 +929,10 @@ def make_batch_eval_transform(pad_hw=(224, 224), crop_hw=(192, 192)):
 
 
 def _train_batch_body(draws, images, labels, policy, pad_hw, crop_hw, num_classes,
-                      keep_orig):
+                      keep_orig, warp):
     labels = labels.to(torch.int32)
-    aug_i, aug_l = augment_batch(draws, images, labels, policy, pad_hw, crop_hw, num_classes)
+    aug_i, aug_l = augment_batch(draws, images, labels, policy, pad_hw, crop_hw, num_classes,
+                                 warp)
     if not keep_orig:
         return {"image": aug_i, "label": aug_l}
     orig_i, orig_l = eval_transform(images, labels, pad_hw, crop_hw)
@@ -798,32 +940,158 @@ def _train_batch_body(draws, images, labels, policy, pad_hw, crop_hw, num_classe
 
 
 def make_batch_train_pipeline(policy_name: str, pad_hw=(224, 224), crop_hw=(192, 192),
-                              num_classes: int = 4, keep_orig: bool = True):
+                              num_classes: int = 4, keep_orig: bool = True,
+                              warp: str = "composed"):
     """Training batch assembly: (draws, images, labels) -> {'image',
     'label'} at crop resolution; with ``keep_orig`` the batch is
     [augmented || original], the original half through the eval
-    transform.  Its output feeds ``CooperativeTrainer.train_step``."""
+    transform; ``warp``: the geometric warp's arm (:data:`WARPS`).  Its
+    output feeds ``CooperativeTrainer.train_step``."""
     policy = get_policy(policy_name)
+    if warp not in WARPS:
+        raise ValueError(f"warp {warp!r}: not one of {WARPS}")
 
     def run(draws: AugmentDraws, images: torch.Tensor, labels: torch.Tensor):
         return _train_batch_body(draws, images, labels, policy, pad_hw, crop_hw,
-                                 num_classes, keep_orig)
+                                 num_classes, keep_orig, warp)
 
     return run
 
 
 def make_batch_train_pipeline_indexed(policy_name: str, pad_hw=(224, 224),
                                       crop_hw=(192, 192), num_classes: int = 4,
-                                      keep_orig: bool = True):
+                                      keep_orig: bool = True, warp: str = "composed"):
     """Device-resident-dataset variant: (draws, images_ALL, labels_ALL, idx)
     -> batch; the samples at ``idx`` are gathered on the dataset's device."""
     policy = get_policy(policy_name)
+    if warp not in WARPS:
+        raise ValueError(f"warp {warp!r}: not one of {WARPS}")
 
     def run(draws: AugmentDraws, images_all: torch.Tensor, labels_all: torch.Tensor,
             idx: torch.Tensor):
         images = torch.index_select(images_all, 0, idx)
         labels = torch.index_select(labels_all, 0, idx)
         return _train_batch_body(draws, images, labels, policy, pad_hw, crop_hw,
-                                 num_classes, keep_orig)
+                                 num_classes, keep_orig, warp)
 
     return run
+
+
+# ------------------------------------------------- the rest of the module
+def eval_transform_sample(img_hwc: torch.Tensor, label_hw: Optional[torch.Tensor] = None,
+                          pad_hw: Tuple[int, int] = (224, 224),
+                          crop_hw: Tuple[int, int] = (192, 192)):
+    """:func:`eval_transform` of one sample (HWC image, HW label or None):
+    pad -> centre crop -> min-max normalise (transform.py:88-112)."""
+    if label_hw is None:
+        return eval_transform(img_hwc[None], None, pad_hw, crop_hw)[0]
+    img, lbl = eval_transform(img_hwc[None], label_hw[None], pad_hw, crop_hw)
+    return img[0], lbl[0]
+
+
+class Transformations:
+    """The reference's ``transform.Transformations`` (transform.py:7-112)
+    over the batched pipeline: :meth:`get_transformation` returns its four
+    named pipelines, 'train' and 'aug_validate' ``(draws, images NHWC,
+    labels NHW) -> (images, labels)``, 'validate' ``(images, labels) ->
+    (images, labels)`` (pad, crop, normalise) and 'test' ``(images,) ->
+    images``."""
+
+    def __init__(self, data_aug_policy_name: str = "ACDC_affine_elastic_intensity",
+                 pad_size=(224, 224), crop_size=(192, 192), num_classes: int = 4):
+        self.policy_name = data_aug_policy_name
+        self.pad_hw = tuple(pad_size[:2])
+        self.crop_hw = tuple(crop_size[:2])
+        self.num_classes = num_classes
+
+    def get_transformation(self):
+        train = make_batch_augment(self.policy_name, self.pad_hw, self.crop_hw,
+                                   num_classes=self.num_classes)
+
+        def test(images: torch.Tensor) -> torch.Tensor:
+            return eval_transform(images, None, self.pad_hw, self.crop_hw)
+
+        return {"train": train, "validate": make_batch_eval_transform(self.pad_hw, self.crop_hw),
+                "test": test, "aug_validate": train}
+
+
+def draw_motion(generator: torch.Generator, n: int) -> torch.Tensor:
+    """The (n, 2) unit normals of :func:`motion_estimation`'s shifts (dy,
+    dx), from a CPU ``generator``, as ``jax.random.normal(key, (n, 2))``
+    draws them."""
+    if generator.device.type != "cpu":
+        raise ValueError("motion draws are made on the host from a CPU generator")
+    return torch.randn((n, 2), generator=generator)
+
+
+def motion_estimation(normals: torch.Tensor, label_nhw: torch.Tensor,
+                      shift: float = 1.0) -> torch.Tensor:
+    """Inter-slice motion of a label stack (affine_transform.motion_estimation:
+    109-134): slice i moves by ``clip(normals[i], -3, 3) * shift`` (dy, dx),
+    sampled nearest (source coordinates rounded half to even), zero outside.
+    ``normals``: (N, 2) (:func:`draw_motion`) on the labels' device."""
+    n, h, w = label_nhw.shape
+    shifts = torch.clamp(normals.float(), -3.0, 3.0) * shift
+    dev = label_nhw.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, -1, 1)
+    xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, -1)
+    sy = torch.round(ys + shifts[:, 0].view(-1, 1, 1)).to(torch.int64)
+    sx = torch.round(xs + shifts[:, 1].view(-1, 1, 1)).to(torch.int64)
+    valid = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < w)
+    flat = sy.clamp(0, h - 1) * w + sx.clamp(0, w - 1)
+    out = torch.gather(label_nhw.reshape(n, h * w), 1, flat.reshape(n, h * w)).view(n, h, w)
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=dev))
+
+
+def clahe(image_hw: np.ndarray, clip_limit: float = 0.01, nbins: int = 256,
+          tile_grid: Tuple[int, int] = (8, 8)) -> np.ndarray:
+    """Contrast-limited adaptive histogram equalisation in numpy, host
+    side (the reference wraps skimage's ``equalize_adapthist``,
+    intensity_transform.MyRandomImageContrastTransform:12-65, off in every
+    policy): tile histograms clipped at ``clip_limit`` x the tile's size
+    with the excess spread over the bins, each pixel a bilinear blend of
+    its four nearest tiles' clipped-CDF maps; the output rescaled to the
+    input's [min, max], in its dtype.  A copy of the JAX package's."""
+    img = np.asarray(image_hw, np.float64)
+    lo, hi = img.min(), img.max()
+    if hi - lo < 1e-12:
+        return np.asarray(image_hw).copy()
+    norm = (img - lo) / (hi - lo)
+    h, w = norm.shape
+    gh, gw = tile_grid
+    bins = np.minimum((norm * (nbins - 1)).astype(np.int64), nbins - 1)
+
+    # per-tile clipped-CDF lookup tables
+    ys = np.linspace(0, h, gh + 1).astype(int)
+    xs = np.linspace(0, w, gw + 1).astype(int)
+    luts = np.zeros((gh, gw, nbins))
+    for i in range(gh):
+        for j in range(gw):
+            tile = bins[ys[i]:ys[i + 1], xs[j]:xs[j + 1]]
+            hist = np.bincount(tile.ravel(), minlength=nbins).astype(np.float64)
+            limit = max(clip_limit * tile.size, 1.0)
+            excess = np.clip(hist - limit, 0, None).sum()
+            hist = np.minimum(hist, limit) + excess / nbins
+            cdf = np.cumsum(hist)
+            luts[i, j] = (cdf - cdf[0]) / max(cdf[-1] - cdf[0], 1e-12)
+
+    # bilinear blend of the 4 surrounding tile mappings per pixel
+    cy = (ys[:-1] + ys[1:]) / 2.0
+    cx = (xs[:-1] + xs[1:]) / 2.0
+    py = np.clip(np.interp(np.arange(h), cy, np.arange(gh)), 0, gh - 1)
+    px = np.clip(np.interp(np.arange(w), cx, np.arange(gw)), 0, gw - 1)
+    y0 = np.floor(py).astype(int)
+    y1 = np.minimum(y0 + 1, gh - 1)
+    x0 = np.floor(px).astype(int)
+    x1 = np.minimum(x0 + 1, gw - 1)
+    fy = (py - y0)[:, None]
+    fx = (px - x0)[None, :]
+
+    def lut_at(ti, tj):
+        return luts[ti[:, None], tj[None, :], bins]
+
+    out = ((1 - fy) * (1 - fx) * lut_at(y0, x0)
+           + (1 - fy) * fx * lut_at(y0, x1)
+           + fy * (1 - fx) * lut_at(y1, x0)
+           + fy * fx * lut_at(y1, x1))
+    return (out * (hi - lo) + lo).astype(np.asarray(image_hw).dtype)

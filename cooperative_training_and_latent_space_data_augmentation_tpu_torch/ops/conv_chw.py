@@ -287,6 +287,25 @@ def full_f32(dtype: torch.dtype):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextmanager
+def deterministic_cudnn(on: bool):
+    """cuDNN restricted to deterministic algorithms while the block runs
+    (when ``on``; the flag is read where a conv is dispatched, so a CUDA
+    graph keeps the algorithm chosen at its capture).  By default cuDNN may
+    pick backward algorithms that sum with atomics, and two steps on the
+    same inputs then part; every train step on the card runs its forward
+    and its backward inside this block."""
+    if not on:
+        yield
+        return
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 class _PointwiseF32(torch.autograd.Function):
     """A float32 1x1 stride-1 conv whose weight gradient is one batched
     matmul in full f32, summed over the batch in a fixed order, so it is

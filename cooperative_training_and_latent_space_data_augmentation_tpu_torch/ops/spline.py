@@ -155,17 +155,27 @@ def gather_4x4(cfp: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
 def map_coordinates_cubic(img_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                           mode: str = "mirror", prefiltered: bool = False) -> torch.Tensor:
     """scipy.ndimage.map_coordinates(order=3) for an HWC image at (ys, xs)
-    float sample grids.  ``mode`` handles BOTH coefficient folding and
-    out-of-range coordinates (like scipy).  Pass ``prefiltered=True`` when
-    ``img_hwc`` already holds spline coefficients (for 'nearest' these must
-    be the 12-edge-padded mirror coefficients this function builds).
+    float sample grids: :func:`map_coordinates_cubic_batch` of a batch of
+    one."""
+    return map_coordinates_cubic_batch(img_hwc[None], ys[None], xs[None], mode,
+                                       prefiltered)[0]
+
+
+def map_coordinates_cubic_batch(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                                mode: str = "mirror", prefiltered: bool = False) -> torch.Tensor:
+    """scipy.ndimage.map_coordinates(order=3) of each NHWC image of ``imgs``
+    at its own (N, ...) float sample grids ``ys``, ``xs``; returns (N, ...,
+    C).  ``mode`` handles BOTH coefficient folding and out-of-range
+    coordinates (like scipy).  Pass ``prefiltered=True`` when ``imgs``
+    already holds spline coefficients (for 'nearest' these must be the
+    12-edge-padded mirror coefficients this function builds).
 
     Out-of-range coordinates are mirror/reflect-folded first (exact: the
     spline of the extended signal is symmetric), so a fixed pad of 2 with
     the mode's extension covers every tap, and one gather fetches each
     pixel's 4x4 coefficient neighbourhood.
     """
-    h, w = img_hwc.shape[0], img_hwc.shape[1]
+    h, w = imgs.shape[1], imgs.shape[2]
     ys, xs = ys.float(), xs.float()
     if mode == "nearest":
         # scipy has no exact infinite spline extension for 'nearest': it
@@ -177,21 +187,20 @@ def map_coordinates_cubic(img_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Ten
         ys = torch.clamp(ys + pad, 0.0, h + 2 * pad - 1.0)
         xs = torch.clamp(xs + pad, 0.0, w + 2 * pad - 1.0)
         if not prefiltered:
-            img_hwc = pad_axes(img_hwc, pad, "nearest", dims=(0, 1))
+            imgs = pad_axes(imgs, pad, "nearest", dims=(1, 2))
         h, w = h + 2 * pad, w + 2 * pad
         mode = "mirror"
-    chw = img_hwc.permute(2, 0, 1).float()
-    coeff = chw if prefiltered else spline_coefficients(chw, mode)
+    nchw = imgs.permute(0, 3, 1, 2).float()
+    coeff = nchw if prefiltered else spline_coefficients(nchw, mode)
     ys = _fold_coords(ys, h, mode)
     xs = _fold_coords(xs, w, mode)
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
-    wy = torch.stack(_bspline_weights(ys - y0), dim=-1)       # (..., 4)
+    wy = torch.stack(_bspline_weights(ys - y0), dim=-1)       # (N, ..., 4)
     wx = torch.stack(_bspline_weights(xs - x0), dim=-1)
     # pad rows/cols -2..-1 and n..n+1 with the mode's extension; folded
     # coords keep every tap inside this band.  Tap a of the 4 sits at
     # padded row y0 - 1 + a + 2.
-    cfp = pad_axes(coeff, PAD, mode).permute(1, 2, 0)
-    out = gather_4x4(cfp[None], y0.long()[None] + 1, x0.long()[None] + 1,
-                     wy[None], wx[None])[0]
-    return out.to(img_hwc.dtype)
+    cfp = pad_axes(coeff, PAD, mode).permute(0, 2, 3, 1)
+    out = gather_4x4(cfp, y0.long() + 1, x0.long() + 1, wy, wx)
+    return out.to(imgs.dtype)

@@ -5,10 +5,12 @@ Counterpart of the training surface of the JAX package's
 ``train/cooperative.py:CooperativeTripletSolver``: ``standard_training``,
 ``_frozen_decoder_fn``, ``hard_example_generation`` (with its
 ``SALIENCY_BN_UPDATE=1`` arm as the ``saliency_bn_update`` keyword),
-``hard_example_training`` and the sequential loss path of
-``make_train_step``, for every configuration its ``cli/train.py`` accepts:
-the three network types, ``separate_training`` (the STN's input detached,
-so its loss does not train the FTN), layer dropout and ``remat``.  One
+``hard_example_training`` and the three loss paths of ``make_train_step``
+(the sequential one, and its ``FUSED_STN`` and ``FUSED_FTN`` arms, which
+stack passes along the batch axis), for every configuration its
+``cli/train.py`` accepts: the three network types, ``separate_training``
+(the STN's input detached, so its loss does not train the FTN), layer
+dropout and ``remat``.  One
 :meth:`CooperativeTrainer.train_step` is one jitted JAX step: input noise
 and clip, the four standard losses (BN running statistics updated),
 hard-example generation by latent masking through frozen decoders, the
@@ -28,16 +30,17 @@ package's ``jax.checkpoint`` around each submodule apply), the recompute
 running with BN statistics frozen so that they move once, as the JAX
 package's pure recompute leaves them.
 
-With ``capturable=True`` the step can be captured into a CUDA graph
-(:mod:`.graphs`): Adam keeps its step count and bias correction on the
-device, and nothing in :meth:`CooperativeTrainer.train_step` reads the
-device back or branches on a device value.  Such a step also runs cuDNN's
-deterministic algorithms (``torch.backends.cudnn.deterministic`` for the
-step's forward and backward): by default cuDNN may pick backward
-algorithms that sum with atomics, and two eager steps on one card then
-part after the first update (measured on an H100, ``PERF.md``), so no
+Every step on the card runs cuDNN's deterministic algorithms
+(``torch.backends.cudnn.deterministic`` for the step's forward and
+backward): by default cuDNN may pick backward algorithms that sum with
+atomics, and two eager steps on one card then part after the first update
+(measured on an H100, ``PERF.md``), so a seed's run would not repeat, no
 replay could be held to an eager step, nor a fused epoch to the streaming
-loop, bit for bit.
+loop, bit for bit.  With ``capturable=True`` the step can also be
+captured into a CUDA graph (:mod:`.graphs`): Adam keeps its step count and
+bias correction on the device, and nothing in
+:meth:`CooperativeTrainer.train_step` reads the device back or branches on
+a device value.
 """
 
 from __future__ import annotations
@@ -58,10 +61,17 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.bl
     ResCore,
     dropout_masks,
     frozen_stats,
+    stacked_flags,
+    stacked_passes,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
     Conv,
+    deterministic_cudnn,
     full_f32,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.image import (
+    construct_input,
+    one_hot,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.losses import (
     cross_entropy_2d,
@@ -86,22 +96,6 @@ METRIC_KEYS = (
     "loss/hard/total", "loss/hard/seg", "loss/hard/image", "loss/hard/shape",
     "loss/total",
 )
-
-
-@contextlib.contextmanager
-def deterministic_cudnn(on: bool):
-    """cuDNN restricted to deterministic algorithms while the block runs
-    (when ``on``; the flag is read where a conv is dispatched, so a CUDA
-    graph keeps the algorithm chosen at its capture)."""
-    if not on:
-        yield
-        return
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
 
 
 @dataclass
@@ -134,11 +128,25 @@ class CooperativeTrainer:
     the unmasked code with its BN statistics tracked, kept where the branch
     was targeted (the JAX package's ``SALIENCY_BN_UPDATE=1``, the
     reference's raw train-mode saliency forward).  ``capturable``: Adam
-    built with ``capturable=True`` (its step on the parameters' device) and
-    the step on cuDNN's deterministic algorithms, so that :meth:`train_step`
-    can be captured into a CUDA graph (:class:`.graphs.StepGraphs`) and its
-    replays give the eager step's numbers bit for bit; the card only, since
-    capturable Adam refuses CPU parameters.
+    built with ``capturable=True`` (its step on the parameters' device), so
+    that :meth:`train_step` can be captured into a CUDA graph
+    (:class:`.graphs.StepGraphs`) and its replays give the eager step's
+    numbers bit for bit; the card only, since capturable Adam refuses CPU
+    parameters.  Every step whose parameters are on the card runs on
+    cuDNN's deterministic algorithms, capturable or not.
+
+    ``fused_stn`` (the JAX package's ``FUSED_STN=1``): the STN's passes of
+    a step (the ground-truth recon, the predicted recon and, with latent
+    DA, the hard prediction's and the perturbed segmentation's recons) run
+    as one batch stacked along the batch axis, their BatchNorms on
+    per-pass statistics (:func:`..models.blocks.stacked_passes`).
+    ``fused_ftn`` (``FUSED_FTN=1``): a value-only encoder pre-pass feeds
+    generation, then the standard and the hard FTN pass run as one stacked
+    batch of 2N and the STN passes sequentially, JAX's fused order.  As in
+    the JAX package, both are off with layer dropout, ``fused_ftn`` needs
+    latent DA on the image code, and ``fused_ftn`` wins when both are
+    asked for; the attributes hold what is on.  Both draw what the
+    sequential step draws.
 
     ``generation`` holds the last step's :class:`Generation` per code.
     Under a CUDA graph it is set once, when the graph is captured, and
@@ -156,7 +164,7 @@ class CooperativeTrainer:
                  encoder_dropout: Optional[float] = None,
                  decoder_dropout: Optional[float] = None, separate_training: bool = False,
                  remat: bool = False, saliency_bn_update: bool = False,
-                 capturable: bool = False):
+                 capturable: bool = False, fused_stn: bool = False, fused_ftn: bool = False):
         self.model = CooperativePredictor(image_ch=image_ch, num_classes=num_classes,
                                           temperature=temperature,
                                           compute_dtype=compute_dtype, device=device,
@@ -180,6 +188,11 @@ class CooperativeTrainer:
         # order)} for the modules with layer dropout: what
         # draw_step(dropout_sites=...) draws masks for
         self.dropout_sites = self._dropout_sites(self.model)
+        # JAX's gates (make_train_step): no per-pass dropout draws in the
+        # fused arms, the 2N FTN batch only with a hard image pass
+        self.fused_ftn = bool(fused_ftn and not self.dropout_sites and self.use_latent_da
+                              and latent_da.gen_corrupted_image)
+        self.fused_stn = bool(fused_stn and not self.dropout_sites and not self.fused_ftn)
         self._masks: List[torch.Tensor] = []
         self._used = 0
 
@@ -235,11 +248,12 @@ class CooperativeTrainer:
             with dropout_masks(masks):
                 return module(x)
         calls = []
+        passes = stacked_flags(module)  # a stacked batch's recompute is stacked too
 
         def fwd(x):
             calls.append(1)
             with (frozen_stats(module) if len(calls) > 1 else contextlib.nullcontext()), \
-                    dropout_masks(masks):
+                    stacked_passes(module, update_flags=passes), dropout_masks(masks):
                 return module(x)
 
         # the forward draws nothing (draws are operands), so no RNG state is
@@ -352,16 +366,19 @@ class CooperativeTrainer:
                                "(draw_step(dropout_sites=trainer.dropout_sites))")
         self._masks, self._used = list(draws.dropout or []), 0
         self.model.module_call = self._module_call
+        losses = (self._losses_fused_ftn if self.fused_ftn
+                  else self._losses_fused_stn if self.fused_stn else self._losses)
+        on_card = clean.is_cuda
         try:
-            with deterministic_cudnn(self.capturable):
-                total, metrics = self._losses(clean, label, noised, draws)
+            with deterministic_cudnn(on_card):
+                total, metrics = losses(clean, label, noised, draws)
         finally:
             self.model.module_call = None
         if self._used != len(self._masks):
             raise RuntimeError(f"dropout: the step used {self._used} of its "
                                f"{len(self._masks)} keep masks")
         # the backward of the f32 cuDNN convs in full f32, too
-        with full_f32(torch.float32), deterministic_cudnn(self.capturable):
+        with full_f32(torch.float32), deterministic_cudnn(on_card):
             total.backward()
         for p in self.model.parameters():
             if p.grad is None:  # a module the loss does not reach (the code
@@ -371,31 +388,103 @@ class CooperativeTrainer:
 
     def _losses(self, clean, label, noised, draws):
         std, (z_i, z_s) = self.standard_training(clean, label, noised)
-        standard = std["seg"] + std["image"] + std["shape"] + std["gt_shape"]
-        metrics = {
-            "loss/standard/total": standard,
-            "loss/standard/seg": std["seg"],
-            "loss/standard/image": std["image"],
-            "loss/standard/shape": std["shape"],
-            "loss/standard/gt_shape": std["gt_shape"],
-        }
+        zero = self._zero()
+        hard = {"seg": zero, "image": zero, "shape": zero, "perturbed_shape": zero}
         if self.use_latent_da:
             p_img, p_seg = self.hard_example_generation(z_i, z_s, clean, label, draws)
             hard = self.hard_example_training(p_img, clean, p_seg, label)
-            hard_loss = hard["seg"] + hard["image"] + hard["shape"] + hard["perturbed_shape"]
-            metrics.update({
-                "loss/hard/total": hard_loss,
-                "loss/hard/seg": hard["seg"],
-                "loss/hard/image": hard["image"],
-                "loss/hard/shape": hard["shape"] + hard["perturbed_shape"],
-            })
-        else:
-            hard_loss = self._zero()
-            metrics.update({k: hard_loss for k in (
-                "loss/hard/total", "loss/hard/seg", "loss/hard/image", "loss/hard/shape")})
-        total = standard + hard_loss
-        metrics["loss/total"] = total
-        return total, metrics
+        return self._metrics(std["seg"], std["image"], std["shape"], std["gt_shape"],
+                             hard["seg"], hard["image"], hard["shape"],
+                             hard["perturbed_shape"])
+
+    @staticmethod
+    def _metrics(std_seg, std_image, std_shape, std_gt_shape, hard_seg, hard_image,
+                 hard_shape, hard_perturbed):
+        """(total, metrics) from the eight loss terms (``hard_shape``: the
+        hard prediction's recon, ``hard_perturbed``: the perturbed
+        segmentation's), summed in the JAX package's order."""
+        standard = std_seg + std_image + std_shape + std_gt_shape
+        hard = hard_seg + hard_image + hard_shape + hard_perturbed
+        total = standard + hard
+        return total, {
+            "loss/standard/total": standard, "loss/standard/seg": std_seg,
+            "loss/standard/image": std_image, "loss/standard/shape": std_shape,
+            "loss/standard/gt_shape": std_gt_shape, "loss/hard/total": hard,
+            "loss/hard/seg": hard_seg, "loss/hard/image": hard_image,
+            "loss/hard/shape": hard_shape + hard_perturbed, "loss/total": total}
+
+    def _stn_input(self, logits: torch.Tensor) -> torch.Tensor:
+        """The STN's input from FTN logits (detached under
+        ``separate_training``)."""
+        return construct_input(logits.detach() if self.separate_training else logits,
+                               self.model.temperature)
+
+    def _losses_fused_stn(self, clean, label, noised, draws):
+        """The JAX package's ``loss_fn_fused``: the standard FTN pass
+        (statistics moved), generation, the hard FTN pass (statistics
+        frozen), then every STN pass [ground truth, prediction, hard
+        prediction, perturbed segmentation] as one stacked batch, flags
+        (True, True, False, False).  No STN input depends on an STN output,
+        and the hard passes move no statistics, so the sums and the
+        statistics are the sequential path's."""
+        m = self.model
+        (z_i, z_s), y0 = m.fast_predict(noised)
+        std_seg = cross_entropy_2d(y0, label)
+        std_image = 0.5 * torch.mean((m.decode_image(z_i) - clean) ** 2)
+        p_img = p_seg = None
+        if self.use_latent_da:
+            p_img, p_seg = self.hard_example_generation(z_i, z_s, clean, label, draws)
+        hard_seg = hard_image = self._zero()
+        passes, flags = [one_hot(label, self.num_classes), self._stn_input(y0)], [True, True]
+        if p_img is not None:
+            with frozen_stats(m):
+                (zi_h, _), y0_h = m.fast_predict(p_img.detach())
+                hard_seg = cross_entropy_2d(y0_h, label)
+                hard_image = 0.5 * torch.mean((m.decode_image(zi_h) - clean) ** 2)
+            passes.append(self._stn_input(y0_h))
+            flags.append(False)
+        if p_seg is not None:
+            passes.append(construct_input(p_seg.detach(), m.temperature))
+            flags.append(False)
+        with stacked_passes(m.shape_encoder, m.shape_decoder, update_flags=flags):
+            recons = m.decode_shape(m.run("shape_encoder", torch.cat(passes)))
+        ce = [cross_entropy_2d(r, label) for r in recons.chunk(len(passes))]
+        zero = self._zero()
+        hard_shape = ce[2] if p_img is not None else zero
+        hard_perturbed = ce[-1] if p_seg is not None else zero
+        return self._metrics(std_seg, std_image, ce[1], ce[0], hard_seg, hard_image,
+                             hard_shape, hard_perturbed)
+
+    def _losses_fused_ftn(self, clean, label, noised, draws):
+        """The JAX package's ``loss_fn_fused_ftn``, in its order: a
+        value-only encoder pre-pass (statistics frozen) whose latents feed
+        generation (which moves the decoders' statistics first under
+        ``saliency_bn_update``), the standard and the hard FTN pass as one
+        stacked batch of 2N, flags (True, False), then the STN passes
+        sequentially.  The pre-pass latents equal the standard half's to
+        f32 reordering only, so a targeted mask next to its threshold may
+        differ from the sequential step's."""
+        m = self.model
+        with torch.no_grad(), frozen_stats(m.image_encoder):
+            z_i0, z_s0 = m.encode_image(noised)
+        p_img, p_seg = self.hard_example_generation(z_i0, z_s0, clean, label, draws)
+        ftn = (m.image_encoder, m.segmentation_decoder, m.image_decoder)
+        with stacked_passes(*ftn, update_flags=(True, False)):
+            (z_i, _), y = m.fast_predict(torch.cat([noised, p_img.detach().to(noised.dtype)]))
+            recon = m.decode_image(z_i)
+        y0, y0_h = y.chunk(2)
+        std_image, hard_image = (0.5 * torch.mean((r - clean) ** 2) for r in recon.chunk(2))
+        std_gt_shape = cross_entropy_2d(m.decode_shape(m.encode_label(label)), label)
+        std_shape = cross_entropy_2d(m.decode_shape(m.run("shape_encoder",
+                                                          self._stn_input(y0))), label)
+        with frozen_stats(m):
+            hard_shape = cross_entropy_2d(m.decode_shape(m.run("shape_encoder",
+                                                               self._stn_input(y0_h))), label)
+            hard_perturbed = (cross_entropy_2d(m.recon_shape(p_seg.detach()), label)
+                              if p_seg is not None else self._zero())
+        return self._metrics(cross_entropy_2d(y0, label), std_image, std_shape, std_gt_shape,
+                             cross_entropy_2d(y0_h, label), hard_image, hard_shape,
+                             hard_perturbed)
 
     # ------------------------------------------------------------- state
     def load_train_state(self, state: TrainState) -> None:
@@ -471,9 +560,26 @@ class CooperativeTrainer:
         recon's first conv launches no dx.  ``saliency_bn_update`` adds one forward of
         each perturbed code's decoder; ``remat`` one more forward (K1, K4,
         K5) of every conv of the loss graph, its recompute in the
-        backward."""
+        backward.  A stacked batch (``fused_stn``'s STN passes,
+        ``fused_ftn``'s two FTN passes) is one pass: each conv launches its
+        forward and K2 once, and dx once if any stacked pass needs a
+        gradient.  ``fused_ftn``'s pre-pass adds one forward of the image
+        encoder, outside the loss graph (no dx, no dw, no recompute)."""
         m = self.model
         lda = self.latent_da
+        gen_img = bool(self.use_latent_da and lda.gen_corrupted_image)
+        gen_seg = bool(self.use_latent_da and lda.gen_corrupted_seg)
+        # the loss graph's passes: FTN passes, and per STN pass whether its
+        # first conv's input needs a gradient (ground truth, prediction,
+        # hard prediction, perturbed segmentation)
+        pred = not self.separate_training
+        stn_passes = [False, pred] + [pred] * gen_img + [False] * gen_seg
+        ftn_passes = 1 + gen_img
+        if self.fused_stn:
+            stn_passes = [any(stn_passes)]
+        if self.fused_ftn:
+            ftn_passes = 1
+        pre_pass = int(self.fused_ftn)
 
         def count(name, uses):
             return sum(isinstance(c, Conv) and uses(c) for c in getattr(m, name).modules())
@@ -486,41 +592,28 @@ class CooperativeTrainer:
             shp_first = int(uses(m.shape_encoder.inc[0]))
             ftn = k["image_encoder"] + k["segmentation_decoder"] + k["image_decoder"]
             stn = k["shape_encoder"] + k["shape_decoder"]
-            # a predicted recon's first conv reads the FTN's prediction,
-            # which needs no gradient under separate_training
-            pred = stn - shp_first * self.separate_training
-            # standard pass: FTN, ground-truth recon, predicted recon
-            fwd = ftn + 2 * stn
-            dx = (ftn - img_first) + (stn - shp_first) + pred
-            if self.use_latent_da:
-                if lda.gen_corrupted_image:  # hard FTN + its predicted recon
-                    fwd += ftn + stn
-                    dx += (ftn - img_first) + pred
-                if lda.gen_corrupted_seg:    # recon of the perturbed segmentation
-                    fwd += stn
-                    dx += stn - shp_first
+            fwd = ftn * ftn_passes + stn * len(stn_passes)
+            dx = (ftn - img_first) * ftn_passes + sum(stn - shp_first * (not grad)
+                                                      for grad in stn_passes)
             dw = fwd
             if self.remat:
                 fwd += dw
-            if self.use_latent_da:
-                for key, on, dec in (("image", lda.gen_corrupted_image, "image_decoder"),
-                                     ("shape", lda.gen_corrupted_seg, "segmentation_decoder")):
-                    if on:
-                        targeted = branches[key] != 0
-                        fwd += k[dec] * (1 + targeted + self.saliency_bn_update)
-                        dx += k[dec] if targeted else 0
+            fwd += k["image_encoder"] * pre_pass
+            for key, on, dec in (("image", gen_img, "image_decoder"),
+                                 ("shape", gen_seg, "segmentation_decoder")):
+                if on:
+                    targeted = branches[key] != 0
+                    fwd += k[dec] * (1 + targeted + self.saliency_bn_update)
+                    dx += k[dec] if targeted else 0
             return fwd, dx, dw
 
-        ftn_passes = 1 + int(self.use_latent_da and lda.gen_corrupted_image)
-        recons = 2 + int(self.use_latent_da and lda.gen_corrupted_image) \
-            + int(self.use_latent_da and lda.gen_corrupted_seg)
-        mask = sum(int(self.use_latent_da and on and branches[key] != 0) for key, on in (
-            ("image", lda is not None and lda.gen_corrupted_image),
-            ("shape", lda is not None and lda.gen_corrupted_seg)))
+        mask = sum(int(on and branches[key] != 0)
+                   for key, on in (("image", gen_img), ("shape", gen_seg)))
         k4 = {name: count(name, Conv.uses_k4) for name in ("image_encoder", "shape_encoder")}
-        s2 = ftn_passes * k4["image_encoder"] + recons * k4["shape_encoder"]
+        s2 = ftn_passes * k4["image_encoder"] + len(stn_passes) * k4["shape_encoder"]
         k1, k5 = stride1(Conv.uses_k1), stride1(Conv.uses_k5)
         return {"conv3x3_chw": k1[0], "conv3x3_chw_dx": k1[1], "conv3x3_chw_dw": k1[2],
-                "percentile_mask": mask, "conv3x3s2": s2 * (1 + self.remat), "conv3x3s2_dx": s2,
-                "conv3x3s2_dw": s2, "conv3x3_nl": k5[0], "conv3x3_nl_dx": k5[1],
-                "conv3x3_nl_dw": k5[2]}
+                "percentile_mask": mask,
+                "conv3x3s2": s2 * (1 + self.remat) + pre_pass * k4["image_encoder"],
+                "conv3x3s2_dx": s2, "conv3x3s2_dw": s2, "conv3x3_nl": k5[0],
+                "conv3x3_nl_dx": k5[1], "conv3x3_nl_dw": k5[2]}

@@ -241,7 +241,8 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
                   cfg: ExperimentConfig, model_dir: str, log_dir: Optional[str] = None,
                   log: bool = False, seed: int = 42, resume_path: Optional[str] = None,
                   max_epochs: Optional[int] = None, draws=None, fused_epoch: bool = False,
-                  multi_epoch: int = 0, pipeline_epoch: bool = False) -> TrainResult:
+                  multi_epoch: int = 0, pipeline_epoch: bool = False,
+                  warp: str = "composed") -> TrainResult:
     """Train ``trainer`` (built by the caller, on its device) on
     ``train_set``, validating on ``validate_set`` every epoch.
 
@@ -260,7 +261,8 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     the trainer must be ``capturable``; the dataset must fit on the
     device); with ``multi_epoch`` E > 1, epochs after the first in K-epoch
     windows of E; with ``pipeline_epoch``, each epoch's results read back
-    after the next epoch is dispatched (see the module docstring)."""
+    after the next epoch is dispatched (see the module docstring).  ``warp``:
+    the augmentation's geometric warp arm (``ops/augment.py:WARPS``)."""
     check_epoch_modes(fused_epoch, multi_epoch, pipeline_epoch)
     learning, data_cfg = cfg.learning, cfg.data
     start_epoch = load_snapshot(trainer, resume_path) if resume_path else 0
@@ -268,7 +270,8 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     batcher = CooperativeBatcher(
         train_set, batch_size=learning.batch_size, policy_name=data_cfg.data_aug_policy,
         pad_hw=data_cfg.pad_hw, crop_hw=data_cfg.crop_hw, num_classes=trainer.num_classes,
-        keep_orig=data_cfg.keep_orig_image_label_pair_for_training, seed=seed, device=device)
+        keep_orig=data_cfg.keep_orig_image_label_pair_for_training, seed=seed, device=device,
+        warp=warp)
     if len(batcher) == 0:
         raise ValueError("training set is empty (0 batches): check the data root and split; "
                          "refusing to train on nothing")

@@ -36,6 +36,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.un
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import losses as L
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.conv_chw import (
     Conv,
+    deterministic_cudnn,
     full_f32,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
@@ -146,8 +147,11 @@ class SegmentationSolver:
         self.model.train()
         self.optimizer.zero_grad()
         x = _nchw(image.to(self.device, torch.float32))
-        loss = self._loss(self.model(x), label.to(self.device).long())
-        with full_f32(torch.float32):  # the float32 convs' backward without TF32
+        on_card = x.is_cuda
+        with deterministic_cudnn(on_card):
+            loss = self._loss(self.model(x), label.to(self.device).long())
+        # the float32 convs' backward without TF32, on deterministic cuDNN
+        with full_f32(torch.float32), deterministic_cudnn(on_card):
             loss.backward()
         self.optimizer.step()
         if self.use_ema:

@@ -18,7 +18,10 @@ and their generator on the card against the CPU; ``cli.train``'s start at
 seed 40 against the numbers recorded on the CPU of a machine without a
 card; and the step's other configurations (``separate_training``, the
 two ablation network types, layer dropout, ``remat``, the saliency-BN
-arm) on the card against the CPU; and the baselines'
+arm, the fused pass arms ``fused_stn`` and ``fused_ftn``) on the card
+against the CPU and graphed against eager, with K1, K1 dx and K2 at the
+stacked batches' N = 80 and two non-capturable eager steps repeating bit
+for bit (deterministic cuDNN); the warp arms graphed; and the baselines'
 ``SegmentationSolver``: an f32 step on the card against the CPU, a bf16
 ``predict`` of FCN_16 against its f32 twin, and a JAX ``.msgpack``
 checkpoint loaded on the card.
@@ -231,6 +234,38 @@ def test_k2_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dt
     # f32 sums of the same products (a bf16 product is exact in f32) in
     # another order
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("c_in,c_out,h,which", [
+    (*shape, which) for which in ("fwd", "dx", "dw") for shape in K1_SHAPES
+    if which != "dx" or shape[0] > 1])   # the image's conv launches no dx
+def test_k1_and_k2_at_the_stacked_batch(cuda, c_in, c_out, h, which):
+    """K1, K1 dx and K2 at N = 80, the fused STN batch (4 passes of 20;
+    the fused FTN's is 40), bf16, at every main-path shape: against the
+    plain versions (one bf16 ulp; K2 1e-5 of scale) and bit for bit on a
+    repeat (the grids' N axes and K2's per-image slabs at 80)."""
+    n, w = 80, h
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((n, c_in, h * w), generator=gen, device=cuda).to(dt)
+    dy = torch.randn((n, c_out, h * w), generator=gen, device=cuda).to(dt)
+    w_all = (torch.randn((c_out, 9 * c_in), generator=gen, device=cuda)
+             / (9 * c_in) ** 0.5).to(dt)
+    fn, plain = {
+        "fwd": (lambda: conv_chw.conv3x3_chw(x, w_all, h, w),
+                lambda: conv_chw.conv3x3_chw_plain(x, w_all, h, w)),
+        "dx": (lambda: conv_chw.conv3x3_chw_dx(dy, w_all, h, w),
+               lambda: conv_chw.conv3x3_chw_plain(
+                   dy, conv_chw.flip_wall(w_all).contiguous(), h, w)),
+        "dw": (lambda: conv_chw.conv3x3_chw_dw(x, dy, h, w),
+               lambda: conv_chw.conv3x3_chw_dw_plain(x, dy, h, w)),
+    }[which]
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    atol = 1e-5 * scale if which == "dw" else _bf16_ulp(scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
     assert torch.equal(got, again)
 
 
@@ -1489,6 +1524,9 @@ STEP_VARIANTS = {
     "dropout": {"encoder_dropout": 0.3, "decoder_dropout": 0.2},
     "remat": {"remat": True},
     "saliency_bn_update": {"saliency_bn_update": True},
+    "fused_stn": {"fused_stn": True},
+    "fused_ftn": {"fused_ftn": True},
+    "fused_ftn_s2_nl": {"fused_ftn": True, "conv_s2": True, "conv_nl": True},
 }
 
 
@@ -1606,7 +1644,7 @@ GRAPH_POLICY = "ACDC_affine_elastic_intensity"
 MASK_TYPES = ("dropout", "spatial", "channel")
 
 
-def _graph_batcher(cuda, n=4):
+def _graph_batcher(cuda, n=4, warp="composed"):
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
         CooperativeBatcher,
     )
@@ -1615,17 +1653,18 @@ def _graph_batcher(cuda, n=4):
     )
 
     return CooperativeBatcher(SyntheticSegDataset(length=n, pad_size=GRAPH_PAD, seed=0), 4,
-                              GRAPH_POLICY, GRAPH_PAD, GRAPH_CROP, device=cuda)
+                              GRAPH_POLICY, GRAPH_PAD, GRAPH_CROP, device=cuda, warp=warp)
 
 
-def _graph_pair(cuda, lda, **kw):
-    """A batcher and two capturable bf16 trainers from one seed, each with
-    its StepGraphs: the first is replayed, the second runs its body eagerly."""
+def _graph_pair(cuda, lda, warp="composed", **kw):
+    """A batcher (its augmentation's warp arm ``warp``) and two capturable
+    bf16 trainers from one seed, each with its StepGraphs: the first is
+    replayed, the second runs its body eagerly."""
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
         StepGraphs,
     )
 
-    batcher = _graph_batcher(cuda)
+    batcher = _graph_batcher(cuda, warp=warp)
     trainers = [CooperativeTrainer(lda, learning_rate=1e-3, compute_dtype=torch.bfloat16,
                                    device=cuda, seed=0, capturable=True, **kw)
                 for _ in range(2)]
@@ -1657,7 +1696,7 @@ def _assert_same_state(a, b):
         assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
 
 
-def _graphed_against_eager(cuda, lda, n_steps=3, **kw):
+def _graphed_against_eager(cuda, lda, n_steps=3, warp="composed", **kw):
     """``n_steps`` steps on the same indices and staged draws: replayed
     (after the first, eager and captured) against the eager body of a
     twin trainer, metrics and state bit for bit; the graph's launches at
@@ -1666,7 +1705,7 @@ def _graphed_against_eager(cuda, lda, n_steps=3, **kw):
         branch_key,
     )
 
-    batcher, trainers, graphs = _graph_pair(cuda, lda, **kw)
+    batcher, trainers, graphs = _graph_pair(cuda, lda, warp, **kw)
     staged = _staged(cuda, batcher, trainers[0], n_steps)
     idx = torch.tensor([[0, 1], [2, 3], [3, 0], [1, 2]] * n_steps, device=cuda)[:n_steps]
     got = torch.empty((n_steps, 10), device=cuda)
@@ -1709,11 +1748,44 @@ def test_graphed_step_on_the_other_routes(cuda, route):
     assert all(captured.launches[k + s] > 0 for s in ("", "_dx", "_dw"))
 
 
-@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS) + ["warp_two_gather",
+                                                           "warp_sequential"])
 def test_graphed_step_variant_bit_equals_eager(cuda, variant):
-    """Each of the step's other configurations that ``cli.train`` accepts,
+    """Each of the step's other configurations that ``cli.train`` accepts
+    (the fused arms too), and the augmentation's two other warp arms,
     graphed under ``mask_type="random"`` against its eager step."""
-    _graphed_against_eager(cuda, LatentDAConfig(), n_steps=4, **STEP_VARIANTS[variant])
+    kw = STEP_VARIANTS.get(variant, {})
+    warp = variant[len("warp_"):] if variant.startswith("warp_") else "composed"
+    _graphed_against_eager(cuda, LatentDAConfig(), n_steps=4, warp=warp, **kw)
+
+
+def test_two_eager_steps_repeat_bit_for_bit(cuda):
+    """Two non-capturable trainers from one seed, two bf16 steps each at
+    full width (batch 20 at 192x192) on the same draws: metrics and state
+    bit for bit equal.  Every step on the card runs on deterministic cuDNN;
+    on cuDNN's default backward algorithms (sums with atomics) such steps
+    part after the first update (measured on an H100)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+
+    image, label = (torch.from_numpy(a).to(cuda) for a in phantom_batch(seed=7, n=20))
+    lda = LatentDAConfig()
+    trainers = [CooperativeTrainer(lda, compute_dtype=torch.bfloat16, device=cuda, seed=0)
+                for _ in range(2)]
+    assert not any(t.capturable for t in trainers)
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(2):
+        draws = draw_step(gen, 20, (192, 192), lda, device=cuda)
+        got = [t.train_step(image, label, draws) for t in trainers]
+        assert all(torch.equal(got[0][k], got[1][k]) for k in got[0])
+    for (k, a), b in zip(trainers[0].model.state_dict().items(),
+                         trainers[1].model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for p, q in zip(trainers[0].model.parameters(), trainers[1].model.parameters()):
+        sa, sb = trainers[0].optimizer.state[p], trainers[1].optimizer.state[q]
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
 
 
 def test_nine_graphs_share_one_pool(cuda):

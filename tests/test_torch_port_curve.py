@@ -19,12 +19,20 @@ mask can swap next to its threshold (the loop test's rule), which changes
 that step's hard example; at this width one such step moves an epoch's
 loss by a percent.  A wrong loss term, scale or update moves it by far
 more (the curve falls by 10 % an epoch here).
+
+The same run also restarts the port once from JAX's state at epoch 1's
+start (``--restart_each_epoch``, one epoch): JAX's two steps of epoch 1 on
+JAX's batches and draws from JAX's weights, so its gap is one epoch's from
+a shared start.  Held: every ``loss/...`` term's epoch mean within
+``FIRST_RTOL`` of JAX's, epoch 0's rule (both start from the same
+weights).  The JAX run is shared by the two tests (a module fixture).
 """
 
 import os
 import tempfile
 
 import numpy as np
+import pytest
 import torch_port_curve as C
 from torch_port_util import one_torch_thread  # noqa: F401 - a fixture
 
@@ -34,12 +42,19 @@ EPOCHS = 3
 FIRST_RTOL = 1e-2
 LOSS_RTOL = 5e-2
 IOU_ATOL = 0.05
+RESTART_EPOCH = 1
 
 
-def test_port_curve_tracks_jax_at_a_tiny_width(tmp_path):
-    out = tmp_path / "curve.jsonl"
+@pytest.fixture(scope="module")
+def curve(tmp_path_factory):
+    out = tmp_path_factory.mktemp("curve") / "curve.jsonl"
     rows = C.curves(40, EPOCHS, CFG, side="both", datasets=C.synthetic(4, 2, (40, 40)),
-                    out=str(out))
+                    out=str(out), restart_each_epoch=True, restart_epochs=[RESTART_EPOCH])
+    return rows, out
+
+
+def test_port_curve_tracks_jax_at_a_tiny_width(curve):
+    rows, out = curve
     assert [r["epoch"] for r in rows] == list(range(EPOCHS))
     assert len(out.read_text().splitlines()) == EPOCHS
     for r in rows:
@@ -53,6 +68,20 @@ def test_port_curve_tracks_jax_at_a_tiny_width(tmp_path):
         assert abs(p["iou/val_iou"] - j["iou/val_iou"]) <= IOU_ATOL, r
     # the loss falls on both sides
     assert rows[-1]["port"]["loss/total"] < rows[0]["port"]["loss/total"]
+
+
+def test_port_restarted_from_jax_state_tracks_jax_for_an_epoch(curve):
+    rows, _ = curve
+    assert [r["epoch"] for r in rows if "restart" in r] == [RESTART_EPOCH]
+    r = rows[RESTART_EPOCH]["restart"]
+    assert set(r["port"]) == set(r["jax"]) == set(C.STEP_KEYS)
+    for k in C.STEP_KEYS:
+        print(f"restart at epoch {RESTART_EPOCH}: {k} gap {r['rel_gap'][k]:.4%}")
+        assert np.isfinite(r["port"][k]), k
+        assert abs(r["gap"][k]) <= FIRST_RTOL * abs(r["jax"][k]) + 1e-6, (k, r)
+    # the restarted epoch's JAX side is the logged run's epoch
+    logged = rows[RESTART_EPOCH]["jax"]["loss/total"]
+    assert abs(r["jax"]["loss/total"] - logged) <= 1e-5 * logged
 
 
 def test_tpu_log_curve_reads_a_run():

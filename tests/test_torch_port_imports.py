@@ -55,9 +55,16 @@ SCRIPT = textwrap.dedent("""
                 "data.acdc", "data.mnm", "eval.post_process", "eval.pairwise_measures",
                 "eval.tester", "cli.make_synthetic_acdc", "cli.test", "models.layers",
                 "models.unet", "models.unet3d", "train.segmentation", "utils.schedulers",
-                "utils.ema"}
+                "utils.ema", "data.prostate", "data.host_transforms"}
     missing = {port.__name__ + "." + m for m in expected} - set(names)
     assert not missing, missing
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import Params
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data import (
+        ProstateDecathlonDataset,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import (
+        Transformations, clahe, draw_motion, eval_transform_sample, motion_estimation,
+    )
     assert not kernels._libs, "a kernel library was loaded at import"
     assert set(kernels.SOURCES) == {"conv3x3_chw", "conv3x3_chw_dw", "conv3x3s2",
                                     "conv3x3_nl", "conv3x3_b8", "percentile_mask"}
