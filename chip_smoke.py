@@ -22,7 +22,10 @@ through the port's command line, its fused epoch and K-epoch window on
 CUDA graphs of the augmentation and the step, the held-out evaluation of the loop's
 best checkpoint through the port's test entry, the robustness protocol
 (training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
-table), the port's ``bench_b8_conv``, the path of the blocked conv K6 (with its
+table), data-parallel training over two ranks sharing the card (the step
+against one process, ``cli.train --n_devices 2`` and its resume from a
+whole-state checkpoint), the port's ``bench_b8_conv``, the path of the
+blocked conv K6 (with its
 dx and K6dw), and last the baseline family: ``SegmentationSolver`` on each
 network of its registry (the UNets, the FCNs and the residual UNets),
 whose 3x3 stride-1 convs of at most 64 channels run on K1, K1 dx and K2.
@@ -212,6 +215,29 @@ Phases, each printing its seconds when it ends:
    evaluates them and their clean rows are printed beside
    ``saved/robustness_synthetic/aggregated.csv``.  It prints the seconds
    of writing, of each training, of generating and of evaluating;
+11a. ddp: data-parallel training (``parallel/mesh.py``) over two gloo
+   ranks sharing the card, each started by ``parallel.mesh.launch``.
+   First K1, K1 dx, K2 (bf16, every shape of the kernels phase) and K3
+   (D 128 and 144, hard and soft) at N = 10, a rank's shard of 20, against
+   their plain versions (checked, not timed).  Then, at full width (bf16,
+   batch 20 on the phase's phantom slices, so 10 a rank), three steps with
+   each latent-DA branch forced once on both codes, every rank's launches
+   held to ``expected_launches`` at its batch, the ranks' states (hashes)
+   and metrics equal, and after each step the losses, parameters, BN
+   running statistics and Adam moments held against one process stepping
+   the whole batch from the same state and draws by ``compare_bf16``'s
+   rule: their max and mean gaps at most twice the one process's own bf16
+   against its f32 twin's; then a ``random`` step timed (host ms, and the
+   ms inside collectives with the device synchronized before each: the
+   all-reduce's share) and one traced (device busy ms).  In the same start
+   of the ranks, ``cli.train --synthetic --bf16 --n_devices 2`` for 2
+   epochs of one step (10 training phantoms) through the command line's
+   functions (a whole-state checkpoint every epoch), then, started anew, one epoch more by ``--resume_orbax``:
+   the runs must cover epochs 0-1 and then 2 alone, rank 1 write nothing and
+   rank 0's writes account for every file, the ranks log the same losses
+   and confusion matrices, and each rank launch what its steps' branches
+   and its validations' predicts require.  It prints the backend, the
+   card's ``nvidia-smi`` line and the phase's seconds;
 12. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
@@ -1247,7 +1273,11 @@ def loop_phase(torch, wrappers, predict_k1, tmp):
         MODULE_NAMES,
         CooperativePredictor,
     )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        checkpoint as whole,
+    )
 
+    whole_keep = 3  # save_checkpoint's max_to_keep
     config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
     argv = ["--json_config_path", config, "--synthetic", "--bf16", "--max_epochs",
             str(LOOP_EPOCHS), "--save_dir", tmp, "--log"]
@@ -1283,10 +1313,15 @@ def loop_phase(torch, wrappers, predict_k1, tmp):
         raise AssertionError(f"logged Mean IoUs {ious}")
     if result.best_epoch != int(np.argmax(ious)):
         raise AssertionError(f"best epoch {result.best_epoch}, logged IoUs {ious}")
-    saved = ["best"] + [str(e) for e in range(LOOP_EPOCHS)
-                        if (e + 1) % LOOP_SAVE_EVERY == 0 or e == 0]
-    if sorted(d for d in os.listdir(model_dir) if d != "interrupted") != sorted(saved):
+    periodic = [e for e in range(LOOP_EPOCHS) if (e + 1) % LOOP_SAVE_EVERY == 0 or e == 0]
+    saved = ["best"] + [str(e) for e in periodic]
+    if sorted(d for d in os.listdir(model_dir)
+              if d not in ("interrupted", "orbax")) != sorted(saved):
         raise AssertionError(f"checkpoints {sorted(os.listdir(model_dir))}, want {saved}")
+    # the whole state at every periodic save (utils/checkpoint.py)
+    orbax = whole.all_steps(os.path.join(model_dir, "orbax"))
+    if orbax != periodic[-whole_keep:]:
+        raise AssertionError(f"whole-state checkpoints of steps {orbax}, want {periodic}")
     for d in saved:
         files = sorted(os.listdir(os.path.join(model_dir, d, "checkpoints")))
         if files != sorted(f"{m}.pth" for m in MODULE_NAMES):
@@ -1339,6 +1374,21 @@ FUSED_TRACED = 2      # steps of the traced graphed epoch
 STEADY_EPOCHS = 4     # epochs of a timed steady-state run of each epoch mode
 STEADY_RUNS = 3       # timed runs of each mode, in alternating order
 MASK_TYPES = ("dropout", "spatial", "channel")
+
+
+def _same_tree(torch, a, b):
+    """Two loaded checkpoints equal: the same keys and items, tensors bit
+    for bit (the per-module files, and the whole-state ones with Adam's
+    state)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(torch, v, b[k]) for k, v in a.items()))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(torch, x, y) for x, y in zip(a, b)))
+    return a == b
 
 
 def _same_state(torch, a, b):
@@ -1849,8 +1899,7 @@ def determinism_phase(torch, wrappers, cfg, coop, draws_mod, image, label, tmp):
     if sorted(files_a) != sorted(files_b) or not files_a:
         raise AssertionError(f"two runs wrote other files: {sorted(files_a)} {sorted(files_b)}")
     for rel, sd in files_a.items():
-        other = files_b[rel]
-        if sd.keys() != other.keys() or not all(torch.equal(v, other[k]) for k, v in sd.items()):
+        if not _same_tree(torch, sd, files_b[rel]):
             raise AssertionError(f"{rel} differs between two runs of one seed")
     print(f"  two streaming runs of seed 40 through cli.train, {DET_EPOCHS} epochs ({sec_a:.2f} "
           f"and {sec_b:.2f} s): {len(log_a)} logged losses, IoUs and accuracies identical, "
@@ -2005,6 +2054,319 @@ def eval_phase(torch, wrappers, predict_k1, best_dir, tmp, smi):
     if not gap <= EVAL_DICE_ATOL:
         raise AssertionError(f"card against CPU Dice gap {gap} > {EVAL_DICE_ATOL}")
     return got
+
+
+DDP_RANKS = 2          # data-parallel ranks sharing the one card (gloo)
+DDP_EPOCHS = 2         # cli.train epochs over the ranks, then one more by --resume_orbax
+DDP_TRAIN_SLICES = 10  # their synthetic training slices: one step of 20 an epoch
+
+
+def _state_hashes(torch, trainer):
+    """sha256 of the parameters, the BN buffers and Adam's moments, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(trainer.model.state_dict().values())
+    for p in trainer.model.parameters():
+        st = trainer.optimizer.state.get(p, {})
+        tensors += [st[k] for k in ("exp_avg", "exp_avg_sq") if k in st]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _flat_state(torch, trainer):
+    """(parameters, running statistics, Adam's exp_avg, exp_avg_sq), each
+    one flat float32 host tensor in module order."""
+    sd = trainer.model.state_dict()
+    params = [v for k, v in sd.items() if "running_" not in k and v.is_floating_point()]
+    stats = [v for k, v in sd.items() if "running_" in k]
+    mu = [trainer.optimizer.state[p]["exp_avg"] for p in trainer.model.parameters()]
+    nu = [trainer.optimizer.state[p]["exp_avg_sq"] for p in trainer.model.parameters()]
+    return tuple(torch.cat([t.detach().float().reshape(-1) for t in ts]).cpu()
+                 for ts in (params, stats, mu, nu))
+
+
+def ddp_rank(mesh, state_dicts, image, label, plan, timed_draws, cli_run):
+    """One rank of the ddp phase: :func:`ddp_rank_steps`, then its part of
+    ``cli.train``'s run ``cli_run`` (args, configuration, name) by
+    :func:`ddp_cli_rank`, in one start of the ranks."""
+    return (ddp_rank_steps(mesh, state_dicts, image, label, plan, timed_draws),
+            ddp_cli_rank(mesh, *cli_run))
+
+
+def ddp_rank_steps(mesh, state_dicts, image, label, plan, timed_draws):
+    """The ddp phase's steps on one rank: a bf16 trainer from
+    ``state_dicts`` put in data-parallel mode, one step for each (mask
+    type, global draws) of ``plan`` on this rank's rows, each step's
+    launches held to ``expected_launches``; then a ``random`` step timed
+    with ``mesh.timed`` (host ms to a synchronize, the seconds inside
+    collectives) and one traced (device busy ms).  Returns per step (the
+    metrics, the state hash, rank 0's flat state), the launches over all
+    its steps, and the timings."""
+    import torch
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import config as cfg
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+        shard_train_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
+        device_time,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
+        CooperativeTrainer,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        shard_draws,
+    )
+
+    wrappers = wrappers_of(conv_chw, pmask)
+    trainer = CooperativeTrainer(cfg.LatentDAConfig(), compute_dtype=torch.bfloat16,
+                                 device=mesh.device, seed=0)
+    trainer.model.load_state_dicts(state_dicts)
+    shard_train_step(trainer, mesh)
+    img = mesh.rows(torch.from_numpy(image)).to(mesh.device)
+    lbl = mesh.rows(torch.from_numpy(label)).to(mesh.device)
+
+    def step(mask_type, draws):
+        trainer.latent_da = cfg.LatentDAConfig(image_code=cfg.MaskConfig("mse", mask_type),
+                                               shape_code=cfg.MaskConfig("ce", mask_type))
+        before = {k: w.launches for k, w in wrappers.items()}
+        metrics = trainer.train_step(img, lbl, shard_draws(draws, mesh).to(mesh.device))
+        got = {k: w.launches - before[k] for k, w in wrappers.items()}
+        branches = {"image": draws.image.branch, "shape": draws.shape.branch}
+        want = {**dict.fromkeys(LAUNCH_COUNTERS, 0), **trainer.expected_launches(branches)}
+        if got != want:
+            raise AssertionError(f"rank {mesh.rank}, {mask_type} step at batch {img.shape[0]}: "
+                                 f"launches {got}, expected {want}")
+        return {k: float(v) for k, v in metrics.items()}
+
+    for w in wrappers.values():
+        w.launches = 0
+    steps = []
+    for mask_type, draws in plan:
+        metrics = step(mask_type, draws)
+        steps.append((metrics, _state_hashes(torch, trainer),
+                      _flat_state(torch, trainer) if mesh.rank == 0 else None))
+    torch.cuda.synchronize()
+    mesh.timed, mesh.calls, mesh.seconds = True, 0, 0.0
+    t0 = time.perf_counter()
+    step("random", timed_draws[0])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    timing = {"host_ms": host_ms, "collective_ms": mesh.seconds * 1e3, "calls": mesh.calls}
+    mesh.timed = False
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = None
+    for _ in range(3):  # a session now and then delivers no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step("random", timed_draws[1])
+            torch.cuda.synchronize()
+        by_group, _, _ = device_time(prof.key_averages())
+        if by_group:
+            busy = sum(by_group.values()) / 1e3
+            break
+    timing["device_ms"] = busy
+    return steps, {k: w.launches for k, w in wrappers.items()}, timing
+
+
+def ddp_cli_rank(mesh, args, cfg, name):
+    """One rank of ``cli.train --n_devices``'s run (``cli.train.train_rank``),
+    with the launch counts set to 0 just before and read just after."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+
+    wrappers = wrappers_of(conv_chw, pmask)
+    for w in wrappers.values():
+        w.launches = 0
+    result = cli.train_rank(mesh, args, cfg, name)
+    return result, {k: w.launches for k, w in wrappers.items()}
+
+
+def ddp_phase(torch, F, conv_chw, pmask, wrappers, predict_k1, k1_shapes, tmp, smi):
+    """The ddp phase (see the module docstring).  Returns (the launches by
+    wrapper over the ranks' steps and runs, the kernel checks at the
+    rank's batch by wrapper)."""
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch import config as cfg
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel import mesh
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
+        CooperativeTrainer,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        draw_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+        MODULE_NAMES,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        checkpoint as whole,
+    )
+
+    t0 = time.perf_counter()
+    b = TRAIN_BATCH // DDP_RANKS
+    # K1, K1 dx, K2 and K3 at the rank's batch, against their plain versions
+    checks = {"conv3x3_chw": [], "conv3x3_chw_dx": [], "conv3x3_chw_dw": [],
+              "percentile_mask": []}
+    for which, name in (("fwd", "conv3x3_chw"), ("dx", "conv3x3_chw_dx"),
+                        ("dw", "conv3x3_chw_dw")):
+        checks[name] = [check_conv(torch, F, conv_chw, conv_chw, "chw", which, sh, b, "bfloat16")
+                        for sh in k1_shapes if which != "dx" or sh[0] > 1]
+    checks["percentile_mask"] = [check_k3(torch, pmask, b, d, soft) for d in (128, 144)
+                                 for soft in (False, True)]
+    bad = [r for rs in checks.values() for r in rs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a kernel disagrees with its plain version at N = {b}: {bad}")
+    print(f"  K1, K1 dx, K2 ({sum(len(checks[k]) for k in LAUNCH_COUNTERS[:3])} shapes) and "
+          f"K3 (4) at N = {b} within tolerance; largest errors "
+          + ", ".join(f"{k} {max(r['max_abs_err'] for r in v):.3g}" for k, v in checks.items()),
+          flush=True)
+
+    # the data-parallel steps against one process on the whole batch
+    image, label = phantom_batch(seed=7, n=TRAIN_BATCH)
+    gen = torch.Generator().manual_seed(5)
+    plan = []
+    for mask_type in MASK_TYPES:
+        lda = cfg.LatentDAConfig(image_code=cfg.MaskConfig("mse", mask_type),
+                                 shape_code=cfg.MaskConfig("ce", mask_type))
+        plan.append((mask_type, draw_step(gen, TRAIN_BATCH, (192, 192), lda)))
+    timed_draws = [draw_step(gen, TRAIN_BATCH, (192, 192), cfg.LatentDAConfig())
+                   for _ in range(2)]
+    start = CooperativeTrainer(cfg.LatentDAConfig(), compute_dtype=torch.bfloat16,
+                               device="cuda", seed=0)
+    sd = {n: {k: v.cpu() for k, v in getattr(start.model, n).state_dict().items()}
+          for n in MODULE_NAMES}
+    del start
+    # cli.train over the ranks (run in the same start of the ranks as the
+    # steps), then one epoch more from the whole-state checkpoint
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    save_dir = os.path.join(tmp, "ddp")
+    argv = ["--json_config_path", config, "--synthetic", "--synthetic_train_length",
+            str(DDP_TRAIN_SLICES), "--bf16", "--n_devices", str(DDP_RANKS), "--save_dir",
+            save_dir, "--log"]
+    args = cli.parse_args(argv + ["--max_epochs", str(DDP_EPOCHS)])
+    conf, name = cli.load_config(args)
+    conf.output.save_epoch_every_num_epochs = 1
+    t_ranks = time.perf_counter()
+    both = mesh.launch(ddp_rank, DDP_RANKS, "cuda",
+                       args=(sd, image, label, plan, timed_draws, (args, conf, name)))
+    ranks_sec = time.perf_counter() - t_ranks
+    ranks, first = [r[0] for r in both], [r[1] for r in both]
+    twins = {}
+    for dtype in (torch.bfloat16, None):
+        twin = CooperativeTrainer(cfg.LatentDAConfig(), compute_dtype=dtype, device="cuda",
+                                  seed=0)
+        twin.model.load_state_dicts(sd)
+        img, lbl = torch.from_numpy(image).to("cuda"), torch.from_numpy(label).to("cuda")
+        twins[dtype] = []
+        for mask_type, draws in plan:
+            twin.latent_da = cfg.LatentDAConfig(image_code=cfg.MaskConfig("mse", mask_type),
+                                                shape_code=cfg.MaskConfig("ce", mask_type))
+            m = twin.train_step(img, lbl, draws.to("cuda"))
+            twins[dtype].append(({k: float(v) for k, v in m.items()},
+                                 _flat_state(torch, twin)))
+        del twin
+    torch.cuda.empty_cache()
+    labels = ("losses", "parameters", "running statistics", "Adam exp_avg", "Adam exp_avg_sq")
+    for i, (mask_type, _) in enumerate(plan):
+        (m0, h0, flat), (m1, h1, _) = ranks[0][0][i], ranks[1][0][i]
+        if h0 != h1 or m0 != m1:
+            raise AssertionError(f"step {i}: the ranks' states or metrics differ")
+        one, one32 = twins[torch.bfloat16][i], twins[None][i]
+        keys = sorted(one[0])
+        got = [torch.tensor([m0[k] for k in keys])] + list(flat)
+        want = [torch.tensor([one[0][k] for k in keys])] + list(one[1])
+        f32 = [torch.tensor([one32[0][k] for k in keys])] + list(one32[1])
+        worst = []
+        for what, g, w, w32 in zip(labels, got, want, f32):
+            diff, own = (g - w).abs(), (w - w32).abs()
+            ok = (diff.max() <= 2 * own.max()) and (diff.mean() <= 2 * own.mean())
+            worst.append(f"{what} {diff.max().item():.3g} / {diff.mean().item():.3g} "
+                         f"(bf16 vs f32 {own.max().item():.3g} / {own.mean().item():.3g})")
+            if not ok:
+                raise AssertionError(f"ddp step {i} ({mask_type}): {what} {diff.max().item()} "
+                                     f"max, {diff.mean().item()} mean from one process; bf16 "
+                                     f"itself costs {own.max().item()}, {own.mean().item()}")
+        print(f"  step {i} ({mask_type} on both codes), {DDP_RANKS} ranks of {b} against one "
+              f"process of {TRAIN_BATCH}, max / mean: " + "; ".join(worst), flush=True)
+    timing = [r[2] for r in ranks]
+    step_launches = Counter()
+    for r in ranks:
+        step_launches.update(r[1])
+    for rank, t in enumerate(timing):
+        share = t["collective_ms"] / t["host_ms"]
+        print(f"  rank {rank}: a random step of {b}, {t['host_ms']:.3f} host ms to a "
+              f"synchronize, {t['collective_ms']:.3f} ms in {t['calls']} collectives (each "
+              f"after a device synchronize): all-reduce share {share:.4f}; device busy "
+              f"{fmt(t['device_ms'])} ms (the profiler)", flush=True)
+    print(f"  backend gloo, {DDP_RANKS} ranks on one card ({smi}); the ranks' steps and "
+          f"first cli.train run {ranks_sec:.1f} s with their start", flush=True)
+    t_cli = time.perf_counter()
+    resumed = mesh.launch(ddp_cli_rank, DDP_RANKS, "cuda", args=(
+        cli.parse_args(argv + ["--max_epochs", str(DDP_EPOCHS + 1), "--resume_orbax"]),
+        conf, name))
+    cli_sec = time.perf_counter() - t_cli
+    epochs = [[[e.epoch for e in r.epochs] for r, _ in run] for run in (first, resumed)]
+    if epochs != [[list(range(DDP_EPOCHS))] * DDP_RANKS, [[DDP_EPOCHS]] * DDP_RANKS]:
+        raise AssertionError(f"epochs run by the ranks {epochs}")
+    for run in (first, resumed):
+        (r0, _), (r1, _) = run
+        if r1.written or not r0.written:
+            raise AssertionError(f"rank 0 wrote {len(r0.written)} files, rank 1 {r1.written}")
+        for a, c in zip(r0.epochs, r1.epochs):
+            if not (np.array_equal(a.losses, c.losses) and np.array_equal(a.confusion,
+                                                                          c.confusion)):
+                raise AssertionError(f"the ranks logged other numbers at epoch {a.epoch}")
+    on_disk = {os.path.join(d, f) for d, _, fs in os.walk(save_dir) for f in fs}
+    writes = first[0][0].written + resumed[0][0].written
+    stray = [p for p in on_disk if not any(p == w or p.startswith(w + os.sep) for w in writes)]
+    if stray:
+        raise AssertionError(f"files no rank 0 write accounts for: {stray}")
+    _, model_dir = cli.experiment_dirs(save_dir, conf.data.dataset_name, args.data_setting,
+                                       conf.data.num_classes, name, args.cval)
+    steps = whole.all_steps(os.path.join(model_dir, "orbax"))
+    if steps != list(range(DDP_EPOCHS + 1)):
+        raise AssertionError(f"whole-state checkpoints of steps {steps}")
+    # every launch of the runs: each rank's steps at its batch and its predicts
+    probe = cli.build_trainer(conf, args)  # the ranks' trainer, for its launch counts
+    _, val_set = cli.build_datasets(conf, args)
+    n_val = -(-len(val_set) // conf.learning.batch_size)
+    cli_launches = Counter()
+    for run in (first, resumed):
+        for result, got in run:
+            want = Counter()
+            for e in result.epochs:
+                for branches in e.branches:
+                    want.update(probe.expected_launches(branches))
+            want["conv3x3_chw"] += len(result.epochs) * n_val * predict_k1(probe.model)
+            want = {k: want.get(k, 0) for k in LAUNCH_COUNTERS}
+            if got != want:
+                raise AssertionError(f"a rank's launches over cli.train {got}, expected {want}")
+            cli_launches.update(got)
+    print(f"  cli.train --n_devices {DDP_RANKS}: epochs {epochs[0][0]}, then --resume_orbax "
+          f"epoch {epochs[1][0]} (whole-state steps {steps}); rank 0 wrote "
+          f"{len(writes)} files and directories, rank 1 none; {cli_sec:.1f} s for the resumed "
+          f"run with its start",
+          flush=True)
+    launches = {k: step_launches[k] + cli_launches[k] for k in LAUNCH_COUNTERS}
+    if any(launches[k] == 0 for k in LAUNCH_COUNTERS[:4]):
+        raise AssertionError(f"the ranks did not launch K1, K1 dx, K2 and K3: {launches}")
+    print(f"  launches over the phase's ranks: {launches}; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, checks
 
 
 def _corrupted_average(rows, method):
@@ -2792,6 +3154,12 @@ def main():
 
         with phase("robustness"):
             robust_launches = robustness_phase(torch, wrappers, k1_per_predict, tmp, smi)
+            torch.cuda.empty_cache()
+
+        with phase("ddp"):
+            ddp_launches, ddp_checked = ddp_phase(torch, F, conv_chw, pmask, wrappers,
+                                                  k1_per_predict, order, tmp, smi)
+            torch.cuda.empty_cache()
 
     with phase("b8"):
         for w in wrappers.values():
@@ -2841,7 +3209,7 @@ def main():
                "conv3x3_chw_dx": list(dx_recs.values()) + [dx_f32] + stacked["dx"],
                "conv3x3_chw_dw": list(dw_recs.values()) + [dw_f32] + stacked["dw"],
                "percentile_mask": list(k3_recs.values())}
-    for name, extra in base_checked.items():
+    for name, extra in list(base_checked.items()) + list(ddp_checked.items()):
         checked[name] += extra
     for name, which in (("conv3x3s2", "fwd"), ("conv3x3s2_dx", "dx"), ("conv3x3s2_dw", "dw")):
         checked[name] = [r for n in (TRAIN_BATCH, SERVE_BATCH)
@@ -2855,8 +3223,8 @@ def main():
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
                 + arm_launches[k] + aug_launches[k] + loop_launches[k] + fused_launches[k]
                 + det_launches[k]
-                + eval_launches[k] + robust_launches[k] + b8_launches[k] + base_launches[k]
-                for k in LAUNCH_COUNTERS}
+                + eval_launches[k] + robust_launches[k] + ddp_launches[k] + b8_launches[k]
+                + base_launches[k] for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:
         calls = per_step[name]

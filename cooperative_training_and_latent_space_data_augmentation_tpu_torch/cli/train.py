@@ -42,6 +42,21 @@ package), ``--warp`` the augmentation's geometric warp arm
 epoch flags that does not exist is refused at start.  Every step on the
 card runs on cuDNN's deterministic algorithms, so a seed's run repeats
 bit for bit.
+
+``--n_devices N`` (N > 1) trains data-parallel over N ranks
+(``parallel/mesh.py``: one process a rank, the batch sharded, BatchNorm on
+the global batch, the gradients all-reduced), on the card unless
+``--device cpu`` is given; without a card that is an error, never a quiet
+CPU run.  The kernels are built once before the ranks start.  Ranks that
+share one card run on gloo; the fused epoch modes run on one device and
+are refused.  Every periodic save also writes the trainer's whole state
+under ``{model_dir}/orbax`` (``utils/checkpoint.py``; ``--no_orbax``
+leaves it out) and ``--resume_orbax`` restarts from the latest, as the
+JAX package's flags do::
+
+    python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.train \
+        --json_config_path configs/ACDC/cooperative_training.json --synthetic --bf16 \
+        --n_devices 2 --max_epochs 2 --save_dir /tmp/runs
 """
 
 from __future__ import annotations
@@ -49,7 +64,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,12 +88,14 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.coo
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
     TrainResult,
     check_epoch_modes,
+    check_mesh_modes,
     experiment_dirs,
     train_network,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     NETWORK_TYPES,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.seed import set_seed
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -91,6 +108,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=40)
     p.add_argument("--resume_path", type=str, default=None,
                    help="a snapshot ({model_dir}/interrupted/checkpoints/*.pth) to resume")
+    p.add_argument("--resume_orbax", action="store_true",
+                   help="resume from the latest orbax step under "
+                        "{model_dir}/orbax instead of a snapshot")
+    p.add_argument("--no_orbax", action="store_true",
+                   help="skip the orbax train-state checkpoint at periodic "
+                        "saves (the per-module and snapshot formats still written)")
     p.add_argument("--root_dir", type=str, default=None,
                    help="override the configuration's data.root_dir")
     p.add_argument("--synthetic", action="store_true",
@@ -126,6 +149,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="the standard and hard FTN passes of a step as one stacked batch")
     p.add_argument("--warp", choices=WARPS, default="composed",
                    help="the augmentation's geometric warp arm")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="shard the batch over a data-parallel mesh")
     return p.parse_args(argv)
 
 
@@ -180,19 +205,25 @@ def build_datasets(cfg: ExperimentConfig, args: argparse.Namespace):
     return train, val
 
 
-def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> CooperativeTrainer:
-    """The cooperative trainer of the configuration on ``args.device``,
-    weights drawn from ``args.seed``."""
-    model, learning = cfg.segmentation_model, cfg.learning
-    if model.network_type not in NETWORK_TYPES:
-        raise ValueError(f"network_type {model.network_type!r}: not one of {NETWORK_TYPES}")
+def _check_device(args: argparse.Namespace) -> None:
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu to "
                            f"train on the CPU")
+
+
+def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace,
+                  device=None) -> CooperativeTrainer:
+    """The cooperative trainer of the configuration on ``device`` (default
+    ``args.device``), weights drawn from ``args.seed``."""
+    model, learning = cfg.segmentation_model, cfg.learning
+    if model.network_type not in NETWORK_TYPES:
+        raise ValueError(f"network_type {model.network_type!r}: not one of {NETWORK_TYPES}")
+    _check_device(args)
     return CooperativeTrainer(
         cfg.latent_DA if learning.latent_DA else None,
         input_noise_std=learning.input_noise_std, learning_rate=learning.lr,
-        compute_dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
+        device=args.device if device is None else device,
         seed=args.seed, image_ch=model.image_ch, num_classes=cfg.data.num_classes,
         conv_s2=args.conv_s2, conv_nl=args.conv_nl, network_type=model.network_type,
         encoder_dropout=model.encoder_dropout, decoder_dropout=model.decoder_dropout,
@@ -202,19 +233,56 @@ def build_trainer(cfg: ExperimentConfig, args: argparse.Namespace) -> Cooperativ
         fused_ftn=args.fused_ftn)
 
 
+def n_ranks(args: argparse.Namespace) -> int:
+    return max(1, args.n_devices or 1)
+
+
 def run(args: argparse.Namespace, cfg: ExperimentConfig,
-        config_name: str) -> Tuple[CooperativeTrainer, TrainResult]:
+        config_name: str) -> Tuple[Optional[CooperativeTrainer], TrainResult]:
     """Build the datasets and the trainer and train: (trainer, result);
-    an epoch-mode combination that does not exist is refused first."""
+    an epoch-mode combination that does not exist is refused first.  Over
+    ``--n_devices`` ranks: (None, rank 0's result), see :func:`run_ranks`."""
     check_epoch_modes(args.fused_epoch, args.multi_epoch, args.pipeline_epoch)
+    check_mesh_modes(n_ranks(args), args.fused_epoch)
+    if n_ranks(args) > 1:
+        return None, run_ranks(args, cfg, config_name)[0]
     train_set, val_set = build_datasets(cfg, args)
     return run_trainer(args, cfg, config_name, build_trainer(cfg, args), train_set, val_set)
 
 
+def run_ranks(args: argparse.Namespace, cfg: ExperimentConfig,
+              config_name: str) -> List[TrainResult]:
+    """Train over ``--n_devices`` ranks on ``args.device`` (the kernels
+    built first, once, on the card): each rank's result, in rank order."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+        launch,
+    )
+
+    check_epoch_modes(args.fused_epoch, args.multi_epoch, args.pipeline_epoch)
+    check_mesh_modes(n_ranks(args), args.fused_epoch)
+    _check_device(args)
+    if args.device != "cpu":
+        from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels
+
+        kernels.build()
+    return launch(train_rank, n_ranks(args), args.device, args=(args, cfg, config_name))
+
+
+def train_rank(mesh, args: argparse.Namespace, cfg: ExperimentConfig,
+               config_name: str) -> TrainResult:
+    """One rank of :func:`run_ranks`: its trainer on its device, trained
+    over ``mesh``."""
+    set_seed(args.seed)
+    train_set, val_set = build_datasets(cfg, args)
+    trainer = build_trainer(cfg, args, device=mesh.device)
+    return run_trainer(args, cfg, config_name, trainer, train_set, val_set, mesh=mesh)[1]
+
+
 def run_trainer(args: argparse.Namespace, cfg: ExperimentConfig, config_name: str,
-                trainer: CooperativeTrainer, train_set,
-                val_set) -> Tuple[CooperativeTrainer, TrainResult]:
-    """Train ``trainer`` on the datasets as :func:`run` does."""
+                trainer: CooperativeTrainer, train_set, val_set,
+                mesh=None) -> Tuple[CooperativeTrainer, TrainResult]:
+    """Train ``trainer`` on the datasets as :func:`run` does (over
+    ``mesh``, one rank's part)."""
     log_dir, model_dir = experiment_dirs(args.save_dir, cfg.data.dataset_name,
                                          args.data_setting, cfg.data.num_classes,
                                          config_name, args.cval)
@@ -223,14 +291,18 @@ def run_trainer(args: argparse.Namespace, cfg: ExperimentConfig, config_name: st
         validate_set=val_set, trainer=trainer, cfg=cfg, model_dir=model_dir, log_dir=log_dir,
         log=args.log, seed=args.seed, resume_path=args.resume_path,
         max_epochs=args.max_epochs, fused_epoch=args.fused_epoch,
-        multi_epoch=args.multi_epoch, pipeline_epoch=args.pipeline_epoch, warp=args.warp)
-    print(f"done: best val Mean IoU {result.best_score:.4f} at epoch {result.best_epoch} "
-          f"(last epoch {result.last_epoch})")
+        multi_epoch=args.multi_epoch, pipeline_epoch=args.pipeline_epoch, warp=args.warp,
+        mesh=mesh, use_orbax=not args.no_orbax, resume_orbax=args.resume_orbax)
+    if mesh is None or mesh.rank == 0:
+        print(f"done: best val Mean IoU {result.best_score:.4f} at epoch {result.best_epoch} "
+              f"(last epoch {result.last_epoch})")
     return trainer, result
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Tuple[CooperativeTrainer, TrainResult]:
+def main(argv: Optional[Sequence[str]] = None
+         ) -> Tuple[Optional[CooperativeTrainer], TrainResult]:
     args = parse_args(argv)
+    set_seed(args.seed)
     cfg, name = load_config(args)
     return run(args, cfg, name)
 

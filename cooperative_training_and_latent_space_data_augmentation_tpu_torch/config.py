@@ -4,11 +4,11 @@ A copy of the JAX package's ``config.py`` dataclasses (the port imports
 nothing of the JAX package), which mirror the reference's JSON layout,
 ``configs/ACDC/cooperative_training.json``: ``DataConfig``,
 ``SegmentationModelConfig``, ``LearningConfig``, ``MaskConfig``,
-``LatentDAConfig``, ``OutputConfig`` and ``ExperimentConfig`` with
-``from_dict``, ``from_json``, ``to_dict`` and ``save``, and the
-reference's JSON attribute loader ``Params``.  The JAX package's
-``ParallelConfig`` (its device mesh) is left out: the port has no mesh, and
-``from_dict`` ignores a ``parallel`` section.
+``LatentDAConfig``, ``OutputConfig``, ``ParallelConfig`` (the data mesh's
+axis; the port's mesh is ``parallel/mesh.py``, its size ``cli.train
+--n_devices``) and ``ExperimentConfig`` with ``from_dict``, ``from_json``,
+``to_dict`` and ``save``, and the reference's JSON attribute loader
+``Params``.
 """
 
 from __future__ import annotations
@@ -119,6 +119,18 @@ class OutputConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """No reference counterpart (the reference trains on one GPU).
+
+    ``data_axis``: mesh axis name over which the batch is sharded.
+    """
+
+    mesh_shape: Optional[Sequence[int]] = None  # None -> all ranks, 1-D
+    axis_names: Sequence[str] = ("data",)
+    data_axis: str = "data"
+
+
+@dataclass
 class ExperimentConfig:
     name: str = "cooperative training"
     data: DataConfig = field(default_factory=DataConfig)
@@ -126,6 +138,7 @@ class ExperimentConfig:
     learning: LearningConfig = field(default_factory=LearningConfig)
     latent_DA: LatentDAConfig = field(default_factory=LatentDAConfig)
     output: OutputConfig = field(default_factory=OutputConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ExperimentConfig":
@@ -143,6 +156,7 @@ class ExperimentConfig:
             learning=LearningConfig(**_filter_kwargs(LearningConfig, d.get("learning", {}))),
             latent_DA=lda,
             output=OutputConfig(**_filter_kwargs(OutputConfig, d.get("output", {}))),
+            parallel=ParallelConfig(**_filter_kwargs(ParallelConfig, d.get("parallel", {}))),
         )
 
     @classmethod
@@ -162,6 +176,7 @@ class ExperimentConfig:
                 "shape code": dataclasses.asdict(self.latent_DA.shape_code),
             },
             "output": dataclasses.asdict(self.output),
+            "parallel": dataclasses.asdict(self.parallel),
         }
 
     def save(self, path: str) -> None:

@@ -2,14 +2,21 @@
 
 Counterpart of the JAX package's ``data/loader.py`` (``BatchSampler``,
 ``collate``, ``prefetch``, ``CooperativeBatcher``, ``EvalBatcher``) and of
-``parallel/mesh.py:pad_batch_to_multiple``, per batch, on one device.  The
-host only collates raw fixed-shape numpy samples; the augmentation runs on
-the device (:mod:`..ops.augment`) with its random draws taken from the
+``parallel/mesh.py:pad_batch_to_multiple``, per batch.  The host only
+collates raw fixed-shape numpy samples; the augmentation runs on the
+device (:mod:`..ops.augment`) with its random draws taken from the
 caller's draw source (see :mod:`..train.driver`), where the JAX package
 splits a key.  The fused epoch (``CooperativeBatcher.epoch_index_matrix``
 and ``fused_epoch_runner``) and the stacked validation epoch
-(``EvalBatcher.stacked_epoch``) are ported for one device; every
-``sharding`` and ``mesh`` argument is left out.
+(``EvalBatcher.stacked_epoch``) run on one device.
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``; the JAX package's
+``sharding`` argument) both batchers yield this rank's rows of the global
+batch: every rank samples the same global indices from the same seed,
+augments the whole batch with the same draws and keeps its rows (JAX's
+order: with ``keep_orig`` the augmented half goes to the first ranks),
+and a validation batch, wrap-padded to ``batch_size``, carries the rank's
+count of real rows beside the global one.
 
 ``CooperativeBatcher`` keeps the batch-halving of
 ``keep_orig_image_label_pair_for_training``: each raw sample gives an
@@ -166,14 +173,16 @@ class CooperativeBatcher:
     device once, images float32 and labels uint8, and a batch is gathered
     there by index; otherwise batches are collated on a background thread
     (:func:`prefetch`) and copied up one by one.  ``warp``: the
-    augmentation's geometric warp arm (``ops/augment.py:WARPS``).
+    augmentation's geometric warp arm (``ops/augment.py:WARPS``).  With a
+    ``mesh`` each batch is this rank's rows of the global batch, which
+    must divide over the ranks.
     """
 
     def __init__(self, dataset: SegDatasetBase, batch_size: int, policy_name: str,
                  pad_hw=(224, 224), crop_hw=(192, 192), num_classes: int = 4,
                  keep_orig: bool = True, shuffle: bool = True, seed: Optional[int] = 0,
                  device: Device = "cuda", device_cache: Optional[bool] = None,
-                 warp: str = "composed"):
+                 warp: str = "composed", mesh=None):
         self.dataset = dataset
         self.keep_orig = keep_orig
         self.raw_bs = max(batch_size // 2, 1) if keep_orig else batch_size
@@ -190,6 +199,10 @@ class CooperativeBatcher:
             device_cache = len(dataset) * pad_hw[0] * pad_hw[1] * 5 <= DEVICE_CACHE_LIMIT_BYTES
         self.device_cache = device_cache
         self._cached = None
+        self.mesh = mesh
+        if mesh is not None and self.step_batch % mesh.size:
+            raise ValueError(f"a train batch of {self.step_batch} does not divide over the "
+                             f"{mesh.size}-rank mesh")
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -227,6 +240,8 @@ class CooperativeBatcher:
             raise ValueError("the fused epoch gathers its batches from the dataset on the "
                              "device, and this dataset is over DEVICE_CACHE_LIMIT_BYTES; "
                              "train it without --fused_epoch")
+        if self.mesh is not None:
+            raise ValueError("the fused epoch runs on one device (see train/driver.py)")
         from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
             StepGraphs,
         )
@@ -242,7 +257,13 @@ class CooperativeBatcher:
         """One epoch of batches on the device, {'image' (B, h, w, C) float32,
         'label' (B, h, w) int32}.  ``draws(policy, n, pad_hw)`` gives each
         batch's :class:`..ops.augment.AugmentDraws` for its ``n`` raw
-        samples, on the device, in batch order."""
+        samples, on the device, in batch order (under a ``mesh``, the
+        global batch's draws; the batch is this rank's rows)."""
+        for batch in self._global_epoch(draws, prefetch_size):
+            yield batch if self.mesh is None else {k: self.mesh.rows(v)
+                                                   for k, v in batch.items()}
+
+    def _global_epoch(self, draws, prefetch_size: int):
         if self.device_cache:
             img_all, lbl_all = self.device_dataset()
             for indices in self.sampler.epoch():
@@ -267,16 +288,25 @@ class EvalBatcher:
     A ragged tail is padded by wrap-tiling to ``batch_size`` and each batch
     carries ``'real_count'``, a host int: consumers count only the rows
     below it, so no sample is counted twice and predict sees one shape.
-    The transform is deterministic, so with ``device_cache`` (default: a
-    validation set of at most ``DEVICE_CACHE_LIMIT_BYTES`` at 8 bytes a crop
-    pixel) the batches stay on the device after the first pass.
+    ``'local_count'`` is the real rows among the batch's own: under a
+    ``mesh`` (``batch_size`` must divide over its ranks, as the JAX
+    package asserts) the batch is this rank's rows of the padded global
+    batch, and ``local_count`` those whose global index lies below
+    ``real_count``; without one it equals ``real_count``.  The transform
+    is deterministic, so with ``device_cache`` (default: a validation set
+    of at most ``DEVICE_CACHE_LIMIT_BYTES`` at 8 bytes a crop pixel) the
+    batches stay on the device after the first pass.
     """
 
     def __init__(self, dataset: SegDatasetBase, batch_size: int, pad_hw=(224, 224),
                  crop_hw=(192, 192), device: Device = "cuda",
-                 device_cache: Optional[bool] = None):
+                 device_cache: Optional[bool] = None, mesh=None):
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"eval batch_size {batch_size} must divide over the "
+                             f"{mesh.size}-rank mesh")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.mesh = mesh
         self.sampler = BatchSampler(len(dataset), batch_size, shuffle=False, wrap=False)
         self.eval_transform = make_batch_eval_transform(pad_hw, crop_hw)
         self.device = torch.device(device)
@@ -294,13 +324,22 @@ class EvalBatcher:
                                                     self.batch_size)
             img, lbl = self.eval_transform(torch.from_numpy(raw["image"]).to(self.device),
                                            torch.from_numpy(raw["label"]).to(self.device))
-            yield {"image": img, "label": lbl, "real_count": real_count}
+            if self.mesh is None:
+                yield {"image": img, "label": lbl, "real_count": real_count,
+                       "local_count": real_count}
+                continue
+            yield {"image": self.mesh.rows(img), "label": self.mesh.rows(lbl),
+                   "real_count": real_count,
+                   "local_count": self.mesh.local_count(real_count, self.batch_size)}
 
     def stacked_epoch(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The whole validation epoch stacked on the device: images (Nb, B,
         h, w, C) float32, labels (Nb, B, h, w) int32 and real counts (Nb,)
         int32, the input of ``train/graphs.py:ValidationGraph`` (the JAX
-        package's ``stacked_epoch``, the K-epoch window's format)."""
+        package's ``stacked_epoch``, the K-epoch window's format); one
+        device only."""
+        if self.mesh is not None:
+            raise ValueError("the stacked validation epoch runs on one device")
         batches = list(self.epoch())
         reals = np.asarray([b["real_count"] for b in batches], np.int32)
         return (torch.stack([b["image"] for b in batches]),

@@ -88,6 +88,14 @@ class BatchNorm(nn.Module):
     for each pass whose flag is True, in pass order, each by its own
     Bessel factor (n = N*H*W), as P sequential train-mode calls would move
     them.
+
+    ``mesh`` (set by ``parallel/mesh.py:shard_train_step``): this rank's
+    batch is its shard of a global batch, and train mode takes the global
+    batch's statistics (per pass when stacked) through a differentiable
+    all-reduce (``Mesh.batch_moments``), n the global count, so that the
+    output, the gradients and the running statistics are those of one
+    process on the whole batch, as under ``pjit`` in the JAX package.
+    Without a mesh nothing of this runs.
     """
 
     def __init__(self, features: int):
@@ -98,6 +106,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.update_stats = True
         self.passes: Optional[Tuple[bool, ...]] = None
+        self.mesh = None
 
     def _track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
         """Move the running statistics toward one pass's batch mean and
@@ -115,10 +124,14 @@ class BatchNorm(nn.Module):
         xs = x.float().reshape(p, x.shape[0] // p, *x.shape[1:])
         axes = [1] + list(range(3, xs.dim()))
         shape = (p, 1, -1) + (1,) * (xs.dim() - 3)
-        mean = xs.mean(axes)                                   # (P, C)
-        var = (xs - mean.view(shape)).square().mean(axes)
-        if self.update_stats:
+        if self.mesh is None:
+            mean = xs.mean(axes)                               # (P, C)
+            var = (xs - mean.view(shape)).square().mean(axes)
             n = xs[0].numel() // x.shape[1]
+        else:
+            mean, var, n = self.mesh.batch_moments(xs, axes)
+            mean, var = mean.view(p, -1), var.view(p, -1)
+        if self.update_stats:
             for i, track in enumerate(self.passes):
                 if track:
                     self._track(mean[i], var[i], n)
@@ -134,10 +147,15 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             axes = [0] + list(range(2, x.dim()))
-            mean = x32.mean(axes)
-            var = (x32 - mean.view(shape)).square().mean(axes)
+            if self.mesh is None:
+                mean = x32.mean(axes)
+                var = (x32 - mean.view(shape)).square().mean(axes)
+                n = x.numel() // x.shape[1]
+            else:
+                mean, var, n = self.mesh.batch_moments(x32, axes)
+                mean, var = mean.view(-1), var.view(-1)
             if self.update_stats:
-                self._track(mean, var, x.numel() // x.shape[1])
+                self._track(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         y = ((x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)

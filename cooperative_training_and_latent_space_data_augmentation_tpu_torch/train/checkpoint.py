@@ -83,15 +83,31 @@ def snapshot_path(model_dir: str, network_type: str) -> str:
     return join(model_dir, "interrupted", "checkpoints", f"{network_type}.pth")
 
 
+def state_payload(trainer: CooperativeTrainer, epoch: int) -> dict:
+    """The trainer's whole state on the host: the network type, the epoch,
+    every module's ``state_dict`` and the optimizer's (Adam's moments and
+    step)."""
+    return {"network_type": trainer.model.network_type, "epoch": int(epoch),
+            "modules": module_state_dicts(trainer.model),
+            "optimizer": host_copy(trainer.optimizer.state_dict())}
+
+
+def load_payload(trainer: CooperativeTrainer, payload: dict) -> int:
+    """Load a :func:`state_payload` into ``trainer``; returns its epoch."""
+    if payload["network_type"] != trainer.model.network_type:
+        raise ValueError(f"a state of {payload['network_type']}, a trainer of "
+                         f"{trainer.model.network_type}")
+    trainer.model.load_state_dicts(payload["modules"])
+    trainer.optimizer.load_state_dict(payload["optimizer"])
+    trainer.place_optimizer_state()
+    return int(payload["epoch"])
+
+
 def save_snapshot(trainer: CooperativeTrainer, model_dir: str, epoch: int) -> str:
-    """The crash/resume snapshot: the network type, the epoch, every
-    module's ``state_dict`` and the optimizer's (Adam's moments and step);
-    returns its path."""
+    """The crash/resume snapshot, :func:`state_payload`; returns its path."""
     path = snapshot_path(model_dir, trainer.model.network_type)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"network_type": trainer.model.network_type, "epoch": int(epoch),
-                "modules": module_state_dicts(trainer.model),
-                "optimizer": host_copy(trainer.optimizer.state_dict())}, path)
+    torch.save(state_payload(trainer, epoch), path)
     return path
 
 
@@ -102,11 +118,4 @@ def load_snapshot(trainer: CooperativeTrainer, path: str) -> int:
     if not exists(path):
         print(f"warning: {path} does not exist")
         return 0
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if payload["network_type"] != trainer.model.network_type:
-        raise ValueError(f"snapshot of {payload['network_type']}, trainer of "
-                         f"{trainer.model.network_type}")
-    trainer.model.load_state_dicts(payload["modules"])
-    trainer.optimizer.load_state_dict(payload["optimizer"])
-    trainer.place_optimizer_state()
-    return int(payload["epoch"])
+    return load_payload(trainer, torch.load(path, map_location="cpu", weights_only=True))

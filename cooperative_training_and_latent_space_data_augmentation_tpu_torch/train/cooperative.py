@@ -148,6 +148,16 @@ class CooperativeTrainer:
     asked for; the attributes hold what is on.  Both draw what the
     sequential step draws.
 
+    ``mesh`` (None; set by ``parallel/mesh.py:shard_train_step``): the
+    step is one rank's part of a data-parallel step.  It takes the rank's
+    rows of the batch and of the draws (``draws.shard_draws``), its
+    BatchNorms reduce over the global batch, the gradients are averaged
+    over the ranks (one all-reduce a dtype) after the backward and before
+    Adam, the zero-filled ones of unreached modules too, and each metric
+    comes back as its mean over the ranks.  Each rank's loss is its
+    shard's mean, so the saliency of targeted masking is W times the
+    one-process one (see the mesh module) and the masks are the same.
+
     ``generation`` holds the last step's :class:`Generation` per code.
     Under a CUDA graph it is set once, when the graph is captured, and
     holds that graph's output tensors, which every later replay (of any
@@ -195,6 +205,7 @@ class CooperativeTrainer:
         self.fused_stn = bool(fused_stn and not self.dropout_sites and not self.fused_ftn)
         self._masks: List[torch.Tensor] = []
         self._used = 0
+        self.mesh = None
 
     @property
     def use_latent_da(self) -> bool:
@@ -356,7 +367,8 @@ class CooperativeTrainer:
         W) integer labels with ``draws`` (on the model's device).  Returns
         the JAX step's metrics under its keys, as 0-d device tensors; reads
         nothing back to the host.  With layer dropout the step uses every
-        mask of ``draws.dropout`` (``RuntimeError`` otherwise)."""
+        mask of ``draws.dropout`` (``RuntimeError`` otherwise).  Under a
+        ``mesh``: this rank's rows of the batch and of the draws."""
         clean = image.permute(0, 3, 1, 2).contiguous()
         label = label.long()
         noised = torch.clamp(clean + self.input_noise_std * draws.noise, 0.0, 1.0)
@@ -383,8 +395,15 @@ class CooperativeTrainer:
         for p in self.model.parameters():
             if p.grad is None:  # a module the loss does not reach (the code
                 p.grad = torch.zeros_like(p)  # decoupler without a filter): optax's zero step
+        if self.mesh is not None:  # the JAX package's gradient psum
+            self.mesh.average_([p.grad for p in self.model.parameters()])
         self.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is not None:
+            values = torch.stack([metrics[k] for k in METRIC_KEYS])
+            self.mesh.average_([values])
+            metrics = dict(zip(METRIC_KEYS, values.unbind()))
+        return metrics
 
     def _losses(self, clean, label, noised, draws):
         std, (z_i, z_s) = self.standard_training(clean, label, noised)

@@ -178,6 +178,21 @@ def draw_step(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
     return draws if device is None else draws.to(device)
 
 
+def shard_draws(draws: StepDraws, mesh) -> StepDraws:
+    """This rank's draws of a global step's ``draws`` over ``mesh``
+    (``parallel/mesh.py``): the rows of every per-sample tensor (the
+    noise, each code's keep mask and soft values, the dropout keep masks);
+    the percentile ``p`` and the branches, one a batch, as they are."""
+    def code(c: Optional[CodeDraws]) -> Optional[CodeDraws]:
+        if c is None:
+            return None
+        return replace(c, keep=None if c.keep is None else mesh.rows(c.keep),
+                       soft=None if c.soft is None else mesh.rows(c.soft))
+
+    return StepDraws(mesh.rows(draws.noise), code(draws.image), code(draws.shape),
+                     None if draws.dropout is None else [mesh.rows(m) for m in draws.dropout])
+
+
 # --------------------------------------------------------------- staging
 def tensors_of(draws) -> List[torch.Tensor]:
     """Every tensor of a draws structure (a dataclass of tensors, tuples,

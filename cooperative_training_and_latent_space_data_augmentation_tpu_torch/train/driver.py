@@ -27,8 +27,24 @@ and its three other epoch modes (``train_network``'s ``fused_epoch``,
 
 All three give the streaming loop's numbers: the same batch orders, the
 same draws in the same order, the same ops.  On the CPU (the tests) the
-graphs' bodies run uncaptured.  The device mesh and orbax checkpoints are
-left out.
+graphs' bodies run uncaptured.
+
+Data-parallel training (``train_network(mesh=)``, the JAX package's
+``mesh``; ``parallel/mesh.py``): the streaming loop on each rank of the
+mesh, the batch and each step's draws the global ones' rows for the rank
+(``CooperativeBatcher(mesh=)``, ``draws.shard_draws``), the trainer put
+in data-parallel mode (``shard_train_step``), validation on each rank's
+rows with the confusion matrices summed over the ranks, so that every
+rank logs the same losses and makes the same Mean-IoU decision.  Rank 0
+alone writes (checkpoints, snapshots, scalars), and the ranks meet at a
+barrier after each epoch's writes.  The three fused epoch modes refuse a
+mesh: they replay CUDA graphs, and the gloo collectives that let ranks
+share one card cannot be captured.
+
+Whole-state checkpoints (``use_orbax``, the JAX package's orbax
+checkpoints, in the port's own format, ``utils/checkpoint.py``): the
+trainer's whole state under ``{model_dir}/orbax`` at every periodic
+save; ``resume_orbax`` restarts from the latest one, at its epoch + 1.
 
 Random draws come from a draw source, where the JAX package splits keys:
 an object with ``augment(epoch, policy, n, pad_hw)``, the next batch's
@@ -75,6 +91,9 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metr
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import (
     draw_augment,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+    shard_train_step,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
     load_snapshot,
     save_model,
@@ -87,6 +106,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.coo
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
     draw_step,
+    shard_draws,
     stage_draws,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
@@ -98,6 +118,11 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.mul
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     MODULE_NAMES,
     CooperativePredictor,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.logging import (
     ScalarLogger,
@@ -161,12 +186,15 @@ def eval_dispatch(model: CooperativePredictor, eval_batcher: EvalBatcher,
     ``CooperativePredictor.validation_confusion`` (``predict(n_iter)``, the
     argmax and the confusion update of the rows below its ``real_count``,
     the body the fused paths capture), all on the device; nothing is read
-    back."""
+    back.  Under the batcher's mesh, each rank's real rows, the confusion
+    matrix summed over the ranks."""
     running = RunningScore(model.num_classes, eval_batcher.device)
     for batch in eval_batcher.epoch():
-        real = torch.full((1,), batch["real_count"], device=eval_batcher.device)
+        real = torch.full((1,), batch["local_count"], device=eval_batcher.device)
         running.confusion_matrix = running.confusion_matrix + model.validation_confusion(
             batch["image"][None], batch["label"][None], real, n_iter)
+    if eval_batcher.mesh is not None:  # every rank's rows, summed
+        eval_batcher.mesh.all_reduce_(running.confusion_matrix)
     return running
 
 
@@ -206,7 +234,9 @@ class EpochRecord:
 class TrainResult:
     """What a run ended with; ``graphs`` and ``validation`` are the fused
     paths' ``train/graphs.py:StepGraphs`` and ``ValidationGraph`` (None on
-    the streaming path), whose captures and replays a caller can count."""
+    the streaming path), whose captures and replays a caller can count;
+    ``written``, the files this process wrote (checkpoints, snapshots,
+    logs), in order."""
 
     best_score: float
     best_epoch: int
@@ -214,6 +244,7 @@ class TrainResult:
     epochs: List[EpochRecord] = field(default_factory=list)
     graphs: Optional[object] = None
     validation: Optional[object] = None
+    written: List[str] = field(default_factory=list)
 
 
 def _branches(draws) -> Dict[str, int]:
@@ -237,12 +268,25 @@ def check_epoch_modes(fused_epoch: bool, multi_epoch: int, pipeline_epoch: bool)
                          "give --multi_epoch or --pipeline_epoch, not both")
 
 
+def check_mesh_modes(n_ranks: int, fused_epoch: bool) -> None:
+    """Refuse the fused epoch (and so its window and pipelined fetch) over
+    more than one rank: it replays CUDA graphs of the step, and the step's
+    collectives cannot be captured under gloo, the backend that lets ranks
+    share one card.  A captured sharded step needs NCCL across cards of
+    their own."""
+    if n_ranks > 1 and fused_epoch:
+        raise ValueError(f"--fused_epoch (with --multi_epoch, --pipeline_epoch) runs on one "
+                         f"device: its CUDA graphs cannot capture the {n_ranks} ranks' gloo "
+                         f"collectives; train over ranks without it")
+
+
 def train_network(experiment_name: str, train_set, validate_set, trainer: CooperativeTrainer,
                   cfg: ExperimentConfig, model_dir: str, log_dir: Optional[str] = None,
                   log: bool = False, seed: int = 42, resume_path: Optional[str] = None,
                   max_epochs: Optional[int] = None, draws=None, fused_epoch: bool = False,
                   multi_epoch: int = 0, pipeline_epoch: bool = False,
-                  warp: str = "composed") -> TrainResult:
+                  warp: str = "composed", mesh=None, use_orbax: bool = True,
+                  resume_orbax: bool = False) -> TrainResult:
     """Train ``trainer`` (built by the caller, on its device) on
     ``train_set``, validating on ``validate_set`` every epoch.
 
@@ -262,21 +306,45 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     device); with ``multi_epoch`` E > 1, epochs after the first in K-epoch
     windows of E; with ``pipeline_epoch``, each epoch's results read back
     after the next epoch is dispatched (see the module docstring).  ``warp``:
-    the augmentation's geometric warp arm (``ops/augment.py:WARPS``)."""
+    the augmentation's geometric warp arm (``ops/augment.py:WARPS``).
+
+    ``mesh``: train data-parallel over its ranks (every rank calls this
+    with its own trainer; see the module docstring); the batch size must
+    divide over them (the batchers refuse it otherwise).  ``use_orbax``: the trainer's whole state also goes
+    to ``{model_dir}/orbax`` at every periodic save (not under
+    ``pipeline_epoch``, whose fetch holds the modules but not Adam's
+    state); ``resume_orbax``: restart from its latest step at that step +
+    1 (``FileNotFoundError`` if there is none), in place of
+    ``resume_path``.  Neither restores the draw source's or the batch
+    order's position: a resumed run draws from ``seed`` anew, as the JAX
+    package's does."""
     check_epoch_modes(fused_epoch, multi_epoch, pipeline_epoch)
+    check_mesh_modes(1 if mesh is None else mesh.size, fused_epoch)
     learning, data_cfg = cfg.learning, cfg.data
-    start_epoch = load_snapshot(trainer, resume_path) if resume_path else 0
+    writer = mesh is None or mesh.rank == 0
+    orbax_dir = join(model_dir, "orbax")
+    if resume_orbax:
+        step = latest_step(orbax_dir)
+        if step is None:
+            raise FileNotFoundError(f"resume_orbax: no checkpoints in {orbax_dir}")
+        restore_checkpoint(orbax_dir, trainer, step=step)
+        start_epoch = step + 1
+    else:
+        start_epoch = load_snapshot(trainer, resume_path) if resume_path else 0
+    if mesh is not None:
+        shard_train_step(trainer, mesh)
     device = next(trainer.model.parameters()).device
     batcher = CooperativeBatcher(
         train_set, batch_size=learning.batch_size, policy_name=data_cfg.data_aug_policy,
         pad_hw=data_cfg.pad_hw, crop_hw=data_cfg.crop_hw, num_classes=trainer.num_classes,
         keep_orig=data_cfg.keep_orig_image_label_pair_for_training, seed=seed, device=device,
-        warp=warp)
+        warp=warp, mesh=mesh)
     if len(batcher) == 0:
         raise ValueError("training set is empty (0 batches): check the data root and split; "
                          "refusing to train on nothing")
     eval_batcher = EvalBatcher(validate_set, batch_size=learning.batch_size,
-                               pad_hw=data_cfg.pad_hw, crop_hw=data_cfg.crop_hw, device=device)
+                               pad_hw=data_cfg.pad_hw, crop_hw=data_cfg.crop_hw, device=device,
+                               mesh=mesh)
     raw_source = GeneratorDraws(seed + 1) if draws is None else draws
     source = _OnDevice(raw_source, device)
     result = TrainResult(best_score=-1e9, best_epoch=-1, last_epoch=start_epoch)
@@ -288,7 +356,9 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         result.graphs, result.validation = graphs, validate
         if multi_epoch > 1:
             window = WindowRunner(graphs.run_epoch, validate, trainer.model)
-    logger = ScalarLogger(log_dir if log else None)
+    logger = ScalarLogger(log_dir if log and writer else None)
+    if logger.log_dir:
+        result.written.append(join(log_dir, "scalars.jsonl"))
     i_iter = start_epoch * len(batcher)
     stop_flag = False
     n_epochs = max_epochs if max_epochs is not None else learning.n_epochs
@@ -316,9 +386,10 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         g_count = losses.shape[0]
         total = float(losses[:, LOSS_KEYS.index("loss/standard/total")].sum()
                       + losses[:, LOSS_KEYS.index("loss/hard/total")].sum())
-        print(f"{experiment_name} network: {network} epoch {i_epoch} training loss iter: "
-              f"{g_count}, total loss: {total / g_count}, train_sec: {train_sec:.2f}{note}",
-              flush=True)
+        if writer:
+            print(f"{experiment_name} network: {network} epoch {i_epoch} training loss iter: "
+                  f"{g_count}, total loss: {total / g_count}, train_sec: {train_sec:.2f}{note}",
+                  flush=True)
         for j, k in enumerate(LOSS_KEYS):
             logger.add_scalar(k, float(losses[:, j].sum()) / g_count, i_epoch)
         logger.add_scalar("time/train_epoch_sec", train_sec, i_epoch)
@@ -336,16 +407,22 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
             return
 
         def save(tag):
+            if not writer:
+                return
             if state is None:
-                save_model(trainer, model_dir, tag)
+                result.written.append(save_model(trainer, model_dir, tag))
             else:
-                save_state_dicts(state, model_dir, tag)
+                result.written.append(save_state_dicts(state, model_dir, tag))
 
         if curr_score > result.best_score:
             result.best_score, result.best_epoch = curr_score, i_epoch
             save("best")
         if (i_epoch + 1) % period == 0 or i_epoch == 0:
             save(i_epoch)
+            if use_orbax and state is None and writer:
+                result.written.append(save_checkpoint(orbax_dir, trainer, step=i_epoch))
+        if mesh is not None:  # the epoch's files are on disk before any rank goes on
+            mesh.barrier()
 
     def consume(i_epoch, fetched, branches, t_epoch0, draw_sec, val_sec):
         """Record a pipelined fused epoch from its fetch (:func:`fetch_to_host`),
@@ -373,10 +450,12 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         if best >= 0:
             result.best_epoch = w_start + best
             result.best_score = result.epochs[best - e_count].iou
-            save_state_dicts(out["best"], model_dir, "best")
+            result.written.append(save_state_dicts(out["best"], model_dir, "best"))
         ep_last = w_start + e_count - 1
         if (ep_last + 1) % period == 0:
-            save_model(trainer, model_dir, ep_last)
+            result.written.append(save_model(trainer, model_dir, ep_last))
+            if use_orbax:
+                result.written.append(save_checkpoint(orbax_dir, trainer, step=ep_last))
 
     pending = None  # the one epoch in flight (pipelined fetch)
     try:
@@ -440,10 +519,11 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
             for batch in batcher.epoch(partial(source.augment, i_epoch)):
                 if stop_flag:
                     break
-                step_draws = source.step(batch["image"].shape[0], data_cfg.crop_hw,
+                step_draws = source.step(batcher.step_batch, data_cfg.crop_hw,
                                          trainer.latent_da, **draw_kw)
-                step_metrics.append(trainer.train_step(batch["image"], batch["label"],
-                                                       step_draws))
+                step_metrics.append(trainer.train_step(
+                    batch["image"], batch["label"],
+                    step_draws if mesh is None else shard_draws(step_draws, mesh)))
                 branches.append(_branches(step_draws))
                 i_iter += 1
                 if i_iter > learning.max_iteration:
@@ -464,17 +544,19 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         if pending is not None:
             consume(*pending)
             pending = None
-        if log and log_dir:
+        if log and log_dir and writer:
             logger.export_scalars_to_json(join(log_dir, experiment_name + ".json"))
+            result.written.append(join(log_dir, experiment_name + ".json"))
     except KeyboardInterrupt:
         print(f"interrupted at epoch {result.last_epoch}; saving snapshot")
         _flush_pending(pending, consume)
-        save_snapshot(trainer, model_dir, result.last_epoch)
+        if writer:
+            save_snapshot(trainer, model_dir, result.last_epoch)
         raise
     except Exception as e:
         print(f"catch exception at epoch {result.last_epoch}. error: {e}")
         _flush_pending(pending, consume)
-        if result.last_epoch > 0:
+        if result.last_epoch > 0 and writer:
             save_snapshot(trainer, model_dir, result.last_epoch)
         raise
     finally:

@@ -24,7 +24,9 @@ stacked batches' N = 80 and two non-capturable eager steps repeating bit
 for bit (deterministic cuDNN); the warp arms graphed; and the baselines'
 ``SegmentationSolver``: an f32 step on the card against the CPU, a bf16
 ``predict`` of FCN_16 against its f32 twin, and a JAX ``.msgpack``
-checkpoint loaded on the card.
+checkpoint loaded on the card; K1, K1 dx, K2 and K3 at N = 10, a rank's
+shard of the batch of 20, and the data-parallel step of two gloo ranks
+sharing the card against one process (``parallel/mesh.py``).
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -237,15 +239,28 @@ def test_k2_matches_plain_and_repeats_bit_for_bit(cuda, n, c_in, c_out, h, w, dt
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("c_in,c_out,h,which", [
-    (*shape, which) for which in ("fwd", "dx", "dw") for shape in K1_SHAPES
-    if which != "dx" or shape[0] > 1])   # the image's conv launches no dx
+K1_CASES = [(*shape, which) for which in ("fwd", "dx", "dw") for shape in K1_SHAPES
+            if which != "dx" or shape[0] > 1]   # the image's conv launches no dx
+
+
+@pytest.mark.parametrize("c_in,c_out,h,which", K1_CASES)
 def test_k1_and_k2_at_the_stacked_batch(cuda, c_in, c_out, h, which):
     """K1, K1 dx and K2 at N = 80, the fused STN batch (4 passes of 20;
     the fused FTN's is 40), bf16, at every main-path shape: against the
     plain versions (one bf16 ulp; K2 1e-5 of scale) and bit for bit on a
     repeat (the grids' N axes and K2's per-image slabs at 80)."""
-    n, w = 80, h
+    _check_k1_k2(cuda, 80, c_in, c_out, h, which)
+
+
+@pytest.mark.parametrize("c_in,c_out,h,which", K1_CASES)
+def test_k1_and_k2_at_the_rank_batch(cuda, c_in, c_out, h, which):
+    """The same at N = 10, each rank's shard of the batch of 20 over two
+    data-parallel ranks (``parallel/mesh.py``)."""
+    _check_k1_k2(cuda, 10, c_in, c_out, h, which)
+
+
+def _check_k1_k2(cuda, n, c_in, c_out, h, which):
+    w = h
     dt = torch.bfloat16
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((n, c_in, h * w), generator=gen, device=cuda).to(dt)
@@ -272,6 +287,7 @@ def test_k1_and_k2_at_the_stacked_batch(cuda, c_in, c_out, h, which):
 @pytest.mark.parametrize("soft", [False, True])
 @pytest.mark.parametrize("n,d", [
     (20, 128), (20, 144), (3, 37), (2, 1), (1, 4096),   # the main path's shapes and edges
+    (10, 128), (10, 144),         # a rank's shard of 20 over two data-parallel ranks
     (20, 31), (33, 32), (1, 33),  # one block a row, padded or not; a second block of 1
     (160, 144),                   # many rows
     (2, 257), (1, 1024), (2, 1025),   # more than one staging pass of 256 entries
@@ -1960,3 +1976,47 @@ def test_pointwise_f32_conv_gradients_match_cudnn_and_repeat(cuda):
     for g, a, r in zip(got, again, want):
         assert torch.equal(g, a)
         assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+def test_two_rank_step_on_card_matches_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card (``parallel.mesh.launch``) take one
+    data-parallel f32 step of batch 4 at 64x64 (latent DA ``random``):
+    the losses within 1e-4 of the one-process step's on the card, the
+    running statistics within 1e-4 of each tensor's scale, the parameters
+    within JAX's sharding tolerances (rtol 1e-3, atol 5e-4), the masks
+    equal, the two ranks' parameters and Adam moments equal bit for bit."""
+    import torch_port_ddp_ranks as R
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    lda = LatentDAConfig()
+    model = CooperativePredictor(device="cpu", seed=0)
+    sd = {n: dict(getattr(model, n).state_dict()) for n in R.MODULE_NAMES}
+    gen = torch.Generator().manual_seed(4)
+    image = torch.rand((4, 64, 64, 1), generator=gen)
+    label = torch.randint(0, 4, (4, 64, 64), generator=gen)
+    draws = draw_step(gen, 4, (64, 64), lda)
+    ranks = pmesh.launch(R.step_cases, 2, "cuda", str(tmp_path / "store"),
+                         args=(lda, sd, image, label, [draws], {}))
+    ranks = [r[0] for r in ranks]
+    one = R.one_step(lda, sd, image, label, draws, device=cuda)
+    for k, w in one["metrics"].items():
+        assert abs(ranks[0]["metrics"][k] - w) <= 1e-4 * abs(w) + 1e-7, (k, w)
+    for name, state in one["state"].items():
+        for k, w in state.items():
+            got = ranks[0]["state"][name][k]
+            if "running_" in k:
+                torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+            else:
+                torch.testing.assert_close(got, w, rtol=1e-3, atol=5e-4)
+    for key, (branch, mask, _) in one["generation"].items():
+        got = torch.cat([r["generation"][key][1] for r in ranks])
+        assert ranks[0]["generation"][key][0] == branch
+        assert torch.equal(got, mask), key
+    for field in ("state", "mu", "nu"):
+        for name, state in ranks[0][field].items():
+            for k, v in state.items():
+                assert torch.equal(v, ranks[1][field][name][k]), (field, name, k)
+

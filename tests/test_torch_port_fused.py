@@ -55,6 +55,9 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.dra
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     MODULE_NAMES,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+    checkpoint as ckpt,
+)
 
 PAD = (40, 40)
 CROP = (32, 32)
@@ -172,7 +175,10 @@ def test_window_equals_the_serial_loop(serial, tmp_path):
     _assert_same_epochs(s_res, w_res)
     assert s_sc == w_sc
     _assert_same_state(s_tr, w_tr)
-    assert sorted(os.listdir(w_dir)) == sorted(os.listdir(s_dir)) == ["0", "2", "best"]
+    assert sorted(os.listdir(w_dir)) == sorted(os.listdir(s_dir)) == ["0", "2", "best", "orbax"]
+    # the whole state at each periodic save, the window's at its end
+    assert (ckpt.all_steps(os.path.join(w_dir, "orbax"))
+            == ckpt.all_steps(os.path.join(s_dir, "orbax")) == [0, 2])
     for tag in ("best", "0", "2"):
         _assert_same_checkpoint(os.path.join(s_dir, tag), os.path.join(w_dir, tag))
     # the window's epochs log their validation inside the window's seconds

@@ -2,10 +2,11 @@
 which has PyTorch but no jax, flax or optax (nor scikit-learn or
 matplotlib; the port relies on neither pandas nor msgpack either).
 
-A fresh interpreter refuses every import of jax, flax, optax, the JAX
+A fresh interpreter refuses every import of jax, flax, optax, orbax, the JAX
 package, scikit-learn, pandas, matplotlib and msgpack, then imports every
-module of the port and ``chip_smoke``.  Nothing may be built or launched
-by importing.
+module of the port (``parallel/*``, ``utils/checkpoint.py`` and
+``utils/seed.py`` among them) and ``chip_smoke``.  Nothing may be built or
+launched by importing, and no process group started.
 """
 
 import os
@@ -18,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax",
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax",
                "cooperative_training_and_latent_space_data_augmentation_tpu",
                "sklearn", "pandas", "matplotlib", "msgpack")
 
@@ -55,10 +56,25 @@ SCRIPT = textwrap.dedent("""
                 "data.acdc", "data.mnm", "eval.post_process", "eval.pairwise_measures",
                 "eval.tester", "cli.make_synthetic_acdc", "cli.test", "models.layers",
                 "models.unet", "models.unet3d", "train.segmentation", "utils.schedulers",
-                "utils.ema", "data.prostate", "data.host_transforms"}
+                "utils.ema", "data.prostate", "data.host_transforms", "parallel",
+                "parallel.mesh", "utils.checkpoint", "utils.seed"}
     missing = {port.__name__ + "." + m for m in expected} - set(names)
     assert not missing, missing
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import Params
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        ParallelConfig, Params,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel import (
+        Mesh, batch_sharding, launch, make_mesh, pad_batch_to_multiple, replicate, shard_batch,
+        shard_train_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.checkpoint import (
+        latest_step, restore_checkpoint, save_checkpoint,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.seed import (
+        set_seed,
+    )
+    import torch.distributed as dist
+    assert not dist.is_initialized(), "a process group was started at import"
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data import (
         ProstateDecathlonDataset,
     )
