@@ -24,7 +24,10 @@ best checkpoint through the port's test entry, the robustness protocol
 (training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
 table), data-parallel training over two ranks sharing the card (the step
 against one process, ``cli.train --n_devices 2`` and its resume from a
-whole-state checkpoint), the port's ``bench_b8_conv``, the path of the
+whole-state checkpoint), the model tools on the loop's best checkpoint
+(its serving archive exported and reloaded, the hard-example arrays, the
+size estimate of a step, the staircase conv), the port's
+``bench_b8_conv``, the path of the
 blocked conv K6 (with its
 dx and K6dw), and last the baseline family: ``SegmentationSolver`` on each
 network of its registry (the UNets, the FCNs and the residual UNets),
@@ -238,6 +241,25 @@ Phases, each printing its seconds when it ends:
    and confusion matrices, and each rank launch what its steps' branches
    and its validations' predicts require.  It prints the backend, the
    card's ``nvidia-smi`` line and the phase's seconds;
+11b. tools: the model tools on the loop's best checkpoint.  Serving:
+   ``cli.export`` writes its float32 archive (``utils/serving.py``),
+   ``load_predictor`` reloads it, and its probabilities at batch 20 must
+   equal the live predictor's bit for bit and a CPU twin's within
+   ``compare_f32``'s bound carried through the softmax
+   (``compare_f32_probs``); a bf16 archive with ``conv_s2`` and ``conv_nl`` the
+   same against its live predictor; each call launching K1 (K4 and K5)
+   exactly as the predictor's convs require.  The hard-example arrays
+   (``analysis/visualize.py:hard_example_arrays``) of the checkpoint in a
+   float32 trainer at batch 4, 192x192, for the three methods at
+   thresholds 0.25 and 0.5, held against a CPU twin on the same draws (the
+   targeted masks by ``assert_masks_agree``, the images and segmentations
+   by ``compare_f32`` against the twin's, or, where a mask element swapped,
+   against the twin's decoders on the card's masks), launching K1, K1 dx
+   and K3 exactly as the decoders count them.  ``estimate_size`` of one
+   bf16 train step of batch 20, within ``ESTIMATE_BAND`` of the arms
+   phase's graph pool of the same step; the staircase conv (``ops/fast_conv.py``) at
+   64->128 @ 48x48, batch 20, bf16, against ``F.conv2d`` (checked; timed
+   by events once, for the record) and its ``cost_summary`` on a CPU twin;
 12. b8: one short run of ``bench_b8_conv`` at batch 20, bf16 (the five
    stages, forward and full VJP through K6, K1/K2 and cuDNN, the B8 route
    checked against the CHW route), with the launch counts set to 0 just
@@ -295,8 +317,6 @@ MAX_BF16_MISMATCH = 0.01  # share of a bf16 layer output that may differ from th
 N_ITER = 2           # FTN prediction + one STN refinement
 REPS = 25            # timed launches per measurement
 K3_HOST_CALLS = 1000  # wrapper calls timed on the host clock for K3's host_us
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off the tensor cores
 JAX_PKG = "cooperative_training_and_latent_space_data_augmentation_tpu"
 KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
     "conv3x3_chw": (f"{PORT}/csrc/conv3x3_chw.cu", f"{JAX_PKG}/ops/pallas_conv.py:139"),
@@ -490,6 +510,22 @@ def compare_f32(got, want, what):
         raise AssertionError(f"{what}: outside tolerance")
 
 
+def compare_f32_probs(got, want_logits, what):
+    """Probabilities held to ``compare_f32``'s bound on the logits they come
+    from, carried through the softmax: a row of its Jacobian sums to at most
+    1/2 in absolute value, so a logit gap of at most 2e-4 of the logits'
+    scale moves no probability by more than 1e-4 of it; the argmax agrees on
+    >= 99.5 % of the pixels."""
+    want = want_logits.softmax(-1)
+    scale = want_logits.abs().max().item()
+    err = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"  {what}: max_abs_err {err:.4g} (tol {1e-4 * scale:.4g}), argmax agreement "
+          f"{agree:.5f} (>= 0.995)", flush=True)
+    if not (err <= 1e-4 * scale and agree >= 0.995):
+        raise AssertionError(f"{what}: outside tolerance")
+
+
 def compare_bf16(got, want, want_f32, what):
     """bf16, held to what bf16 itself costs the plain path: |got - want| at
     most twice |want - want_f32| in max and in mean, and argmax flips
@@ -568,11 +604,13 @@ def replay_leaves(torch, gpu, cpu, image, what):
 
 
 def bound(nbytes, flops, dtype_name):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the peak rate for their type."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    """(bound_ms, bound_by) at the card's data-sheet rates
+    (``utils/profiling.py:bound``)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        profiling,
+    )
+
+    return profiling.bound(nbytes, flops, dtype_name)
 
 
 def bf16_tol(torch, scale):
@@ -917,6 +955,27 @@ def assert_masks_agree(torch, got_mask, want_mask, got_sal, want_sal, p, what):
     if not bool(near[differ].all()):
         raise AssertionError(f"{what}: masks differ away from the threshold")
     return int(differ.sum())
+
+
+def decode_with_masks(torch, trainer, images_nhwc, image_mask, shape_mask):
+    """``trainer``'s frozen decoders on its own codes of ``images_nhwc``
+    times the given masks (a targeted method's masked code is code x mask),
+    decoded as ``analysis/visualize.py:hard_example_arrays`` decodes them:
+    train mode, BatchNorm statistics frozen.  Returns the (image,
+    segmentation logits), channels last, float32."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.models.blocks import (
+        frozen_stats,
+    )
+
+    model = trainer.model
+    device = next(model.parameters()).device
+    x = torch.as_tensor(images_nhwc, dtype=torch.float32).to(device)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    with model.in_mode(training=True), frozen_stats(model), torch.no_grad():
+        (z_i, z_s), _ = model.fast_predict(x)
+        image = trainer._frozen_decoder("image_decoder")(z_i * image_mask.to(device))
+        seg = trainer._frozen_decoder("segmentation_decoder")(z_s * shape_mask.to(device))
+    return image.float().permute(0, 2, 3, 1), seg.float().permute(0, 2, 3, 1)
 
 
 def train_check(torch, cfg, coop, draws_mod, image, label, **trainer_kw):
@@ -1741,7 +1800,9 @@ ARM_TRACED = 2        # replays traced for the device time
 def arms_phase(torch, wrappers, tmp):
     """Phase 7b (see the module docstring).  Returns the launches by
     wrapper the card made (``launched``: eager steps, and each graph's
-    counts once a replay)."""
+    counts once a replay), and the sequential arm's step batch and its
+    graph's pool bytes reserved (the tools phase holds ``estimate_size``
+    to them)."""
     import numpy as np
 
     from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
@@ -1773,6 +1834,7 @@ def arms_phase(torch, wrappers, tmp):
     forced = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
                             shape_code=MaskConfig("ce", "spatial"))
     total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    sequential = None
     for arm, flags in ARMS.items():
         for w in wrappers.values():
             w.launches = 0
@@ -1834,6 +1896,8 @@ def arms_phase(torch, wrappers, tmp):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{arm}: non-finite metrics {got.tolist()}")
         reserved, live = pool_bytes(graphs.pool)
+        if arm == "sequential":
+            sequential = (batcher.step_batch, reserved)
         card = launched({k: w.launches for k, w in wrappers.items()}, [graphs])
         for k in LAUNCH_COUNTERS:
             total[k] += card.get(k, 0)
@@ -1849,7 +1913,7 @@ def arms_phase(torch, wrappers, tmp):
               f"{torch.cuda.max_memory_reserved() / 2**30:.4f} GiB", flush=True)
         del t, captured, trainers, graphs, eager, batcher, staged, got
         torch.cuda.empty_cache()
-    return total
+    return total, sequential
 
 
 DET_EPOCHS = 2
@@ -2747,6 +2811,248 @@ def baselines_phase(torch, F, conv_chw, pmask, masking, wrappers, image, label, 
     return total, checked
 
 
+TOOLS_BATCH = 20       # the served requests
+TOOLS_VIS_BATCH = 4    # the hard-example arrays' batch
+TOOLS_THRESHOLDS = (0.25, 0.5)
+STAIRCASE = (64, 128, 48, 48)  # (C_in, C_out, H, W): down3's first conv, 48^2 at batch 20
+# estimate_size's total of the eager bf16 step of 20 over the arms phase's
+# graph pool of the same step (its segments, reserved): both hold the step's
+# activations and temporaries at their peak; the pool adds the gather's and
+# the augmentation's buffers and its segments' rounding, the estimate the
+# arguments (0.98 on an H100 80GB HBM3 at 700 W)
+ESTIMATE_BAND = (0.8, 1.25)
+
+
+def tools_phase(torch, F, wrappers, predict_convs, best_dir, tmp, arm_pool, smi):
+    """The tools phase (see the module docstring) on the loop's best
+    checkpoint ``best_dir``, files under ``tmp``.  ``predict_convs(model,
+    uses)``: the convs ``uses`` picks in one ``predict(n_iter=2)``.
+    ``arm_pool``: the arms phase's (step batch, pool bytes) of the
+    sequential arm.  Returns the launches by wrapper over the phase."""
+    import numpy as np
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.analysis import (
+        visualize,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import (
+        export as cli_export,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        LatentDAConfig,
+        MaskConfig,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        conv_chw,
+        fast_conv,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
+        load_checkpoint_dir,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
+        CooperativeTrainer,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        draw_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
+        CooperativePredictor,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        estimate,
+        profiling,
+        serving,
+    )
+
+    total = Counter()
+
+    def counted(fn):
+        """fn's result and the launches it made, added to the phase's."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        total.update(got)
+        return out, got
+
+    t_phase = time.perf_counter()
+    image, label = phantom_batch(seed=11, n=TOOLS_BATCH)
+    x = torch.from_numpy(image)
+    # serving: cli.export's archive of the checkpoint (float32, as the JAX
+    # entry exports), reloaded, against the live predictor bit for bit and
+    # its CPU twin within the f32 tolerance; then a bf16 archive with K4 and K5
+    served_ms = {}
+    for name, flags, dtype in (("float32", [], None),
+                               ("bf16 conv_s2 conv_nl", ["--bf16", "--conv_s2", "--conv_nl"],
+                                torch.bfloat16)):
+        path = os.path.join(tmp, "serving", name.replace(" ", "_") + ".pt")
+        t0 = time.perf_counter()
+        cli_export.main(["--checkpoint", best_dir, "--out", path, "--n_iter", str(N_ITER),
+                         "--verify_batch", "0"] + flags)
+        served = serving.load_predictor(path)
+        load_sec = time.perf_counter() - t0
+        s2, nl = "--conv_s2" in flags, "--conv_nl" in flags
+        live = load_checkpoint_dir(CooperativePredictor(compute_dtype=dtype, device="cuda",
+                                                        seed=1, conv_s2=s2, conv_nl=nl),
+                                   best_dir)
+        served(x[:2])  # warm-up
+        t0 = time.perf_counter()
+        got, launched = counted(lambda: served(x))
+        served_ms[name] = (time.perf_counter() - t0) * 1e3
+        want = live.predict(x.to("cuda"), n_iter=N_ITER, softmax=True)
+        if got.shape != (TOOLS_BATCH, 192, 192, 4) or not torch.equal(got, want):
+            raise AssertionError(f"served {name} archive differs from the live predictor")
+        model = served.predictor
+        need = dict.fromkeys(LAUNCH_COUNTERS, 0)
+        need["conv3x3_chw"] = predict_convs(model, conv_chw.Conv.uses_k1)
+        need["conv3x3s2"] = predict_convs(model, conv_chw.Conv.uses_k4) if s2 else 0
+        need["conv3x3_nl"] = predict_convs(model, conv_chw.Conv.uses_k5) if nl else 0
+        if launched != need or (s2 and not need["conv3x3s2"]) or (nl and not need["conv3x3_nl"]):
+            raise AssertionError(f"served {name}: launches {launched}, expected {need}")
+        if dtype is None:
+            twin = serving.load_predictor(path, device="cpu")
+            compare_f32_probs(got.cpu(), twin.predictor.predict(x, n_iter=N_ITER),
+                              "served float32 archive against its CPU twin")
+        print(f"  served {name} archive ({os.path.getsize(path) / 1e6:.1f} MB; export and "
+              f"load {load_sec:.3f} s): batch {TOOLS_BATCH} equal to the live predictor bit "
+              f"for bit, {served_ms[name]:.3f} host ms to a synchronize (one call, "
+              f"smoke-level); launches {launched}", flush=True)
+    # the hard-example arrays: the checkpoint in a float32 trainer, batch 4
+    # at 192x192, every method x threshold, against a CPU twin on the same draws
+    vis_image, vis_label = phantom_batch(seed=12, n=TOOLS_VIS_BATCH)
+    card = CooperativeTrainer(None, device="cuda", seed=1)
+    load_checkpoint_dir(card.model, best_dir)
+    twin = CooperativeTrainer(None, device="cpu", seed=1)
+    load_checkpoint_dir(twin.model, best_dir)
+    draws = visualize.draw_hard_examples(torch.Generator().manual_seed(13), TOOLS_VIS_BATCH,
+                                         (128, 12, 12), thresholds=TOOLS_THRESHOLDS)
+    t0 = time.perf_counter()
+    arrays, launched = counted(lambda: visualize.hard_example_arrays(
+        card, vis_image, vis_label, TOOLS_THRESHOLDS, draws=draws))
+    vis_sec = time.perf_counter() - t0
+    want = visualize.hard_example_arrays(twin, vis_image, vis_label, TOOLS_THRESHOLDS,
+                                         draws=draws)
+
+    def k1(name):
+        return sum(isinstance(c, conv_chw.Conv) and c.uses_k1()
+                   for c in getattr(card.model, name).modules())
+
+    need = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    need["conv3x3_chw"] = k1("image_encoder") + k1("segmentation_decoder")
+    for method, thr in arrays:
+        targeted = method != "dropout"
+        for dec in ("image_decoder", "segmentation_decoder"):
+            need["conv3x3_chw"] += k1(dec) * (1 + targeted)
+            need["conv3x3_chw_dx"] += k1(dec) * targeted
+            need["percentile_mask"] += targeted
+    if launched != need:
+        raise AssertionError(f"hard-example launches {launched}, expected {need}")
+    swapped = 0
+    for (method, thr), ex in arrays.items():
+        ref = want[(method, thr)]
+        same = True
+        for code in ("image", "shape"):
+            got_m, want_m = getattr(ex, code + "_mask").cpu(), getattr(ref, code + "_mask")
+            if method == "dropout":
+                same &= bool(torch.equal(got_m, want_m))
+                continue
+            rows = (lambda m: m[:, :, 0, 0]) if method == "channel" else (
+                lambda m: m[:, 0].reshape(m.shape[0], -1))
+            n = assert_masks_agree(torch, rows(got_m), rows(want_m),
+                                   getattr(ex, code + "_saliency").cpu(),
+                                   getattr(ref, code + "_saliency"), thr,
+                                   f"hard examples {method} {thr} {code} mask")
+            swapped += n
+            same &= n == 0
+        # the same masks: the twin's arrays; else the twin decodes the card's masks
+        ref_image, ref_seg = (ref.image, ref.seg_logits) if same else decode_with_masks(
+            torch, twin, vis_image, ex.image_mask.cpu(), ex.shape_mask.cpu())
+        compare_f32(ex.image.cpu(), ref_image, f"hard examples {method} {thr} image")
+        compare_f32(ex.seg_logits.cpu(), ref_seg, f"hard examples {method} {thr} segmentation")
+        # the card's entropy map of its own logits, against the CPU's of them
+        err = (ex.entropy.cpu() - visualize.prediction_entropy(ex.seg_logits.cpu())).abs()
+        if not err.max().item() <= 1e-5:
+            raise AssertionError(f"hard examples {method} {thr} entropy: {err.max().item()}")
+        if not all(bool(torch.isfinite(t).all()) for t in (ex.image, ex.seg_logits,
+                                                            ex.entropy)):
+            raise AssertionError(f"hard examples {method} {thr}: not finite")
+    print(f"  hard-example arrays, batch {TOOLS_VIS_BATCH} at 192x192, "
+          f"{len(arrays)} method x threshold cases: {vis_sec:.3f} s on the card (host "
+          f"clock, first call); masks against the CPU twin, {swapped} elements swapped "
+          f"next to a threshold; launches {launched}, as the decoders count them", flush=True)
+    # estimate_size of one bf16 train step at batch 20, after a warm-up step,
+    # on the branches the arms phase captured (channel-wise image code,
+    # spatial-wise shape code), held to that phase's graph pool of the step
+    pool_batch, pool_reserved = arm_pool
+    if pool_batch != TRAIN_BATCH:
+        raise AssertionError(f"the arms phase's step batch {pool_batch}, not {TRAIN_BATCH}")
+    trainer = CooperativeTrainer(LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                                                shape_code=MaskConfig("ce", "spatial")),
+                                 compute_dtype=torch.bfloat16, device="cuda", seed=0)
+    train_image, train_label = phantom_batch(seed=7, n=TRAIN_BATCH)
+    ti = torch.from_numpy(train_image).to("cuda")
+    tl = torch.from_numpy(train_label).to("cuda")
+    gen = torch.Generator().manual_seed(14)
+
+    def step_draws():
+        return draw_step(gen, TRAIN_BATCH, (192, 192), trainer.latent_da, device="cuda")
+
+    counted(lambda: trainer.train_step(ti, tl, step_draws()))
+    d = step_draws()
+    size, _ = counted(lambda: estimate.estimate_size(trainer.train_step, ti, tl, d))
+    pool_mb = pool_reserved / 2**20
+    ratio = size["total_mb"] / pool_mb
+    if not (ESTIMATE_BAND[0] <= ratio <= ESTIMATE_BAND[1] and size["temp_mb"] > 0):
+        raise AssertionError(f"estimate_size of the train step: {size}, {ratio:.4f}x the "
+                             f"arms phase's pool of the same step, {pool_mb:.1f} MiB "
+                             f"(band {ESTIMATE_BAND})")
+    print(f"  estimate_size(train_step), bf16, batch {TRAIN_BATCH}: params "
+          f"{size['params_mb']:.3f} MiB (the arguments), output {size['output_mb']:.4f}, "
+          f"temp {size['temp_mb']:.1f}, total {size['total_mb']:.1f} MiB "
+          f"({size['total_mb'] / 1024:.4f} GiB), {ratio:.4f}x the arms phase's graph pool "
+          f"of the same step ({pool_reserved / 2**30:.4f} GiB reserved; band "
+          f"{ESTIMATE_BAND})", flush=True)
+    del trainer, ti, tl, d
+    torch.cuda.empty_cache()
+    # the staircase conv against F.conv2d at down3's first conv, bf16, batch 20:
+    # checked, timed by events once (for the record), counted by cost_summary
+    c_in, c_out, h, w = STAIRCASE
+    gen = torch.Generator().manual_seed(15)
+    xs = torch.rand((TRAIN_BATCH, c_in, h, w), generator=gen) - 0.5
+    ws = (torch.rand((c_out, c_in, 3, 3), generator=gen) - 0.5) / (3 * c_in ** 0.5)
+    xb, wb = xs.to("cuda", torch.bfloat16), ws.to("cuda", torch.bfloat16)
+    got = fast_conv.staircase_conv3x3(xb, wb).float()
+    ref = F.conv2d(xb.float(), wb.float(), padding=1)
+    ref16 = F.conv2d(xb, wb, padding=1).float()
+    own = (ref16 - ref).abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not err <= 2 * own + bf16_tol(torch, ref.abs().max().item()):
+        raise AssertionError(f"staircase conv against F.conv2d: {err} (bf16's own {own})")
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    f = fast_conv.pick_pack_factor(w, c_in, c_out)
+    stair_ms = time_ms(lambda: fast_conv.staircase_conv3x3(xb, wb), torch, flush)
+    conv_ms = time_ms(lambda: F.conv2d(xb, wb, padding=1), torch, flush)
+    del flush
+    cost = profiling.cost_summary(fast_conv.staircase_conv3x3, xs, ws,
+                                  measured_s=stair_ms / 1e3)
+    direct = 2.0 * TRAIN_BATCH * h * w * c_in * c_out * 9
+    print(f"  staircase_conv3x3 {c_in}->{c_out} @ {h}x{w}, batch {TRAIN_BATCH}, bf16, f = "
+          f"{f}: max_abs_err {err:.4g} against F.conv2d in f32 (bf16's own {own:.4g}); "
+          f"events ms {stair_ms:.4f} against F.conv2d's {conv_ms:.4f} "
+          f"({stair_ms / conv_ms:.3f}x; one reading, not a gate); cost_summary on its CPU "
+          f"twin: {cost['flops']:.4g} flops ({cost['flops'] / direct:.3f}x the direct conv's "
+          f"{direct:.4g}), {cost['bytes_accessed']:.4g} bytes by the counted ops, "
+          f"{cost['achieved_flops_per_s'] / 1e12:.2f} TFLOP/s, "
+          f"{cost['flops_utilization_upper_bound']:.4f} of the bf16 peak, "
+          f"{cost['hbm_utilization_upper_bound']:.4f} of the HBM rate; {smi}", flush=True)
+    print(f"  tools phase {time.perf_counter() - t_phase:.3f} s; launches {dict(total)}",
+          flush=True)
+    return {k: total.get(k, 0) for k in LAUNCH_COUNTERS}
+
+
 def main():
     import tempfile
 
@@ -3123,7 +3429,7 @@ def main():
 
     with phase("arms"):
         with tempfile.TemporaryDirectory() as arm_tmp:
-            arm_launches = arms_phase(torch, wrappers, arm_tmp)
+            arm_launches, arm_pool = arms_phase(torch, wrappers, arm_tmp)
         torch.cuda.empty_cache()
 
     with phase("augment"):
@@ -3159,6 +3465,11 @@ def main():
         with phase("ddp"):
             ddp_launches, ddp_checked = ddp_phase(torch, F, conv_chw, pmask, wrappers,
                                                   k1_per_predict, order, tmp, smi)
+            torch.cuda.empty_cache()
+
+        with phase("tools"):
+            tools_launches = tools_phase(torch, F, wrappers, convs_per_request, best_dir, tmp,
+                                         arm_pool, smi)
             torch.cuda.empty_cache()
 
     with phase("b8"):
@@ -3223,7 +3534,8 @@ def main():
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
                 + arm_launches[k] + aug_launches[k] + loop_launches[k] + fused_launches[k]
                 + det_launches[k]
-                + eval_launches[k] + robust_launches[k] + ddp_launches[k] + b8_launches[k]
+                + eval_launches[k] + robust_launches[k] + ddp_launches[k] + tools_launches[k]
+                + b8_launches[k]
                 + base_launches[k] for k in LAUNCH_COUNTERS}
     records = []
     for name in LAUNCH_COUNTERS:

@@ -38,19 +38,13 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops impor
     conv_b8,
     conv_chw,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.profiling import (  # noqa: F401
+    PEAK_FLOPS,
+    bound,
+)
 
 STAGES = [(192, 16, 16), (96, 16, 32), (96, 32, 32), (48, 32, 64), (48, 64, 64)]
-HBM_BYTES_PER_S = 3.35e12                             # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 off the tensor cores
 NOT_MEASURED = "not measured"
-
-
-def bound(nbytes: float, flops: float, dtype: str):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the peak rate for their type."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def time_ms(fn: Callable[[], object], reps: int, flush: torch.Tensor) -> float:

@@ -43,9 +43,6 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from cooperative_training_and_latent_space_data_augmentation_tpu_torch.convert import (
-    load_jax_checkpoint,
-)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.acdc import (
     CardiacACDCDataset,
     probe_format_names,
@@ -68,7 +65,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.test
     evaluate_methods_across_cvals,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
-    load_model,
+    load_checkpoint_dir,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     NETWORK_TYPES,
@@ -173,12 +170,7 @@ def load_predictor(args: argparse.Namespace,
     ckpt = checkpoint or args.checkpoint
     if ckpt is None:
         return predictor
-    if os.path.exists(os.path.join(ckpt, "image_encoder.pth")):
-        return load_model(predictor, ckpt)
-    if os.path.exists(os.path.join(ckpt, "image_encoder.msgpack")):
-        predictor.load_state_dicts(load_jax_checkpoint(ckpt))
-        return predictor
-    raise FileNotFoundError(f"{ckpt}: neither image_encoder.pth nor image_encoder.msgpack")
+    return load_checkpoint_dir(predictor, ckpt)
 
 
 def run(args: argparse.Namespace, predictor: CooperativePredictor) -> Dict[str, Dict]:

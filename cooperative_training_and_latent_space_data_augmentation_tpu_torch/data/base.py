@@ -3,9 +3,12 @@ concatenation.
 
 A copy of the JAX package's ``data/base.py`` (numpy only; the port imports
 nothing of the JAX package): ``formulate_labels``, ``label_remap_dict``,
-``pad_or_crop_to``, ``SegDatasetBase`` and ``ConcatDataset``, the
-re-design of the reference's ``BaseSegDataset`` and ``ConcatDataSet``
-(``medseg/dataset_loader/base_segmentation_dataset.py:24-228,250-307``).
+``pad_or_crop_to``, ``SegDatasetBase``, ``ConcatDataset``,
+``get_all_image_array_from_dataset``, ``get_mean_image`` and
+``CombinedDataset``, the re-design of the reference's ``BaseSegDataset``,
+``ConcatDataSet``, ``CombinedDataSet`` and its dataset utilities
+(``medseg/dataset_loader/base_segmentation_dataset.py:24-228,230-307``,
+``dataset_utils.py:72-91``).
 Datasets return raw fixed-shape samples (an HWC float image at the pad
 size, HW int32 labels); the augmentation runs on the device
 (:mod:`..ops.augment`).
@@ -163,3 +166,39 @@ class ConcatDataset(SegDatasetBase):
                                      crop_size: Tuple[int, int] = (192, 192)):
         d, local = self._locate_patient(pid_index)
         return d.get_patient_data_for_testing(local, crop_size)
+
+
+def get_all_image_array_from_dataset(dataset) -> "np.ndarray":
+    """Stack every slice image in a dataset
+    (dataset_utils.get_all_image_array_from_datastet:72-84).
+
+    Goes through ``dataset[i]`` (padded, uniform shape) — ``load_data`` is
+    raw/per-dataset and ConcatDataset doesn't define it."""
+    arrays = [np.asarray(dataset[i]["image"]) for i in range(len(dataset))]
+    return np.stack(arrays)
+
+
+def get_mean_image(dataset) -> "np.ndarray":
+    """Pixelwise mean image over a dataset (dataset_utils.get_mean_image:86-91)."""
+    if len(dataset) == 0:
+        raise ValueError("get_mean_image: dataset is empty")
+    total = None
+    for i in range(len(dataset)):
+        img = np.asarray(dataset[i]["image"], np.float64)
+        total = img if total is None else total + img
+    return (total / len(dataset)).astype(np.float32)
+
+
+class CombinedDataset:
+    """Paired source/target sampling (CombinedDataSet:230-247)."""
+
+    def __init__(self, source_dataset: SegDatasetBase, target_dataset: SegDatasetBase):
+        self.source = source_dataset
+        self.target = target_dataset
+
+    def __len__(self) -> int:
+        return max(len(self.source), len(self.target))
+
+    def __getitem__(self, index: int):
+        return (self.source[index % len(self.source)],
+                self.target[index % len(self.target)])

@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``eval/tester.py`` (``TestSegmentationNetwork``
 ``aggregate_across_cvals``), the re-design of
 ``medseg/test_basic_segmentation_solver.py`` (TestSegmentationNetwork:29-199:
 patient-wise volume iteration, chunked inference at <= 10 slices,
-spacing-aware metric updates, CSV reports, top-k/worst-k) and of the
+spacing-aware metric updates, CSV reports, top-k/worst-k and their PNG
+grids) and of the
 per-dataset loop of ``medseg/test_ACDC_triplet_segmentation.py`` (:80-158)
 and of its results loop over methods and cvals (:115-158).
 
@@ -33,6 +34,9 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.nift
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.eval.metrics import (
     RunningSegmentationScore,
     write_csv,
+)
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.save import (
+    save_testing_images_results,
 )
 
 IDX2CLS = {0: "BG", 1: "LV", 2: "MYO", 3: "RV"}  # test_ACDC...py:25-30
@@ -127,6 +131,23 @@ class TestSegmentationNetwork:
 
     def worst_k(self, k: int = 5) -> List[Dict]:
         return sorted(self.patient_results, key=lambda r: r["dice"])[:k]
+
+    def save_top_k_result(self, save_dir: str, k: int = 5,
+                          worst: bool = False) -> List[Optional[str]]:
+        """PNG grids (input/GT/pred, the first 5 slices) for the k best or
+        worst patients of the last :meth:`run`, under
+        ``{save_dir}/{top|worst}_{rank}_{pid}_dice_{dice:.3f}/``
+        (test_basic_segmentation_solver.save_top_k_result:202-256).  A path
+        is None where matplotlib is not installed."""
+        chosen = self.worst_k(k) if worst else self.top_k(k)
+        tag = "worst" if worst else "top"
+        paths = []
+        for rank, rec in enumerate(chosen):
+            name = f"{tag}_{rank}_{rec['pid']}_dice_{rec['dice']:.3f}"
+            paths.append(save_testing_images_results(
+                rec["image"][:, :, :, 0], rec["gt"], rec["pred"], save_dir, name,
+                max_slices=5))
+        return paths
 
 
 def evaluate_cross_domain(predict_fn: Callable[[torch.Tensor], torch.Tensor],

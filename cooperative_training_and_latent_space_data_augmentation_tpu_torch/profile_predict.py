@@ -10,7 +10,7 @@ requests, as min / median / p90 / max, the device time per request by
 group (kernels K1, K4, K4dx, K4dw and K5, cuDNN convolutions, other kernels,
 copies), the device's idle share over the traced window, and the kernels
 that take the most device time.  Device busy is the sum of the kernels'
-and copies' device time (:func:`device_time`): ``record_function`` ranges,
+and copies' device time (``utils/profiling.py:device_time``): ``record_function`` ranges,
 which the trace also shows on the device, are printed apart and not
 counted.  ``--conv-s2`` serves the ``conv_s2=True`` configuration
 (the encoders' stride-2 downsamples on K4), ``--conv-nl`` the
@@ -23,10 +23,8 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
-from collections import defaultdict
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
@@ -35,66 +33,15 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synt
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     CooperativePredictor,
 )
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.profiling import (  # noqa: F401
+    _group,
+    device_time,
+)
 
 BATCHES = (20, 160)     # the reference's eval batch; a serving batch
 LATENCY_REQUESTS = 50   # untraced, on the host clock
 TRACED_REQUESTS = 5
 TOP = 12                # kernels listed by device time
-
-
-def _group(name: str) -> str:
-    low = name.lower()
-    if "conv3x3_nl_dw" in name:
-        return "K5dw conv3x3_nl_dw"
-    if "conv3x3_nl" in name:
-        return "K5 conv3x3_nl (forward and dx)"
-    if "conv3x3_b8_dw" in name:
-        return "K6dw conv3x3_b8_dw"
-    if "conv3x3_b8" in name:
-        return "K6 conv3x3_b8 (forward and dx)"
-    if "conv3x3s2_dw" in name:
-        return "K4dw conv3x3s2_dw"
-    if "conv3x3s2_dx" in name:
-        return "K4dx conv3x3s2_dx"
-    if "conv3x3s2" in name:
-        return "K4 conv3x3s2"
-    if any(k in name for k in ("conv3x3_chw_kernel", "conv3x3_chw_mma_kernel")):
-        return "K1 conv3x3_chw (forward and dx)"
-    if any(k in name for k in ("dw_partial_kernel", "dw_mma_partial_kernel",
-                               "dw_reduce_kernel")):
-        return "K2 conv3x3_chw_dw"
-    if "percentile_mask_kernel" in name:
-        return "K3 percentile_mask"
-    if "memcpy" in low or "memset" in low:
-        return "copies"
-    if any(k in low for k in ("cudnn", "conv", "xmma", "implicit", "sm90_")):
-        return "cuDNN/cuBLAS convs and matmuls"
-    return "other kernels (elementwise, BN, casts, upsample)"
-
-
-def device_time(events):
-    """Device time of a trace's ``key_averages()`` entries, in microseconds:
-    ``(by_group, ranges, kernels)``.  Only device-side entries count (a CPU
-    op's entry repeats its kernels' time).  A ``record_function`` range
-    (``is_user_annotation``) also shows on the device's timeline, as a span
-    over kernels counted on their own, idle gaps included: ranges are
-    summed apart into ``ranges`` and left out of ``by_group``, so that
-    busy, ``sum(by_group.values())``, counts each kernel once.  ``kernels``
-    lists (device time, launches, name) of every kernel and copy.  The
-    attribute is read directly, so a torch without it raises."""
-    by_group = defaultdict(float)
-    kernels = []
-    ranges = 0.0
-    for evt in events:
-        annotation = evt.is_user_annotation
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        if annotation:
-            ranges += evt.self_device_time_total
-            continue
-        by_group[_group(evt.key)] += evt.self_device_time_total
-        kernels.append((evt.self_device_time_total, evt.count, evt.key))
-    return by_group, ranges, kernels
 
 
 def profile_batch(predictor, batch: int) -> None:

@@ -25,6 +25,9 @@ from typing import Dict
 
 import torch
 
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.convert import (
+    load_jax_checkpoint,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
@@ -77,6 +80,21 @@ def load_model(predictor: CooperativePredictor, checkpoint_dir: str) -> Cooperat
                          weights_only=True)
         for name in MODULE_NAMES})
     return predictor
+
+
+def load_checkpoint_dir(predictor: CooperativePredictor,
+                        checkpoint_dir: str) -> CooperativePredictor:
+    """Load a checkpoint directory of either package into ``predictor``:
+    the port's per-module ``.pth`` files (:func:`load_model`) or the JAX
+    package's ``.msgpack`` files (``convert.load_jax_checkpoint``), told
+    apart by the image encoder's file."""
+    if exists(join(checkpoint_dir, "image_encoder.pth")):
+        return load_model(predictor, checkpoint_dir)
+    if exists(join(checkpoint_dir, "image_encoder.msgpack")):
+        predictor.load_state_dicts(load_jax_checkpoint(checkpoint_dir))
+        return predictor
+    raise FileNotFoundError(f"{checkpoint_dir}: neither image_encoder.pth nor "
+                            f"image_encoder.msgpack")
 
 
 def snapshot_path(model_dir: str, network_type: str) -> str:

@@ -298,8 +298,9 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     Training stops after ``max_epochs`` (default the configuration's
     ``n_epochs``) or after the step that takes the step count past
     ``max_iteration``.  ``resume_path``: a snapshot to restart from, at its
-    epoch.  With ``log``, scalars go to ``{log_dir}/scalars.jsonl`` and
-    ``{log_dir}/{experiment_name}.json``.
+    epoch.  With ``log``, scalars go to ``{log_dir}/scalars.jsonl``,
+    ``{log_dir}/{experiment_name}.json`` and a TensorBoard event file there
+    purged from the start epoch on (``utils/logging.py:ScalarLogger``).
 
     ``fused_epoch``: each epoch as the fused epoch (CUDA graphs on the card:
     the trainer must be ``capturable``; the dataset must fit on the
@@ -356,9 +357,10 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         result.graphs, result.validation = graphs, validate
         if multi_epoch > 1:
             window = WindowRunner(graphs.run_epoch, validate, trainer.model)
-    logger = ScalarLogger(log_dir if log and writer else None)
+    logger = ScalarLogger(log_dir if log and writer else None, purge_step=start_epoch)
     if logger.log_dir:
         result.written.append(join(log_dir, "scalars.jsonl"))
+        result.written.extend(logger.event_files)
     i_iter = start_epoch * len(batcher)
     stop_flag = False
     n_epochs = max_epochs if max_epochs is not None else learning.n_epochs

@@ -115,9 +115,13 @@ class CooperativePredictor(nn.Module):
         if network_type not in NETWORK_TYPES:
             raise ValueError(f"network_type {network_type!r}: not one of {NETWORK_TYPES}")
         self.network_type = network_type
+        self.image_ch = image_ch
         self.num_classes = num_classes
         self.n_iter = n_iter
         self.temperature = temperature
+        self.compute_dtype = compute_dtype
+        self.conv_s2 = conv_s2
+        self.conv_nl = conv_nl
         f = 4  # FCN_16: feature_reduce 4
         dt, ed, dd = compute_dtype, encoder_dropout, decoder_dropout
         self.image_encoder = DualBranchEncoder(image_ch, f, dt, conv_s2, conv_nl, ed)
@@ -184,12 +188,13 @@ class CooperativePredictor(nn.Module):
 
     # ------------------------------------------------------- NHWC serving
     @contextmanager
-    def _eval_mode(self):
-        """Every module in eval mode while the block runs (BatchNorm on its
-        running statistics, which stay as they are), then each module back
-        in its own mode, also when the block raises."""
+    def in_mode(self, training: bool = False):
+        """Every module in train mode (``training``) or eval mode (BatchNorm
+        on its running statistics, which stay as they are) while the block
+        runs, then each module back in its own mode, also when the block
+        raises."""
         modes = [(m, m.training) for m in self.modules()]
-        self.eval()
+        self.train(training)
         try:
             yield
         finally:
@@ -206,7 +211,7 @@ class CooperativePredictor(nn.Module):
         refinement re-applies the STN to the previous prediction.
         """
         n_iter = self.n_iter if n_iter is None else n_iter
-        with self._eval_mode():
+        with self.in_mode():
             _, pred = self.fast_predict(_nchw(x))
             for _ in range(max(0, n_iter - 1)):
                 pred = self.recon_shape(pred)
@@ -253,7 +258,7 @@ class CooperativePredictor(nn.Module):
         internal: Dict[int, list] = {0: [pred_logit]}
         if n_steps < 1:
             return (pred_logit, internal) if save_internal_predicts else pred_logit
-        with self._eval_mode():
+        with self.in_mode():
             refined = _nhwc(self.recon_shape(_nchw(pred_logit)))
         if auto_stop:
             diff0 = torch.sqrt(torch.mean((pred_logit - refined) ** 2))

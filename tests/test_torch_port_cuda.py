@@ -2020,3 +2020,156 @@ def test_two_rank_step_on_card_matches_one_process(cuda, tmp_path):
             for k, v in state.items():
                 assert torch.equal(v, ranks[1][field][name][k]), (field, name, k)
 
+
+
+# ------------------------------------------------------------ the model tools
+@pytest.mark.parametrize("config", ["float32", "bf16_conv_s2_conv_nl"])
+def test_served_archive_on_card_equals_live_predictor(cuda, tmp_path, config):
+    """``utils/serving.py``: an archive reloaded on the card serves any
+    batch size bit for bit as the live predictor, launching K1 (and K4 and
+    K5 when the archive says so) as the predictor's convs require; the
+    float32 archive also against its CPU twin by ``compare_f32_probs``."""
+    import chip_smoke
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        serving,
+    )
+
+    bf16 = config != "float32"
+    kw = dict(compute_dtype=torch.bfloat16 if bf16 else None, conv_s2=bf16, conv_nl=bf16)
+    live = CooperativePredictor(device="cuda", seed=5, **kw)
+    path = serving.export_predictor(live, str(tmp_path / "p"), input_hw=(64, 64), n_iter=2)
+    served = serving.load_predictor(path)
+    uses = {"conv3x3_chw": conv_chw.Conv.uses_k1, "conv3x3s2": conv_chw.Conv.uses_k4,
+            "conv3x3_nl": conv_chw.Conv.uses_k5}
+
+    def per_predict(uses_fn):
+        m = served.predictor
+        count = lambda mod: sum(isinstance(c, conv_chw.Conv) and uses_fn(c)  # noqa: E731
+                                for c in mod.modules())
+        return (count(m.image_encoder) + count(m.segmentation_decoder)
+                + count(m.shape_encoder) + count(m.shape_decoder))
+
+    wrappers = {"conv3x3_chw": conv_chw.conv3x3_chw, "conv3x3s2": conv_s2.conv3x3s2,
+                "conv3x3_nl": conv_nl.conv3x3_nl}
+    for n in (1, 3):
+        x = torch.rand((n, 64, 64, 1), generator=torch.Generator().manual_seed(n))
+        before = {k: w.launches for k, w in wrappers.items()}
+        got = served(x)
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        assert launched == {k: per_predict(u) for k, u in uses.items()}
+        assert (launched["conv3x3s2"] > 0) == bf16 and (launched["conv3x3_nl"] > 0) == bf16
+        want = live.predict(x.to("cuda"), n_iter=2, softmax=True)
+        assert got.shape == (n, 64, 64, 4) and got.is_cuda and torch.equal(got, want)
+        if not bf16:
+            twin = serving.load_predictor(path, device="cpu")
+            chip_smoke.compare_f32_probs(got.cpu(), twin.predictor.predict(x, n_iter=2),
+                                         "served archive, card against CPU")
+
+
+def test_hard_example_arrays_on_card_match_cpu(cuda):
+    """``analysis/visualize.py:hard_example_arrays`` on the card against a
+    CPU twin on the same draws (float32, batch 2 at 64x64): targeted masks
+    equal or swapped only next to their threshold, the corrupted images and
+    segmentations within ``compare_f32`` of the twin's (decoded on the card's
+    masks where a mask element swapped), and K1, K1 dx and K3 launched as
+    the decoders count them (no K2: the decoders' parameters are
+    detached)."""
+    import chip_smoke
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.analysis import (
+        visualize,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synthetic import (
+        phantom_batch,
+    )
+
+    image, label = phantom_batch(seed=6, n=2, crop_size=(64, 64), pad_size=(80, 80))
+    card = CooperativeTrainer(None, device="cuda", seed=3)
+    twin = CooperativeTrainer(None, device="cpu", seed=3)
+    draws = visualize.draw_hard_examples(torch.Generator().manual_seed(7), 2, (128, 4, 4))
+    wrappers = {"fwd": conv_chw.conv3x3_chw, "dx": conv_chw.conv3x3_chw_dx,
+                "dw": conv_chw.conv3x3_chw_dw, "k3": pmask.percentile_mask}
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = visualize.hard_example_arrays(card, image, label, draws=draws)
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    want = visualize.hard_example_arrays(twin, image, label, draws=draws)
+
+    def k1(name):
+        return sum(isinstance(c, conv_chw.Conv) and c.uses_k1()
+                   for c in getattr(card.model, name).modules())
+
+    decoders = k1("image_decoder") + k1("segmentation_decoder")
+    targeted = sum(method != "dropout" for method, _ in got)
+    assert launched == {"fwd": k1("image_encoder") + k1("segmentation_decoder")
+                        + len(got) * decoders + targeted * decoders,
+                        "dx": targeted * decoders, "dw": 0, "k3": 2 * targeted}
+    for (method, thr), ex in got.items():
+        ref = want[(method, thr)]
+        same = True
+        for code in ("image", "shape"):
+            a, b = getattr(ex, code + "_mask").cpu(), getattr(ref, code + "_mask")
+            if method == "dropout":
+                assert torch.equal(a, b)
+                continue
+            rows = (lambda m: m[:, :, 0, 0]) if method == "channel" else (
+                lambda m: m[:, 0].reshape(m.shape[0], -1))
+            n = chip_smoke.assert_masks_agree(torch, rows(a), rows(b),
+                                              getattr(ex, code + "_saliency").cpu(),
+                                              getattr(ref, code + "_saliency"), thr,
+                                              f"{method} {thr} {code}")
+            same &= n == 0
+        ref_image, ref_seg = (ref.image, ref.seg_logits) if same else \
+            chip_smoke.decode_with_masks(torch, twin, image, ex.image_mask.cpu(),
+                                         ex.shape_mask.cpu())
+        chip_smoke.compare_f32(ex.image.cpu(), ref_image, f"{method} {thr} image")
+        chip_smoke.compare_f32(ex.seg_logits.cpu(), ref_seg, f"{method} {thr} segmentation")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staircase_conv_on_card_matches_conv2d(cuda, dtype):
+    """``ops/fast_conv.py:staircase_conv3x3`` on the card at down3's first
+    conv (64->128 @ 48x48, f = 2), held to twice ``F.conv2d``'s own rounding
+    on the card (plus one ulp of the scale in bf16): against a float64
+    reference on the CPU, the output, and in float32 the gradients of x and
+    w."""
+    import torch.nn.functional as F
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        fast_conv,
+    )
+
+    gen = torch.Generator().manual_seed(8)
+    x = torch.rand((4, 64, 48, 48), generator=gen, dtype=torch.float64) - 0.5
+    w = (torch.rand((128, 64, 3, 3), generator=gen, dtype=torch.float64) - 0.5) / 24
+    dy = torch.rand((4, 128, 48, 48), generator=gen, dtype=torch.float64)
+
+    def grads(fn, x, w, dy):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(x, w)
+        (y.float() * dy).sum().backward()
+        return [t.detach().double().cpu() for t in (y, x.grad, w.grad)]
+
+    want = grads(lambda a, b: F.conv2d(a, b, padding=1), x, w, dy)
+    card = [t.to("cuda", dtype) for t in (x, w)] + [dy.to("cuda", torch.float32)]
+    with conv_chw.full_f32(dtype):
+        got = grads(fast_conv.staircase_conv3x3, *card)
+        lib = grads(lambda a, b: F.conv2d(a, b, padding=1), *card)
+    for what, g, li, ref in zip(("y", "dx", "dw"), got, lib, want):
+        ulp = _bf16_ulp(ref.abs().max().item()) if dtype == torch.bfloat16 else 0.0
+        err, own = (g - ref).abs().max().item(), (li - ref).abs().max().item()
+        assert err <= 2 * own + ulp, (what, err, own)
+        if dtype == torch.bfloat16:
+            break  # bf16 gradients: held by the float32 case
+
+
+def test_estimate_size_on_card_counts_the_call(cuda):
+    """``utils/estimate.py:estimate_size`` on the card: the arguments'
+    bytes, the output's, and at least the temporary the call must hold."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils import (
+        estimate,
+    )
+
+    x = torch.ones((1024, 1024), device="cuda")
+    size = estimate.estimate_size(lambda a: (a * 2 + 1).sum(), x)
+    mib = x.nbytes / 2 ** 20
+    assert size["params_mb"] == mib and size["output_mb"] == 4 / 2 ** 20
+    assert size["temp_mb"] >= mib and size["total_mb"] >= 2 * mib
