@@ -24,7 +24,8 @@ best checkpoint through the port's test entry, the robustness protocol
 (training on ACDC-layout volumes, the ACDC-C generator, the methods x cvals
 table), data-parallel training over two ranks sharing the card (the step
 against one process, ``cli.train --n_devices 2`` and its resume from a
-whole-state checkpoint), the model tools on the loop's best checkpoint
+whole-state checkpoint), the sharded fused epoch on one NCCL rank (the
+step's collectives captured in its CUDA graphs), the model tools on the loop's best checkpoint
 (its serving archive exported and reloaded, the hard-example arrays, the
 size estimate of a step, the staircase conv), the port's
 ``bench_b8_conv``, the path of the
@@ -241,7 +242,35 @@ Phases, each printing its seconds when it ends:
    and confusion matrices, and each rank launch what its steps' branches
    and its validations' predicts require.  It prints the backend, the
    card's ``nvidia-smi`` line and the phase's seconds;
-11b. tools: the model tools on the loop's best checkpoint.  Serving:
+11b. sharded: the sharded fused epoch (the JAX package's
+   ``fused_epoch_runner(mesh=)``) on one NCCL rank started by
+   ``parallel.mesh.launch(fn, 1, "cuda")``, at full width
+   (``configs/ACDC/cooperative_training.json``, ``--synthetic --bf16``,
+   batch 20, the rank's batch 20: K1, K1 dx, K2 and K3 at the shapes the
+   kernels phase checks), with the launch counts and ``Mesh.calls`` set
+   to 0 just before and read just after.  It prints the backend, which
+   must be NCCL.  Through ``cli.train.train_rank``: 2 epochs with
+   ``--fused_epoch``, then 1 with ``--fused_epoch --pipeline_epoch``; no
+   step runs outside a graph but each branch tuple's first, every graph's
+   launches at capture equal ``expected_launches``, and the card's
+   launches over each run (``train/graphs.py:launched``) those of its
+   steps' branches and its validations.  Then a fresh pair of the
+   command line's trainers on the rank: 4 steps of one tuple (channel
+   masking on the image code, spatial on the shape code), the last 3
+   replays bit for bit equal to the twin's eager sharded steps (metrics,
+   then parameters, BN buffers, Adam), the graph's collectives at capture
+   equal to each eager step's ``Mesh.calls``; every tuple's collectives
+   counted by an eager step and every graph's collectives at capture held
+   to them; host ms a ``random`` step to a synchronize on the rank,
+   graphed (every tuple captured) against eager sharded (medians of 10);
+   the same tuple's replays in turns on the rank and in one process
+   without a mesh (host ms, medians of 9), then 3 traced replays of each
+   (device busy ms, the NCCL kernels' launches and ms, and the kernels
+   whose launches differ); last, ``cli.train --n_devices 2
+   --fused_epoch`` on the one card must be refused naming gloo, and with
+   ``--multi_epoch 2`` naming it.  It prints the phase's seconds against
+   its 90 s budget;
+11c. tools: the model tools on the loop's best checkpoint.  Serving:
    ``cli.export`` writes its float32 archive (``utils/serving.py``),
    ``load_predictor`` reloads it, and its probabilities at batch 20 must
    equal the live predictor's bit for bit and a CPU twin's within
@@ -2433,6 +2462,343 @@ def ddp_phase(torch, F, conv_chw, pmask, wrappers, predict_k1, k1_shapes, tmp, s
     return launches, checks
 
 
+SHARDED_TIMED = 10     # random steps timed graphed and eager on the NCCL rank
+SHARDED_TWIN = 4       # steps of one branch tuple: eager and captured, then replays
+SHARDED_TRACED = 3     # traced replays of the rank's graph and of one process's, in turns
+SHARDED_FORCED = (2, 1)  # that tuple: channel masking on the image code, spatial on the shape code
+SHARDED_BUDGET_S = 90  # the phase's own budget, printed beside its seconds
+
+
+def sharded_rank(mesh, argv, tmp):
+    """The sharded phase's rank (one NCCL rank on the card): ``cli.train``'s
+    sharded fused epoch and its pipelined fetch, the captured sharded
+    step against an eager twin, every tuple's collectives, the timings and
+    the traced replays (see the module docstring).  Returns what the
+    parent prints and the launches the card made."""
+    import numpy as np
+    import torch
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+        LatentDAConfig,
+        MaskConfig,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
+        CooperativeBatcher,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import conv_chw
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops import (
+        percentile_mask as pmask,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+        shard_train_step,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        stage_draws,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
+        GeneratorDraws,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+        branch_key,
+        launched,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.utils.profiling import (
+        NCCL_GROUP,
+        _group,
+        device_time,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    t_rank = time.perf_counter()
+    wrappers = wrappers_of(conv_chw, pmask)
+    for w in wrappers.values():
+        w.launches = 0
+    mesh.calls = 0
+    out = {"backend": mesh.backend, "capturable": mesh.capturable, "device": str(mesh.device)}
+    if mesh.backend != "nccl" or not mesh.capturable:
+        raise AssertionError(f"one rank on the card runs on {mesh.backend}, not NCCL")
+
+    def forced(key):
+        return LatentDAConfig(image_code=MaskConfig("mse", MASK_TYPES[key[0]]),
+                              shape_code=MaskConfig("ce", MASK_TYPES[key[1]]))
+
+    def expected(trainer, key):
+        return {**dict.fromkeys(LAUNCH_COUNTERS, 0),
+                **trainer.expected_launches({"image": key[0], "shape": key[1]})}
+
+    def at_capture(g, key):
+        return {k: g.graphs[key].launches.get(k, 0) for k in LAUNCH_COUNTERS}
+
+    # 1. cli.train's sharded fused epoch (2 epochs), then its pipelined
+    #    fetch (1 epoch): every graph's launches at capture as expected, no
+    #    step outside a graph but each tuple's first, the card's launches
+    #    over the run those of its steps' branches and its validations
+    runs, steps_graphs, validations = {}, [], []
+    for tag, extra, epochs in (("fused", ["--fused_epoch"], 2),
+                               ("pipelined", ["--fused_epoch", "--pipeline_epoch"], 1)):
+        a = cli.parse_args(argv + extra + ["--max_epochs", str(epochs), "--save_dir",
+                                           os.path.join(tmp, tag)])
+        c, n = cli.load_config(a)
+        c.output.save_epoch_every_num_epochs = 10
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        result = cli.train_rank(mesh, a, c, n)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        g, v = result.graphs, result.validation
+        steps_graphs.append(g)
+        validations.append(v)
+        if [e.epoch for e in result.epochs] != list(range(epochs)):
+            raise AssertionError(f"{tag}: epochs {[e.epoch for e in result.epochs]}")
+        if not all(np.isfinite(e.losses).all() for e in result.epochs):
+            raise AssertionError(f"{tag}: a loss is not finite")
+        n_steps = sum(e.steps for e in result.epochs)
+        if g.eager_steps != len(g.graphs) or sum(g.replays.values()) != n_steps - len(g.graphs):
+            raise AssertionError(f"{tag}: {g.eager_steps} eager steps, {len(g.graphs)} graphs, "
+                                 f"replays {dict(g.replays)} over {n_steps} steps")
+        for key in g.graphs:
+            if at_capture(g, key) != expected(g.trainer, key):
+                raise AssertionError(f"{tag} graph {key}: launches at capture "
+                                     f"{at_capture(g, key)}, expected {expected(g.trainer, key)}")
+        got = launched({k: w.launches - before[k] for k, w in wrappers.items()}, [g], [v])
+        want = Counter()
+        for e in result.epochs:
+            for b in e.branches:
+                want.update(g.trainer.expected_launches(b))
+        for k, m in v.launches.items():
+            want[k] += (1 + v.replays) * m
+        want = {k: want.get(k, 0) for k in LAUNCH_COUNTERS}
+        if got != want:
+            raise AssertionError(f"{tag}: the card's launches {got}, expected {want}")
+        runs[tag] = {"sec": sec, "epochs": [e.epoch for e in result.epochs],
+                     "losses": [float(e.losses[:, 0].mean()) for e in result.epochs],
+                     "graphs": len(g.graphs), "replays": sum(g.replays.values()),
+                     "validations": 1 + v.replays, "capture_s": [c_.seconds for c_ in
+                                                                 g.graphs.values()]}
+    fused = steps_graphs[0]
+    trainer = fused.trainer
+
+    # 2. a fresh pair of the cli's trainers on the same mesh: SHARDED_TWIN
+    #    steps of one tuple, replayed after the first, bit for bit equal to
+    #    the twin's eager sharded steps; collectives at capture equal to
+    #    the eager step's Mesh.calls
+    args = cli.parse_args(argv + ["--fused_epoch"])
+    cfg, _ = cli.load_config(args)
+    data = cfg.data
+    train_set, _ = cli.build_datasets(cfg, args)
+    batcher = CooperativeBatcher(train_set, cfg.learning.batch_size, data.data_aug_policy,
+                                 data.pad_hw, data.crop_hw, keep_orig=True, seed=args.seed,
+                                 device=mesh.device, mesh=mesh)
+    pair = []
+    for _ in range(2):
+        t = cli.build_trainer(cfg, args, device=mesh.device)
+        t.latent_da = forced(SHARDED_FORCED)
+        shard_train_step(t, mesh)
+        pair.append(StepGraphs(t, batcher.pipeline_idx, *batcher.device_dataset(), mesh=mesh))
+    graphed, twin = pair
+    steps_graphs.append(graphed)
+    idx = torch.from_numpy(batcher.epoch_index_matrix()[0]).to(mesh.device)
+
+    def stage(lda, n, seed):
+        return stage_draws(GeneratorDraws(seed), [0], n, batcher.policy, batcher.raw_bs,
+                           data.pad_hw, batcher.step_batch, data.crop_hw, lda, mesh.device,
+                           mesh=mesh).steps
+
+    def twin_step(s):
+        before = mesh.calls
+        want = twin.body(idx, s.augment, s.step)
+        return want, mesh.calls - before
+
+    got = torch.empty((SHARDED_TWIN, 10), device=mesh.device)
+    calls = {}
+    for k, s in enumerate(stage(forced(SHARDED_FORCED), SHARDED_TWIN, args.seed + 5)):
+        graphed.run(idx, s, got[k])
+        want, calls[SHARDED_FORCED] = twin_step(s)
+        if not torch.equal(got[k], want):
+            raise AssertionError(f"sharded step {k}: replayed metrics {got[k].tolist()}, eager "
+                                 f"{want.tolist()}")
+    if not _same_state(torch, graphed.trainer, twin.trainer):
+        raise AssertionError("the graphed rank's state differs from its eager twin's")
+    key = (*SHARDED_FORCED, 0)
+    if graphed.replays[key] != SHARDED_TWIN - 1 or len(graphed.graphs) != 1:
+        raise AssertionError(f"graphs {list(graphed.graphs)}, replays {dict(graphed.replays)}")
+    if graphed.graphs[key].collectives != calls[SHARDED_FORCED]:
+        raise AssertionError(f"collectives at capture {graphed.graphs[key].collectives}, the "
+                             f"eager step's {calls[SHARDED_FORCED]}")
+    out["twin"] = {"replays": SHARDED_TWIN - 1, "collectives": calls[SHARDED_FORCED]}
+
+    # 3. every tuple: the twin's eager step counts its collectives; the cli
+    #    run's graphs capture the tuples they lack; every graph's
+    #    collectives at capture equal the eager step's
+    for i in range(3):
+        for j in range(3):
+            lda = forced((i, j))
+            s = stage(lda, 1, args.seed + 20 + 3 * i + j)[0]
+            twin.trainer.latent_da = lda
+            calls[(i, j)] = twin_step(s)[1]
+            if (i, j, 0) not in fused.graphs:
+                trainer.latent_da = lda
+                fused.run(idx, s, torch.empty(10, device=mesh.device))
+    trainer.latent_da = twin.trainer.latent_da = cfg.latent_DA
+    for g in steps_graphs:
+        for key, c_ in g.graphs.items():
+            if c_.collectives != calls[key[:2]]:
+                raise AssertionError(f"graph {key}: {c_.collectives} collectives at capture, "
+                                     f"the eager step's {calls[key[:2]]}")
+            if at_capture(g, key) != expected(g.trainer, key):
+                raise AssertionError(f"graph {key}: launches at capture {at_capture(g, key)}")
+    out["collectives"] = {f"{MASK_TYPES[i]}/{MASK_TYPES[j]}": n for (i, j), n in calls.items()}
+
+    # 4. host ms a random step to a synchronize: the NCCL rank's replays
+    #    (every tuple captured) against its eager sharded steps
+    times = {"graphed": [], "eager": []}
+    o = torch.empty(10, device=mesh.device)
+    for s in stage(cfg.latent_DA, SHARDED_TIMED, args.seed + 40):
+        for which, fn in (("graphed", lambda: fused.run(idx, s, o)),
+                          ("eager", lambda: o.copy_(twin.body(idx, s.augment, s.step)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3)
+    if len(fused.graphs) != 9:
+        raise AssertionError(f"{len(fused.graphs)} graphs after the timed steps")
+    out["random_ms"] = times
+
+    # 5. one tuple, one process beside the rank: the same trainer's graph
+    #    without a mesh, host ms of replays in turns with the rank's graph,
+    #    then one traced replay of each (device ms, NCCL's share, and the
+    #    kernels whose counts differ)
+    one_batcher = CooperativeBatcher(train_set, cfg.learning.batch_size, data.data_aug_policy,
+                                     data.pad_hw, data.crop_hw, keep_orig=True, seed=args.seed,
+                                     device=mesh.device)
+    one_trainer = cli.build_trainer(cfg, args, device=mesh.device)
+    one_trainer.latent_da = forced(SHARDED_FORCED)
+    one = StepGraphs(one_trainer, one_batcher.pipeline_idx, *one_batcher.device_dataset())
+    steps_graphs.append(one)
+    lda = forced(SHARDED_FORCED)
+    sharded_steps = stage(lda, SHARDED_TIMED, args.seed + 60)
+    one_steps = stage_draws(GeneratorDraws(args.seed + 60), [0], SHARDED_TIMED, batcher.policy,
+                            batcher.raw_bs, data.pad_hw, batcher.step_batch, data.crop_hw, lda,
+                            mesh.device).steps
+    one.run(idx, one_steps[0], o)
+    pair_ms = {"rank": [], "one": []}
+    for k in range(1, SHARDED_TIMED):
+        turns = (("rank", fused, sharded_steps[k]), ("one", one, one_steps[k]))
+        for which, g, s in turns if k % 2 else turns[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.run(idx, s, o)
+            torch.cuda.synchronize()
+            pair_ms[which].append((time.perf_counter() - t0) * 1e3)
+    out["tuple_ms"] = pair_ms
+    traced = {"rank": [], "one": []}
+    for k in range(SHARDED_TRACED):
+        turns = (("rank", fused, sharded_steps[k]), ("one", one, one_steps[k]))
+        for which, g, s in turns if k % 2 == 0 else turns[::-1]:
+            for _ in range(3):  # a session now and then delivers no device events
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    g.run(idx, s, o)
+                    torch.cuda.synchronize()
+                by_group, _, kernels = device_time(prof.key_averages())
+                if by_group:
+                    break
+            traced[which].append({
+                "busy_ms": sum(by_group.values()) / 1e3,
+                "nccl_ms": by_group.get(NCCL_GROUP, 0.0) / 1e3,
+                "nccl_launches": sum(n for _, n, name in kernels if _group(name) == NCCL_GROUP),
+                "by_name": {name: (n, us / 1e3) for us, n, name in kernels}})
+    out["traced"] = {k: [{f: v for f, v in t.items() if f != "by_name"} for t in ts]
+                     for k, ts in traced.items()}
+    # by kernel name, the rank's first traced replay less one process's
+    rank_c, one_c = traced["rank"][0]["by_name"], traced["one"][0]["by_name"]
+    diff = sorted(((rank_c.get(name, (0, 0.0))[1] - one_c.get(name, (0, 0.0))[1],
+                    rank_c.get(name, (0, 0.0))[0] - one_c.get(name, (0, 0.0))[0], name[:72])
+                   for name in set(rank_c) | set(one_c)), reverse=True)
+    out["trace_diff"] = [d for d in diff[:5] + diff[-5:] if d[1]]
+    ticks = {k: w.launches for k, w in wrappers.items()}
+    out["launches"] = launched({**ticks, "collectives": mesh.calls}, steps_graphs, validations)
+    out["runs"] = runs
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def sharded_phase(torch, tmp, smi):
+    """The sharded phase (see the module docstring).  Returns the launches
+    by wrapper the card made on the rank."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli import train as cli
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), LOOP_CONFIG)
+    argv = ["--json_config_path", config, "--synthetic", "--bf16"]
+    (r,) = mesh.launch(sharded_rank, 1, "cuda", args=(argv, tmp))
+    print(f"  backend {r['backend']} (collectives capturable: {r['capturable']}), one rank on "
+          f"{r['device']}; the rank's work {r['rank_s']:.1f} s", flush=True)
+    for tag, run in r["runs"].items():
+        print(f"  cli.train --fused_epoch{' --pipeline_epoch' if tag == 'pipelined' else ''} "
+              f"over the rank: epochs {run['epochs']} in {run['sec']:.3f} s, mean standard "
+              f"losses {', '.join(f'{x:.4f}' for x in run['losses'])}; {run['graphs']} graphs "
+              f"captured ({', '.join(f'{s:.3f}' for s in run['capture_s'])} s), "
+              f"{run['replays']} replays, {run['validations']} validations; launches at "
+              f"capture = expected_launches, the card's launches = the branches' and the "
+              f"validations'", flush=True)
+    print(f"  {SHARDED_TWIN} steps of one tuple {SHARDED_FORCED}: {r['twin']['replays']} "
+          f"replays bit for bit equal to the eager twin's sharded steps (metrics, then "
+          f"parameters, BN buffers, Adam); collectives a step {r['twin']['collectives']}, at "
+          f"capture the same", flush=True)
+    print("  collectives a step by tuple (image/shape code), each graph's at capture the "
+          "same: " + ", ".join(f"{k} {n}" for k, n in r["collectives"].items()), flush=True)
+    med = {k: statistics.median(v) for k, v in r["random_ms"].items()}
+    print(f"  host ms a random step to a synchronize on the NCCL rank, median of "
+          f"{SHARDED_TIMED} (min, max): graphed {med['graphed']:.3f} "
+          f"({min(r['random_ms']['graphed']):.3f}, {max(r['random_ms']['graphed']):.3f}), "
+          f"eager sharded {med['eager']:.3f} ({min(r['random_ms']['eager']):.3f}, "
+          f"{max(r['random_ms']['eager']):.3f}); {med['eager'] / med['graphed']:.2f}x", flush=True)
+    tm = {k: statistics.median(v) for k, v in r["tuple_ms"].items()}
+    print(f"  tuple {SHARDED_FORCED}, replays in turns, median of {SHARDED_TIMED - 1}: the NCCL "
+          f"rank's graph {tm['rank']:.3f} host ms, one process's {tm['one']:.3f} "
+          f"({tm['rank'] / tm['one']:.4f}x)", flush=True)
+    for which, ts in r["traced"].items():
+        busy = [t["busy_ms"] for t in ts]
+        if not all(busy):
+            print(f"  traced replays ({which}): the profiler saw no device time: not measured",
+                  flush=True)
+            continue
+        nccl = ", ".join(f"{t['nccl_launches']} taking {t['nccl_ms']:.3f} ms" for t in ts)
+        print(f"  traced replays of tuple {SHARDED_FORCED} ({which}), {len(ts)} in turns: device "
+              f"busy ms {', '.join(f'{b:.3f}' for b in busy)} (median "
+              f"{statistics.median(busy):.3f}); NCCL kernels {nccl} (share "
+              f"{max(t['nccl_ms'] / t['busy_ms'] for t in ts):.4f} at most)", flush=True)
+    print("  the rank's first traced replay less one process's, by kernel name whose launches "
+          "differ (ms, launches): " + "; ".join(
+              f"{name} {ms:+.3f}, {n:+d}" for ms, n, name in r["trace_diff"]), flush=True)
+    # the ranks that share the one card run on gloo: the fused epoch is refused
+    for extra, match in ((["--n_devices", "2", "--fused_epoch"], "gloo"),
+                         (["--n_devices", "2", "--fused_epoch", "--multi_epoch", "2"],
+                          "multi_epoch")):
+        a = cli.parse_args(argv + extra + ["--save_dir", os.path.join(tmp, "refused")])
+        c, n = cli.load_config(a)
+        try:
+            cli.run(a, c, n)
+        except ValueError as e:
+            if match not in str(e):
+                raise AssertionError(f"{extra}: refused without naming {match}: {e}") from e
+            print(f"  {' '.join(extra)} on one card refused: {e}", flush=True)
+        else:
+            raise AssertionError(f"{extra} on one card was not refused")
+    launches = {k: r["launches"][k] for k in LAUNCH_COUNTERS}
+    if any(launches[k] == 0 for k in LAUNCH_COUNTERS[:4]):
+        raise AssertionError(f"the NCCL rank did not launch K1, K1 dx, K2 and K3: {launches}")
+    sec = time.perf_counter() - t0
+    print(f"  launches on the card over the rank: {launches}, collectives run "
+          f"{r['launches']['collectives']}; {smi}; phase {sec:.1f} s (limit "
+          f"{SHARDED_BUDGET_S} s)", flush=True)
+    return launches
+
+
 def _corrupted_average(rows, method):
     """Mean over the four corruption subsets of the LV, MYO and RV Dice
     means of ``method`` in an aggregated table's rows."""
@@ -3467,6 +3833,10 @@ def main():
                                                   k1_per_predict, order, tmp, smi)
             torch.cuda.empty_cache()
 
+        with phase("sharded"):
+            sharded_launches = sharded_phase(torch, tmp, smi)
+            torch.cuda.empty_cache()
+
         with phase("tools"):
             tools_launches = tools_phase(torch, F, wrappers, convs_per_request, best_dir, tmp,
                                          arm_pool, smi)
@@ -3534,7 +3904,8 @@ def main():
                 + sum(run[0][k] for run in runs.values()) + variant_launches[k]
                 + arm_launches[k] + aug_launches[k] + loop_launches[k] + fused_launches[k]
                 + det_launches[k]
-                + eval_launches[k] + robust_launches[k] + ddp_launches[k] + tools_launches[k]
+                + eval_launches[k] + robust_launches[k] + ddp_launches[k]
+                + sharded_launches[k] + tools_launches[k]
                 + b8_launches[k]
                 + base_launches[k] for k in LAUNCH_COUNTERS}
     records = []

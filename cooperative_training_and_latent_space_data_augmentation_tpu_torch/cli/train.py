@@ -47,16 +47,24 @@ bit for bit.
 (``parallel/mesh.py``: one process a rank, the batch sharded, BatchNorm on
 the global batch, the gradients all-reduced), on the card unless
 ``--device cpu`` is given; without a card that is an error, never a quiet
-CPU run.  The kernels are built once before the ranks start.  Ranks that
-share one card run on gloo; the fused epoch modes run on one device and
-are refused.  Every periodic save also writes the trainer's whole state
-under ``{model_dir}/orbax`` (``utils/checkpoint.py``; ``--no_orbax``
-leaves it out) and ``--resume_orbax`` restarts from the latest, as the
-JAX package's flags do::
+CPU run.  The kernels are built once before the ranks start.  Every
+periodic save also writes the trainer's whole state under
+``{model_dir}/orbax`` (``utils/checkpoint.py``; ``--no_orbax`` leaves it
+out) and ``--resume_orbax`` restarts from the latest, as the JAX
+package's flags do::
 
     python -m cooperative_training_and_latent_space_data_augmentation_tpu_torch.cli.train \
         --json_config_path configs/ACDC/cooperative_training.json --synthetic --bf16 \
         --n_devices 2 --max_epochs 2 --save_dir /tmp/runs
+
+``--n_devices N --fused_epoch`` (``--pipeline_epoch`` too) runs the sharded
+fused epoch (the JAX package's ``fused_epoch_runner(mesh=)``): each rank
+replays CUDA graphs of its share of the step with the collectives captured
+inside.  On the card that needs NCCL, so N cards, one a rank; with fewer
+cards the ranks share one over gloo, whose collectives cannot be
+captured, and the run is refused at start.  ``--multi_epoch`` is refused
+over ranks (the JAX package's window is single-device).  On the CPU the
+fused bodies run uncaptured over gloo.
 """
 
 from __future__ import annotations
@@ -82,6 +90,10 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.synt
     SyntheticSegDataset,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augment import WARPS
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+    backend_for,
+    launch,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.cooperative import (
     CooperativeTrainer,
 )
@@ -150,7 +162,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--warp", choices=WARPS, default="composed",
                    help="the augmentation's geometric warp arm")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="shard the batch over a data-parallel mesh")
+                   help="shard the batch over a data-parallel mesh of this many ranks; with "
+                        "--fused_epoch on the card, NCCL: as many cards")
     return p.parse_args(argv)
 
 
@@ -237,13 +250,23 @@ def n_ranks(args: argparse.Namespace) -> int:
     return max(1, args.n_devices or 1)
 
 
+def check_rank_modes(args: argparse.Namespace) -> None:
+    """``train.driver.check_mesh_modes`` for the ranks ``--n_devices``
+    would start: on the card, the backend ``parallel.mesh.backend_for``
+    picks (NCCL with a card a rank, else gloo); on the CPU none, since
+    nothing is captured there."""
+    n = n_ranks(args)
+    backend = None if args.device == "cpu" else backend_for(n, args.device)
+    check_mesh_modes(n, args.fused_epoch, args.multi_epoch, backend)
+
+
 def run(args: argparse.Namespace, cfg: ExperimentConfig,
         config_name: str) -> Tuple[Optional[CooperativeTrainer], TrainResult]:
     """Build the datasets and the trainer and train: (trainer, result);
     an epoch-mode combination that does not exist is refused first.  Over
     ``--n_devices`` ranks: (None, rank 0's result), see :func:`run_ranks`."""
     check_epoch_modes(args.fused_epoch, args.multi_epoch, args.pipeline_epoch)
-    check_mesh_modes(n_ranks(args), args.fused_epoch)
+    check_rank_modes(args)
     if n_ranks(args) > 1:
         return None, run_ranks(args, cfg, config_name)[0]
     train_set, val_set = build_datasets(cfg, args)
@@ -254,12 +277,8 @@ def run_ranks(args: argparse.Namespace, cfg: ExperimentConfig,
               config_name: str) -> List[TrainResult]:
     """Train over ``--n_devices`` ranks on ``args.device`` (the kernels
     built first, once, on the card): each rank's result, in rank order."""
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
-        launch,
-    )
-
     check_epoch_modes(args.fused_epoch, args.multi_epoch, args.pipeline_epoch)
-    check_mesh_modes(n_ranks(args), args.fused_epoch)
+    check_rank_modes(args)
     _check_device(args)
     if args.device != "cpu":
         from cooperative_training_and_latent_space_data_augmentation_tpu_torch import kernels

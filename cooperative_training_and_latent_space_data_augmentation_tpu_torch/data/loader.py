@@ -8,7 +8,7 @@ device (:mod:`..ops.augment`) with its random draws taken from the
 caller's draw source (see :mod:`..train.driver`), where the JAX package
 splits a key.  The fused epoch (``CooperativeBatcher.epoch_index_matrix``
 and ``fused_epoch_runner``) and the stacked validation epoch
-(``EvalBatcher.stacked_epoch``) run on one device.
+(``EvalBatcher.stacked_epoch``) run on the device, one or one a rank.
 
 Under a data-parallel ``mesh`` (``parallel/mesh.py``; the JAX package's
 ``sharding`` argument) both batchers yield this rank's rows of the global
@@ -16,7 +16,10 @@ batch: every rank samples the same global indices from the same seed,
 augments the whole batch with the same draws and keeps its rows (JAX's
 order: with ``keep_orig`` the augmented half goes to the first ranks),
 and a validation batch, wrap-padded to ``batch_size``, carries the rank's
-count of real rows beside the global one.
+count of real rows beside the global one.  The fused epoch does the same
+inside each step's graph (the JAX package's ``fused_epoch_runner(mesh=)``,
+whose sharding constraint on the index vector partitions the same global
+computation), and the stacked validation epoch stacks the rank's rows.
 
 ``CooperativeBatcher`` keeps the batch-halving of
 ``keep_orig_image_label_pair_for_training``: each raw sample gives an
@@ -233,20 +236,28 @@ class CooperativeBatcher:
         """The JAX package's ``fused_epoch_runner``: every (gather +
         augment + train step) of an epoch against the dataset on the
         device, one CUDA graph replay a step on the card, no read back.
-        Needs the dataset on the device (``device_cache``); raises
-        otherwise.  Returns the epoch's ``train/graphs.py:StepGraphs``,
+        Under the batcher's ``mesh`` (``mesh=`` there), each step trains
+        the trainer (in data-parallel mode on the mesh) on this rank's rows
+        of the augmented global batch, its collectives inside the graph;
+        on the card a mesh whose collectives cannot be captured (gloo) is
+        refused.  Needs the dataset on the device (``device_cache``);
+        raises otherwise.  Returns the epoch's ``train/graphs.py:StepGraphs``,
         whose ``run_epoch(idx_mat, steps) -> (K, 10) metrics`` is the run."""
         if not self.device_cache:
             raise ValueError("the fused epoch gathers its batches from the dataset on the "
                              "device, and this dataset is over DEVICE_CACHE_LIMIT_BYTES; "
                              "train it without --fused_epoch")
-        if self.mesh is not None:
-            raise ValueError("the fused epoch runs on one device (see train/driver.py)")
+        mesh = self.mesh
+        if self.device.type == "cuda" and mesh is not None and not mesh.capturable:
+            raise ValueError(f"the fused epoch over {mesh.size} ranks captures the sharded "
+                             f"step's collectives into CUDA graphs, and the mesh's "
+                             f"{mesh.backend} collectives cannot be captured: train over NCCL "
+                             f"ranks, a card each, or without --fused_epoch")
         from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
             StepGraphs,
         )
 
-        return StepGraphs(trainer, self.pipeline_idx, *self.device_dataset())
+        return StepGraphs(trainer, self.pipeline_idx, *self.device_dataset(), mesh=mesh)
 
     def raw_epoch(self) -> Iterator[Dict[str, np.ndarray]]:
         """Numpy-only collation, safe to run on a prefetch thread."""
@@ -336,12 +347,10 @@ class EvalBatcher:
         """The whole validation epoch stacked on the device: images (Nb, B,
         h, w, C) float32, labels (Nb, B, h, w) int32 and real counts (Nb,)
         int32, the input of ``train/graphs.py:ValidationGraph`` (the JAX
-        package's ``stacked_epoch``, the K-epoch window's format); one
-        device only."""
-        if self.mesh is not None:
-            raise ValueError("the stacked validation epoch runs on one device")
+        package's ``stacked_epoch``, the K-epoch window's format).  Under a
+        ``mesh``, B is this rank's rows and the counts its ``local_count``s."""
         batches = list(self.epoch())
-        reals = np.asarray([b["real_count"] for b in batches], np.int32)
+        reals = np.asarray([b["local_count"] for b in batches], np.int32)
         return (torch.stack([b["image"] for b in batches]),
                 torch.stack([b["label"].to(torch.int32) for b in batches]),
                 torch.from_numpy(reals).to(self.device))

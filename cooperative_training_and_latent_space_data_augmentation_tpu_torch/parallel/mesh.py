@@ -35,8 +35,19 @@ and at least ``n_devices`` cards); gloo when ranks share one card or run
 on the CPU.  :func:`launch` prints the choice.  Only ``all_reduce``,
 ``broadcast`` and ``barrier`` are called, the collectives gloo runs on
 CUDA tensors (staged through host memory by gloo itself), so two ranks
-can share one card.  Collectives cannot be captured into a CUDA graph
-under gloo: the fused epoch refuses a mesh (``train/driver.py``).
+can share one card.
+
+CUDA graphs.  NCCL's collectives can be captured into a CUDA graph (each
+runs on NCCL's own stream, joined to the capture by events), gloo's
+cannot (:func:`collectives_capturable`, :attr:`Mesh.capturable`): the
+fused epoch on the card captures the sharded step, collectives and all,
+only under NCCL, and refuses a mesh whose collectives cannot be captured
+(``data/loader.py:CooperativeBatcher.fused_epoch_runner``).  Under
+capture a collective allocates only in the graph's pool (the copies of
+``_AllReduceSum``, the flat buffers of ``Mesh.average_``) and reads
+nothing back; ``Mesh.calls`` ticks once a collective at capture, as the
+kernels' launch counters do, and ``train/graphs.py:launched`` adds each
+graph's collectives once a replay.
 """
 
 from __future__ import annotations
@@ -62,14 +73,22 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.load
 RANK_TIMEOUT_S = 600  # a collective that waits longer fails the run
 
 
+def collectives_capturable(backend: str) -> bool:
+    """Whether a CUDA graph can capture the collectives of ``backend``:
+    NCCL's yes, gloo's no."""
+    return backend == "nccl"
+
+
 @dataclass(eq=False)
 class Mesh:
     """One rank's view of a 1-D data mesh: ``size`` ranks, this one's
     ``rank``, its ``device``, the process ``group`` (None: the default
     one), the ``backend`` and the ``axis_name``.  ``calls`` and
-    ``seconds`` count the collectives this rank made and the host seconds
-    inside them; with ``timed`` each first waits for the device, so that
-    ``seconds`` holds the communication alone."""
+    ``seconds`` count the collectives this rank called (one at a capture
+    too, which runs nothing) and the host seconds inside them; with
+    ``timed`` each first waits for the device, so that ``seconds`` holds
+    the communication alone (refused during a capture, where nothing may
+    wait for the device)."""
 
     size: int
     rank: int
@@ -81,9 +100,17 @@ class Mesh:
     calls: int = 0
     seconds: float = 0.0
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this mesh's collectives."""
+        return collectives_capturable(self.backend)
+
     # ------------------------------------------------------- collectives
     def _run(self, fn: Callable[[], None], t: torch.Tensor) -> None:
         cuda = t.is_cuda and self.timed
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("Mesh.timed synchronizes the device around each collective, "
+                               "which a CUDA graph capture forbids: time replays instead")
         if cuda:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
@@ -213,6 +240,15 @@ def batch_sharding(mesh: Mesh, n: int) -> slice:
         raise ValueError(f"a batch of {n} does not divide over {mesh.size} ranks")
     b = n // mesh.size
     return slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+
+def replicate_sharding(mesh: Mesh) -> slice:
+    """The rows every rank holds of a replicated array (the JAX package's
+    ``NamedSharding(mesh, P())``): all of them, ``t[replicate_sharding(mesh)]``
+    is ``t``.  What rides in replicated: the parameters and optimizer state,
+    the dataset on the device, an epoch's index matrix and its augmentation
+    draws (each rank augments the global batch, then keeps its rows)."""
+    return slice(None)
 
 
 def shard_batch(mesh: Mesh, batch):

@@ -17,7 +17,8 @@ The fused paths draw a whole epoch, or a window of epochs, up front
 (:func:`stage_draws`): every batch's augmentation draws and every step's
 draws, in the streaming loop's call order, packed into one pinned host
 buffer a dtype, copied to the device once without blocking, and read there
-through views (:class:`StagedDraws`).
+through views (:class:`StagedDraws`); under a data-parallel mesh, each
+step's draws as this rank's rows.
 """
 
 from __future__ import annotations
@@ -294,15 +295,19 @@ class StagedDraws:
 
 def stage_draws(source, epochs: Sequence[int], n_steps: int, policy, raw_n: int, pad_hw,
                 n: int, hw: Tuple[int, int], latent_da: Optional[LatentDAConfig],
-                device: Union[str, torch.device], **kw) -> StagedDraws:
+                device: Union[str, torch.device], mesh=None, **kw) -> StagedDraws:
     """Draw ``n_steps`` steps of each epoch of ``epochs`` from the draw
     source ``source`` (``augment(epoch, policy, raw_n, pad_hw)`` and
     ``step(n, hw, latent_da, **kw)``, see :mod:`.driver`) in the streaming
     loop's order, batch k's augmentation draws and then step k's draws,
-    and stage them on ``device``."""
+    and stage them on ``device``.  Under a ``mesh`` each step's draws are
+    the global step's drawn in full and staged as this rank's rows
+    (:func:`shard_draws`); the augmentation draws stay whole, since each
+    rank augments the global batch and keeps its rows."""
     pairs = []
     for epoch in epochs:
         for _ in range(n_steps):
             augment = source.augment(epoch, policy, raw_n, pad_hw)
-            pairs.append((augment, source.step(n, hw, latent_da, **kw)))
+            step = source.step(n, hw, latent_da, **kw)
+            pairs.append((augment, step if mesh is None else shard_draws(step, mesh)))
     return StagedDraws(pairs, device)

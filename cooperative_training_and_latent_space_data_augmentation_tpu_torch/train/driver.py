@@ -37,9 +37,15 @@ in data-parallel mode (``shard_train_step``), validation on each rank's
 rows with the confusion matrices summed over the ranks, so that every
 rank logs the same losses and makes the same Mean-IoU decision.  Rank 0
 alone writes (checkpoints, snapshots, scalars), and the ranks meet at a
-barrier after each epoch's writes.  The three fused epoch modes refuse a
-mesh: they replay CUDA graphs, and the gloo collectives that let ranks
-share one card cannot be captured.
+barrier after each epoch's writes.  The fused epoch and its pipelined
+fetch run over a mesh too (the JAX package's ``fused_epoch_runner(mesh=)``):
+each rank replays CUDA graphs of (gather, augmentation of the global batch,
+its rows, the sharded step) with the step's collectives captured inside,
+its staged step draws its rows, and validation one graph of its rows
+whose confusion matrix is summed after the replay.  On the card that needs
+NCCL (a card a rank); ranks whose collectives cannot be captured (gloo,
+ranks sharing a card) are refused, and so is the K-epoch window over
+ranks, single-device in the JAX package too (:func:`check_mesh_modes`).
 
 Whole-state checkpoints (``use_orbax``, the JAX package's orbax
 checkpoints, in the port's own format, ``utils/checkpoint.py``): the
@@ -92,6 +98,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.ops.augme
     draw_augment,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel.mesh import (
+    collectives_capturable,
     shard_train_step,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.checkpoint import (
@@ -268,16 +275,25 @@ def check_epoch_modes(fused_epoch: bool, multi_epoch: int, pipeline_epoch: bool)
                          "give --multi_epoch or --pipeline_epoch, not both")
 
 
-def check_mesh_modes(n_ranks: int, fused_epoch: bool) -> None:
-    """Refuse the fused epoch (and so its window and pipelined fetch) over
-    more than one rank: it replays CUDA graphs of the step, and the step's
-    collectives cannot be captured under gloo, the backend that lets ranks
-    share one card.  A captured sharded step needs NCCL across cards of
-    their own."""
-    if n_ranks > 1 and fused_epoch:
-        raise ValueError(f"--fused_epoch (with --multi_epoch, --pipeline_epoch) runs on one "
-                         f"device: its CUDA graphs cannot capture the {n_ranks} ranks' gloo "
-                         f"collectives; train over ranks without it")
+def check_mesh_modes(n_ranks: int, fused_epoch: bool, multi_epoch: int = 0,
+                     backend: Optional[str] = None) -> None:
+    """Refuse what the epoch modes cannot do over more than one rank: the
+    K-epoch window (the JAX package's is single-device and ignores its
+    ``MULTI_EPOCH`` over a mesh; the port says so), and the fused epoch
+    (and so its pipelined fetch) where its CUDA graphs cannot capture the
+    ranks' collectives.  ``backend``: the ranks' backend where the fused
+    epoch captures graphs (on the card), None where its bodies run
+    uncaptured (on the CPU)."""
+    if n_ranks <= 1:
+        return
+    if multi_epoch > 1:
+        raise ValueError(f"--multi_epoch runs one device's K-epoch window, as the JAX "
+                         f"package's does; over {n_ranks} ranks give --fused_epoch without it")
+    if fused_epoch and backend is not None and not collectives_capturable(backend):
+        raise ValueError(f"--fused_epoch over {n_ranks} ranks captures the sharded step's "
+                         f"collectives into CUDA graphs, and {backend}'s cannot be captured; "
+                         f"give each rank a card of its own (NCCL), or train over ranks "
+                         f"without --fused_epoch")
 
 
 def train_network(experiment_name: str, train_set, validate_set, trainer: CooperativeTrainer,
@@ -310,8 +326,10 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     the augmentation's geometric warp arm (``ops/augment.py:WARPS``).
 
     ``mesh``: train data-parallel over its ranks (every rank calls this
-    with its own trainer; see the module docstring); the batch size must
-    divide over them (the batchers refuse it otherwise).  ``use_orbax``: the trainer's whole state also goes
+    with its own trainer; see the module docstring), streaming or fused
+    (with or without the pipelined fetch, not in windows); the batch size
+    must divide over them (the batchers refuse it otherwise).
+    ``use_orbax``: the trainer's whole state also goes
     to ``{model_dir}/orbax`` at every periodic save (not under
     ``pipeline_epoch``, whose fetch holds the modules but not Adam's
     state); ``resume_orbax``: restart from its latest step at that step +
@@ -320,7 +338,9 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     order's position: a resumed run draws from ``seed`` anew, as the JAX
     package's does."""
     check_epoch_modes(fused_epoch, multi_epoch, pipeline_epoch)
-    check_mesh_modes(1 if mesh is None else mesh.size, fused_epoch)
+    if mesh is not None:
+        check_mesh_modes(mesh.size, fused_epoch, multi_epoch,
+                         mesh.backend if mesh.device.type == "cuda" else None)
     learning, data_cfg = cfg.learning, cfg.data
     writer = mesh is None or mesh.rank == 0
     orbax_dir = join(model_dir, "orbax")
@@ -353,7 +373,7 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
     if fused_epoch:
         graphs = batcher.fused_epoch_runner(trainer)
         validate = ValidationGraph(trainer.model, *eval_batcher.stacked_epoch(),
-                                   pool=graphs.pool, stream=graphs.stream)
+                                   pool=graphs.pool, stream=graphs.stream, mesh=mesh)
         result.graphs, result.validation = graphs, validate
         if multi_epoch > 1:
             window = WindowRunner(graphs.run_epoch, validate, trainer.model)
@@ -375,7 +395,7 @@ def train_network(experiment_name: str, train_set, validate_set, trainer: Cooper
         t0 = time.perf_counter()
         staged = stage_draws(raw_source, epochs, n_steps, batcher.policy, batcher.raw_bs,
                              data_cfg.pad_hw, batcher.step_batch, data_cfg.crop_hw,
-                             trainer.latent_da, device, **draw_kw)
+                             trainer.latent_da, device, mesh=mesh, **draw_kw)
         return staged, time.perf_counter() - t0
 
     def record(i_epoch, losses, branches, confusion, train_sec, val_sec, draw_sec,

@@ -43,7 +43,21 @@ tick once at a capture and never at a replay: each graph keeps its counts
 at capture (``launches``) and its replays, and :func:`launched` turns the
 counters' ticks over a run into the launches the card made.
 
-On the CPU (the tests) the same bodies run uncaptured, step by step.
+Over a data-parallel mesh (``parallel/mesh.py``; the JAX package's
+``fused_epoch_runner(mesh=)``) a step's graph is (gather, augmentation of
+the global batch, this rank's rows, the sharded step), and BatchNorm's
+all-reduces, the gradients' and the metrics' averages are captured in it:
+that needs a mesh whose collectives can be captured (``Mesh.capturable``:
+NCCL); the batcher's ``fused_epoch_runner`` refuses any other on the
+card.  The eager first occurrence of a tuple also makes NCCL's
+communicator before any capture.  ``Mesh.calls`` ticks at a capture as the launch counters do:
+each graph keeps its collectives at capture (``collectives``) and
+:func:`launched` adds them once a replay.  Validation's confusion matrix
+is summed over the ranks by one all-reduce after its graph's replay,
+outside the graph.
+
+On the CPU (the tests) the same bodies run uncaptured, step by step, gloo's
+collectives included.
 """
 
 from __future__ import annotations
@@ -97,12 +111,15 @@ def launched(ticks: Dict[str, int], steps: Sequence["StepGraphs"] = (),
     ``ticks`` (by name) and whose graphs were ``steps`` and
     ``validations``, each with all of its captures and replays inside the
     run: the ticks less the captures' counts (a capture launches nothing)
-    plus each graph's counts once a replay."""
+    plus each graph's counts once a replay.  With a ``"collectives"``
+    entry in ``ticks`` (a mesh's ``calls`` over the run), the collectives
+    the rank ran, counted the same way."""
     out = dict(ticks)
-    graphs = [(c.launches, steps_.replays[key]) for steps_ in steps
-              for key, c in steps_.graphs.items()]
-    graphs += [(v.launches, v.replays) for v in validations if v.graph is not None]
-    for counts, replays in graphs:
+    graphs = [(c, steps_.replays[key]) for steps_ in steps for key, c in steps_.graphs.items()]
+    graphs += [(v, v.replays) for v in validations if v.graph is not None]
+    for g, replays in graphs:
+        counts = ({**g.launches, "collectives": g.collectives} if "collectives" in out
+                  else g.launches)
         for k, n in counts.items():
             out[k] = out.get(k, 0) + (replays - 1) * n
     return out
@@ -132,14 +149,15 @@ def branch_key(draws: StepDraws) -> Tuple:
 
 class _Captured:
     """One captured graph, its static inputs and output, and what its
-    capture cost and launched."""
+    capture cost, launched and called of the mesh's collectives."""
 
-    def __init__(self, graph, idx, flats, out, launches, seconds):
+    def __init__(self, graph, idx, flats, out, launches, collectives, seconds):
         self.graph = graph
         self.idx = idx
         self.flats = flats
         self.out = out
         self.launches = launches
+        self.collectives = collectives
         self.seconds = seconds
 
     def replay(self, idx: torch.Tensor, staged: StagedStep, out: torch.Tensor) -> None:
@@ -165,14 +183,19 @@ class StepGraphs:
     (``ops/augment.py:make_batch_train_pipeline_indexed``) gathers from
     ``images`` and ``labels`` (the dataset on the device) and augments, one
     CUDA graph per :func:`branch_key`, captured on first use (see the
-    module docstring).  On the card the trainer must be ``capturable``; on
-    the CPU every step runs uncaptured."""
+    module docstring).  Under a ``mesh`` (the trainer put in data-parallel
+    mode on it) each step trains on this rank's rows of the augmented
+    global batch, and the staged step draws must be the rank's rows
+    (``draws.stage_draws(mesh=)``).  On the card the trainer must be
+    ``capturable`` and the mesh's collectives capturable; on the CPU every
+    step runs uncaptured."""
 
     def __init__(self, trainer: CooperativeTrainer, pipeline: Callable,
-                 images: torch.Tensor, labels: torch.Tensor):
+                 images: torch.Tensor, labels: torch.Tensor, mesh=None):
         self.trainer = trainer
         self.pipeline = pipeline
         self.images, self.labels = images, labels
+        self.mesh = mesh
         self.graphed = images.device.type == "cuda"
         if self.graphed and not trainer.capturable:
             raise ValueError("a graphed train step needs CooperativeTrainer(capturable=True): "
@@ -184,9 +207,11 @@ class StepGraphs:
         self.eager_steps = 0
 
     def body(self, idx: torch.Tensor, augment, step: StepDraws) -> torch.Tensor:
-        """Gather, augment, one train step: the step's metrics stacked in
-        ``METRIC_KEYS`` order, (10,) float32."""
+        """Gather, augment, (this rank's rows,) one train step: the step's
+        metrics stacked in ``METRIC_KEYS`` order, (10,) float32."""
         batch = self.pipeline(augment, self.images, self.labels, idx)
+        if self.mesh is not None:
+            batch = {k: self.mesh.rows(v) for k, v in batch.items()}
         metrics = self.trainer.train_step(batch["image"], batch["label"], step)
         return torch.stack([metrics[k] for k in METRIC_KEYS])
 
@@ -234,13 +259,18 @@ class StepGraphs:
         augment, step = views_into((staged.augment, staged.step), flats)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
+        calls = _calls(self.mesh)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             out = self.body(s_idx, augment, step)
         torch.cuda.synchronize(idx.device)
         seconds = time.perf_counter() - t0
         launches = {k: v - before[k] for k, v in launch_counts().items()}
-        return _Captured(graph, s_idx, flats, out, launches, seconds)
+        return _Captured(graph, s_idx, flats, out, launches, _calls(self.mesh) - calls, seconds)
+
+
+def _calls(mesh) -> int:
+    return 0 if mesh is None else mesh.calls
 
 
 class ValidationGraph:
@@ -252,14 +282,18 @@ class ValidationGraph:
     after an eager run on ``stream`` (which gives that call's result), and
     replayed after; on the CPU it runs uncaptured.  It reads the model's
     parameters and running statistics where they live, so it follows the
-    training that updates them in place."""
+    training that updates them in place.  Under a ``mesh`` the stacked
+    epoch is this rank's rows and ``real`` its counts of real rows
+    (``stacked_epoch`` over the mesh), and each call sums the confusion
+    matrix over the ranks by one all-reduce after the graph, outside it."""
 
     def __init__(self, model, images: torch.Tensor, labels: torch.Tensor,
                  real: torch.Tensor, n_iter: int = 2, pool=None,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None, mesh=None):
         self.model = model
         self.images, self.labels, self.real = images, labels, real
         self.n_iter = n_iter
+        self.mesh = mesh
         self.graphed = images.device.type == "cuda"
         if self.graphed:
             self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
@@ -268,18 +302,28 @@ class ValidationGraph:
         self.out: Optional[torch.Tensor] = None
         self.replays = 0
         self.launches: Dict[str, int] = {}  # the kernels' counts at its capture
+        self.collectives = 0  # its graph captures none: the confusion's sum runs after it
 
     def body(self) -> torch.Tensor:
         return self.model.validation_confusion(self.images, self.labels, self.real, self.n_iter)
 
     def __call__(self, out: torch.Tensor) -> torch.Tensor:
-        """Validate into ``out`` (C, C) int64; returns ``out``."""
+        """Validate into ``out`` (C, C) int64 (summed over the mesh's
+        ranks); returns ``out``."""
+        self._validate(out)
+        if self.mesh is not None:
+            self.mesh.all_reduce_(out)
+        return out
+
+    def _validate(self, out: torch.Tensor) -> None:
         if not self.graphed:
-            return out.copy_(self.body())
+            out.copy_(self.body())
+            return
         if self.graph is not None:
             self.graph.replay()
             self.replays += 1
-            return out.copy_(self.out)
+            out.copy_(self.out)
+            return
         _side_stream_call(self.stream, lambda: out.copy_(self.body()))
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
@@ -287,4 +331,3 @@ class ValidationGraph:
             self.out = self.body()
         self.launches = {k: v - before[k] for k, v in launch_counts().items()}
         self.graph = graph
-        return out

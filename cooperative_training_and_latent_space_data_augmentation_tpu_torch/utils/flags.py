@@ -96,8 +96,8 @@ REGISTRY: Tuple[Flag, ...] = (
          "train.driver:train_network.pipeline_epoch"),
     Flag("n_devices", None, "int",
          "one process on one device",
-         f"PERF.md section 5, data-parallel ranks (two gloo ranks sharing one card, "
-         f"{CARD}); NCCL across two cards not measured",
+         f"PERF.md section 5, data-parallel ranks (two gloo ranks sharing one card; one "
+         f"NCCL rank's sharded fused epoch; {CARD}); NCCL across two cards not measured",
          "cli/train.py:n_ranks", "n_devices", None),
     Flag("capturable", False, "bool",
          "Adam's step on the host; no CUDA graph (set by --fused_epoch on the card)",

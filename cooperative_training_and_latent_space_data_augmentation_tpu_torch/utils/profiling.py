@@ -186,10 +186,16 @@ def cost_summary(fn: Callable, *args, peak_flops: float = PEAK_FLOPS["bfloat16"]
 
 
 # ---------------------------------------------------------- profiler traces
+NCCL_GROUP = "NCCL collectives"
+
+
 def _group(name: str) -> str:
     """The row of a kernel name in the device-time tables: the port's
-    kernels by their ``csrc`` names, cuDNN and cuBLAS, copies, the rest."""
+    kernels by their ``csrc`` names, NCCL's collectives, cuDNN and cuBLAS,
+    copies, the rest."""
     low = name.lower()
+    if "nccl" in low:
+        return NCCL_GROUP
     if "conv3x3_nl_dw" in name:
         return "K5dw conv3x3_nl_dw"
     if "conv3x3_nl" in name:

@@ -19,8 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "cooperative_training_and_latent_space_data_augmentation_tpu")
 PORT = JAX_PKG + "_torch"
 
-QUEUE_3A = ("reason: queue 1 item 3a of ROADMAP.md, the captured sharded step and the "
-            "sharded fused epoch, waits for NCCL across two cards")
+QUEUE_3A = ("two NCCL ranks on two cards, unrun: the card's machine has one card (ROADMAP.md, "
+            "the benchmark's candidate multi-card cell)")
 
 STAIRCASE = ("reason: the staircase conv is ported as ops/fast_conv.py:staircase_conv3x3 and "
              "pick_pack_factor, but no conv routes to it: on the H100 it takes 7.3-10.0x "
@@ -58,7 +58,6 @@ NAMES = {
     "ops.masking:MaskSettings": "config:MaskConfig",
     "ops.masking:USE_PALLAS_MASK": "reason: K3 always thresholds on the card "
                                    "(ops/percentile_mask.py); its plain version on the CPU",
-    "parallel.mesh:replicate_sharding": QUEUE_3A,
     "train.cooperative:CooperativeTripletSolver": "train.cooperative:CooperativeTrainer",
     "train.cooperative:NETWORK_TYPES": "train.predictor:NETWORK_TYPES",
     "train.multi_epoch:make_window_runner": "train.multi_epoch:WindowRunner",
@@ -90,7 +89,10 @@ KNOBS = {
     "FUSED_EPOCH": "flag:fused_epoch",
     "PIPELINE_EPOCH": "flag:pipeline_epoch",
     "MULTI_EPOCH": "flag:multi_epoch",
-    "FULL_SHAPE_SHARDING": QUEUE_3A,
+    "FULL_SHAPE_SHARDING": "reason: the gate of JAX's 192^2 sharded-against-one-device test; "
+                           "the port's full-shape sharded fused epoch runs in chip_smoke.py's "
+                           "sharded phase (FCN_16_standard at 192^2, bf16, batch 20, one NCCL "
+                           "rank); " + QUEUE_3A,
     "BENCH_BATCH": "reason: the JAX bench's harness knob; the port's benchmark is not written "
                    "yet (ROADMAP.md)",
     "BENCH_DTYPE": "flag:bf16",

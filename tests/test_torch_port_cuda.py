@@ -25,8 +25,9 @@ for bit (deterministic cuDNN); the warp arms graphed; and the baselines'
 ``SegmentationSolver``: an f32 step on the card against the CPU, a bf16
 ``predict`` of FCN_16 against its f32 twin, and a JAX ``.msgpack``
 checkpoint loaded on the card; K1, K1 dx, K2 and K3 at N = 10, a rank's
-shard of the batch of 20, and the data-parallel step of two gloo ranks
-sharing the card against one process (``parallel/mesh.py``).
+shard of the batch of 20, the data-parallel step of two gloo ranks
+sharing the card against one process (``parallel/mesh.py``), and one NCCL
+rank's captured sharded step against its eager sharded step.
 
 Needs an NVIDIA GPU with sm_90a and nvcc; without one every test skips.
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -1015,12 +1016,9 @@ def test_k6_and_k6dx_match_plain(cuda, n, c_in, c_out, h, w, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k6dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
     """On the card conv3x3_b8_dx folds the flip into the kernel's wall
-    reads: it builds no flipped copy of the wall, and one call launches one
-    kernel, K6's."""
-    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.profile_predict import (
-        _group,
-    )
-
+    reads: it builds no flipped copy of the wall (``flip_wall`` refused)
+    and one call launches K6 once (its wrappers' counters: dx once,
+    forward and dw not at all)."""
     dt = getattr(torch, dtype)
     _, dy, w_all = _nl_inputs(cuda, 3, 24, 40, 12, 16, dt, 9)
     want = conv_b8.conv3x3_b8_plain(dy, conv_chw.flip_wall(w_all).contiguous(), 12, 16)
@@ -1031,9 +1029,11 @@ def test_k6dx_reads_the_unflipped_wall(cuda, dtype, monkeypatch):
 
     monkeypatch.setattr(conv_chw, "flip_wall", refuse)
     monkeypatch.setattr(conv_b8, "flip_wall", refuse)
+    wrappers = (conv_b8.conv3x3_b8, conv_b8.conv3x3_b8_dx, conv_b8.conv3x3_b8_dw)
+    before = [w.launches for w in wrappers]
+    got = conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16)
     torch.cuda.synchronize()
-    names, got = _traced_kernels(lambda: conv_b8.conv3x3_b8_dx(dy, w_all, 12, 16))
-    assert len(names) == 1 and _group(names[0]).startswith("K6 "), names
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 1, 0]
     scale = want.float().abs().max().item()
     atol = _bf16_ulp(scale) if dtype == "bfloat16" else 1e-5 * scale
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
@@ -2020,6 +2020,31 @@ def test_two_rank_step_on_card_matches_one_process(cuda, tmp_path):
             for k, v in state.items():
                 assert torch.equal(v, ranks[1][field][name][k]), (field, name, k)
 
+
+
+def test_one_nccl_rank_replays_the_sharded_step_bit_for_bit(cuda, tmp_path):
+    """One NCCL rank on the card (``parallel.mesh.launch(fn, 1, "cuda")``):
+    the sharded step, BatchNorm's all-reduces and the gradient and metric
+    averages captured into a CUDA graph with the gather and the
+    augmentation, replayed twice after its eager first step, bit for bit
+    equal to a twin trainer's eager sharded steps on the same rows and
+    draws (metrics, then the whole state); the graph's collectives at
+    capture equal each eager step's ``Mesh.calls``."""
+    import torch_port_ddp_ranks as R
+
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    lda = LatentDAConfig(image_code=MaskConfig("mse", "channel"),
+                         shape_code=MaskConfig("ce", "spatial"))
+    (backend, equal, same, collectives, calls, replays), = pmesh.launch(
+        R.captured_sharded_steps, 1, "cuda", str(tmp_path / "store"),
+        args=(lda, 3, GRAPH_PAD, GRAPH_CROP, 4))
+    assert backend == "nccl"
+    assert equal == [True] * 3 and same
+    assert replays == 2 and len(collectives) == 1 and collectives[0] > 0
+    assert calls == collectives * 3
 
 
 # ------------------------------------------------------------ the model tools

@@ -171,15 +171,20 @@ def test_backend_rule():
         pmesh.make_mesh(2)
 
 
-def test_fused_epoch_over_ranks_is_refused():
-    with pytest.raises(ValueError, match="cannot capture"):
-        check_mesh_modes(2, True)
+def test_fused_epoch_over_ranks_is_refused(monkeypatch):
+    """Where its CUDA graphs cannot capture the ranks' collectives: gloo
+    ranks sharing one card.  NCCL ranks (a card each) and CPU ranks (whose
+    fused bodies run uncaptured) run it (test_torch_port_ddp_epoch.py)."""
+    with pytest.raises(ValueError, match="cannot be captured"):
+        check_mesh_modes(2, True, 0, "gloo")
     check_mesh_modes(1, True)
-    check_mesh_modes(2, False)
-    args = cli.parse_args(["--synthetic", "--n_devices", "2", "--fused_epoch",
-                           "--device", "cpu"])
+    check_mesh_modes(2, False, 0, "gloo")
+    check_mesh_modes(2, True, 0, "nccl")
+    check_mesh_modes(2, True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)  # two ranks share one card
+    args = cli.parse_args(["--synthetic", "--n_devices", "2", "--fused_epoch"])
     cfg, name = cli.load_config(args)
-    with pytest.raises(ValueError, match="cannot capture"):
+    with pytest.raises(ValueError, match="cannot be captured"):
         cli.run(args, cfg, name)
 
 

@@ -7,8 +7,13 @@ and returns plain host values, which the parent holds against JAX's
 sharded step and against the port's one-process step.
 """
 
+import os
+
 import torch
 
+from cooperative_training_and_latent_space_data_augmentation_tpu_torch.config import (
+    ExperimentConfig,
+)
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.data.loader import (
     CooperativeBatcher,
     EvalBatcher,
@@ -28,6 +33,7 @@ from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.dra
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.driver import (
     GeneratorDraws,
     eval_dispatch,
+    train_network,
 )
 from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.predictor import (
     MODULE_NAMES,
@@ -135,3 +141,106 @@ def checkpoint_case(mesh, lda, sd, directory, image, label, draws, single):
     mesh.barrier()
     fresh = CooperativeTrainer(lda, device="cpu", seed=mesh.rank + 5)
     return whole_state(trainer), whole_state(checkpoint.restore_checkpoint(single, fresh))
+
+
+class Recorded:
+    """A draw source (``train/driver.py``) that hands out recorded
+    augmentation and step draws in call order."""
+
+    def __init__(self, augments, steps):
+        self.augments, self.steps = list(augments), list(steps)
+
+    def augment(self, epoch, policy, n, pad_hw):
+        return self.augments.pop(0)
+
+    def step(self, n, hw, latent_da, **kw):
+        return self.steps.pop(0)
+
+
+def run_record(trainer, result):
+    """What a ``train_network`` run left on this rank, on the host: each
+    epoch's losses, branches, confusion matrix and scores, the best
+    epoch, the files written, the graphs' counts, every module's state
+    dict and Adam's state per parameter."""
+    graphs = result.graphs
+    return {
+        "epochs": [(e.epoch, e.losses, e.branches, e.confusion, e.iou, e.acc)
+                   for e in result.epochs],
+        "best": (result.best_epoch, result.best_score, result.last_epoch),
+        "written": result.written,
+        "graphs": None if graphs is None else (graphs.eager_steps, sum(graphs.replays.values())),
+        "state": whole_state(trainer),
+    }
+
+
+def epoch_runs(mesh, cfg_dict, state_dicts, root, runs, draws=None):
+    """``train_network`` over ``mesh`` once for each ``(tag, keywords)`` of
+    ``runs`` (``fused_epoch``, ``pipeline_epoch``), each from
+    ``state_dicts`` on the configuration ``cfg_dict``'s phantoms (training
+    seed 0, validation seed 1), into ``root/tag``, on the recorded
+    ``draws`` ((augment, step) lists) or the loop's own: each run's
+    :func:`run_record`."""
+    torch.set_num_threads(1)
+    cfg = ExperimentConfig.from_dict(cfg_dict)
+    data = cfg.data
+    out = {}
+    for tag, kw in runs:
+        trainer = CooperativeTrainer(cfg.latent_DA if cfg.learning.latent_DA else None,
+                                     learning_rate=cfg.learning.lr, device=mesh.device)
+        trainer.model.load_state_dicts(state_dicts)
+        sets = [SyntheticSegDataset(length=n, pad_size=data.pad_hw, seed=s)
+                for n, s in ((cfg_dict["n_train"], 0), (cfg_dict["n_val"], 1))]
+        result = train_network(tag, *sets, trainer, cfg, os.path.join(root, tag, "model"),
+                               log_dir=os.path.join(root, tag, "log"), log=True, seed=40,
+                               draws=None if draws is None else Recorded(*draws), mesh=mesh,
+                               **kw)
+        out[tag] = run_record(trainer, result)
+    return out
+
+
+def epoch_cases(mesh, cases):
+    """:func:`epoch_runs` for each argument tuple of ``cases``, in one
+    start of the ranks."""
+    return [epoch_runs(mesh, *case) for case in cases]
+
+
+def captured_sharded_steps(mesh, lda, n_steps, pad_hw, crop_hw, batch):
+    """On a card a rank (NCCL): ``n_steps`` steps of batch ``batch`` under
+    ``lda`` (one branch tuple), replayed from a CUDA graph of the sharded
+    step after the first (eager, then captured), each against a twin
+    capturable trainer's eager sharded step on the same rows and draws.
+    Returns (the backend, each step's metrics equal, the states equal, the
+    graph's collectives at capture, the twin's collectives a step,
+    replays)."""
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.draws import (
+        stage_draws,
+    )
+    from cooperative_training_and_latent_space_data_augmentation_tpu_torch.train.graphs import (
+        StepGraphs,
+    )
+
+    batcher = CooperativeBatcher(SyntheticSegDataset(length=4, pad_size=pad_hw, seed=0), batch,
+                                 POLICY, pad_hw, crop_hw, device=mesh.device, mesh=mesh)
+    trainers = [CooperativeTrainer(lda, learning_rate=1e-3, compute_dtype=torch.bfloat16,
+                                   device=mesh.device, seed=0, capturable=True)
+                for _ in range(2)]
+    graphs = []
+    for t in trainers:
+        shard_train_step(t, mesh)
+        graphs.append(StepGraphs(t, batcher.pipeline_idx, *batcher.device_dataset(), mesh=mesh))
+    staged = stage_draws(GeneratorDraws(1), [0], n_steps, batcher.policy, batcher.raw_bs, pad_hw,
+                         batcher.step_batch, crop_hw, lda, mesh.device, mesh=mesh)
+    idx = torch.from_numpy(batcher.epoch_index_matrix()[0]).to(mesh.device)
+    got = torch.empty((n_steps, 10), device=mesh.device)
+    equal, calls = [], []
+    for k, s in enumerate(staged.steps):
+        graphs[0].run(idx, s, got[k])
+        before = mesh.calls
+        want = graphs[1].body(idx, s.augment, s.step)
+        calls.append(mesh.calls - before)
+        equal.append(bool(torch.equal(got[k], want)))
+    (m0, a0), (m1, a1) = whole_state(trainers[0]), whole_state(trainers[1])
+    same = (all(torch.equal(m0[n][k], m1[n][k]) for n in m0 for k in m0[n])
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a0, a1) for k in x))
+    return (mesh.backend, equal, same, [c.collectives for c in graphs[0].graphs.values()], calls,
+            sum(graphs[0].replays.values()))
